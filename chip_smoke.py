@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card: builds the codec's
+CUDA kernels, holds each against its plain PyTorch version, and serves
+full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases (any failure raises and the script exits non-zero):
+
+  1. the card's name and power limit (nvidia-smi); build the kernels;
+  2. kernels: K1 minmax_bucketed, K2 encode_packed, K3 decode_packed
+     against their plain versions on the card, bit for bit (payload,
+     params, decoded values), at the full-width qwen1.5-0.5b geometry
+     for bits 8/4/2 and on an unaligned multi-bucket buffer; CUDA-event
+     timings at the rq8 full-width shapes beside the bytes bound;
+  3. serve: ServeConfig(reduced=False, slots=4, 8 requests) on fp32
+     weights with TF32 off; 3 ticks, publish a fresh rq8 checkpoint,
+     swap, run to completion; hot == cold tokens on a probe; a flipped
+     bit is rejected; every kernel launched on that path;
+  4. a codec cross-check on a small input: the card's published bytes
+     and CRC equal the CPU's (plain versions).
+
+The last stdout line is {"ok": true, "device": {...}}; the line before
+it holds the card's name and power limit, and the one before that the
+JSON summary of the kernels.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+REPS = 20
+FULL_ARCH = "qwen1.5-0.5b"
+# JAX's flat_geometry on jax.eval_shape(transformer_scan.init) at full
+# width: the port's tree must give the same wire geometry
+FULL_TOTAL = 463_987_712
+FULL_BUCKETS = 111
+FULL_TAIL = 2_614_272
+
+TPU_KERNEL = "src/repro/kernels/quant/kernel.py"
+SOURCE = "src/repro_torch/csrc/quant.cu"
+KERNELS = {  # name -> the TPU kernel it replaces (its bucketed form)
+    "minmax_bucketed": f"{TPU_KERNEL}:246",
+    "encode_packed": f"{TPU_KERNEL}:203",
+    "decode_packed": f"{TPU_KERNEL}:394",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median over ``reps`` runs, each between two CUDA events (after a
+    warm-up run)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ---------------------------------------------------------------------------
+# kernels phase
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(padded, total: int, key, *, bits: int, bucket_elems: int,
+                  timed: bool = False) -> dict:
+    """K1/K2/K3 against their plain versions on the same card tensors;
+    returns max_abs_err per kernel (and timings when ``timed``)."""
+    import torch
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    x4, u4, x3, u3, params, (nb, rows_b, rt) = ops._bucket_views(
+        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    cap = padded.numel() // nb
+    x2 = padded.view(nb, cap)
+    xr = x2.view(nb, cap // ops.LANES, ops.LANES)
+    pack = 8 // bits
+    res = {}
+
+    # K1
+    mm = kernel.minmax_bucketed(xr)
+    lo, hi = ref.minmax_bucketed(x2)
+    want = torch.stack([lo, hi], dim=1)
+    if not bits_equal(mm, want):
+        raise AssertionError(f"K1 minmax_bucketed != plain (bits={bits})")
+    res["minmax_bucketed"] = {"max_abs_err": max_abs(mm, want)}
+
+    # K2 over the head buckets and the tail, as encode_flat launches it
+    def k2():
+        outs = []
+        if nb > 1:
+            outs.append(kernel.encode_packed(x4, u4, params[:nb - 1],
+                                             bits=bits))
+        outs.append(kernel.encode_packed(x3, u3, params[nb - 1:],
+                                         bits=bits))
+        return outs
+
+    def k2_plain():
+        outs = []
+        if nb > 1:
+            outs.append(ref.encode_packed_bucketed(
+                x4, u4, params[:nb - 1, 0], params[:nb - 1, 1], bits=bits))
+        outs.append(ref.encode_packed_bucketed(
+            x3, u3, params[nb - 1:, 0], params[nb - 1:, 1], bits=bits))
+        return outs
+
+    got, want = k2(), k2_plain()
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K2 encode_packed != plain (bits={bits})")
+    res["encode_packed"] = {"max_abs_err": max(max_abs(g, w) for g, w in
+                                               zip(got, want))}
+    payloads = got
+
+    # K3 on those payloads
+    def k3():
+        outs = []
+        if nb > 1:
+            outs.append(kernel.decode_packed(payloads[0], params[:nb - 1],
+                                             bits=bits))
+        outs.append(kernel.decode_packed(payloads[-1], params[nb - 1:],
+                                         bits=bits))
+        return outs
+
+    def k3_plain():
+        outs = []
+        if nb > 1:
+            outs.append(ref.decode_packed_bucketed(
+                payloads[0], params[:nb - 1, 0], params[:nb - 1, 1],
+                bits=bits))
+        outs.append(ref.decode_packed_bucketed(
+            payloads[-1], params[nb - 1:, 0], params[nb - 1:, 1], bits=bits))
+        return outs
+
+    got, want = k3(), k3_plain()
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K3 decode_packed != plain (bits={bits})")
+    res["decode_packed"] = {"max_abs_err": max(max_abs(g, w) for g, w in
+                                               zip(got, want))}
+    # the quantizer's own bound: every decoded value within one step
+    # (its bucket's scale) of the input
+    dec = torch.cat([g.reshape(-1) for g in got])
+    src = torch.cat(([x4.reshape(-1)] if nb > 1 else [])
+                    + [x3.reshape(-1)])
+    step = torch.cat(([params[:nb - 1, 1].repeat_interleave(cap)]
+                      if nb > 1 else [])
+                     + [params[nb - 1:, 1].expand(x3.numel())])
+    if not bool(((dec - src).abs() <= step * 1.0001).all()):
+        raise AssertionError(f"decoded values off by more than one step "
+                             f"(bits={bits})")
+    del got, want, dec, src, step
+
+    if timed:
+        elems = x3.numel() + (x4.numel() if nb > 1 else 0)
+        res["minmax_bucketed"].update(
+            ms=time_ms(lambda: kernel.minmax_bucketed(xr)),
+            plain_ms=time_ms(lambda: ref.minmax_bucketed(x2)),
+            library_ms=time_ms(lambda: torch.aminmax(x2, dim=1)),
+            bound_ms=(x2.numel() * 4 + nb * 8) / HBM_BYTES_PER_S * 1e3)
+        res["encode_packed"].update(
+            ms=time_ms(k2), plain_ms=time_ms(k2_plain), library_ms=None,
+            bound_ms=(elems * 8 + elems // pack + nb * 8)
+            / HBM_BYTES_PER_S * 1e3)
+        res["decode_packed"].update(
+            ms=time_ms(k3), plain_ms=time_ms(k3_plain), library_ms=None,
+            bound_ms=(elems // pack + elems * 4 + nb * 8)
+            / HBM_BYTES_PER_S * 1e3)
+    return res
+
+
+def kernels_phase(torch) -> dict:
+    from repro_torch import configs
+    from repro_torch.core import compression, prng
+    from repro_torch.kernels.quant import ops
+    from repro_torch.models import transformer_scan
+
+    mc = configs.get_config(FULL_ARCH)
+    params = transformer_scan.init(mc, transformer_scan.generator(1, "cuda"))
+    layout = compression.FlatLayout.from_tree(params)
+    _, cap, nb, _, _ = ops.flat_geometry(layout.total, bits=8)
+    tail = layout.total - (nb - 1) * cap
+    log(f"[kernels] full-width {FULL_ARCH}: {layout.total} elements, "
+        f"{nb} buckets of {cap}, tail {tail}")
+    if (layout.total, nb, tail) != (FULL_TOTAL, FULL_BUCKETS, FULL_TAIL):
+        raise AssertionError("port parameter tree does not give the JAX "
+                             "package's full-width wire geometry")
+
+    errs: dict = {}
+    timing: dict = {}
+
+    def merge(res):
+        for name, r in res.items():
+            errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+
+    for bits in (8, 4, 2):
+        _, cap, nb, _, _ = ops.flat_geometry(layout.total, bits=bits)
+        padded = layout.flatten(params, padded_len=nb * cap)
+        res = check_kernels(padded, layout.total, prng.PRNGKey(bits),
+                            bits=bits, bucket_elems=ops.DEFAULT_BUCKET_ELEMS,
+                            timed=(bits == 8))
+        merge(res)
+        if bits == 8:
+            timing = res
+        del padded
+        torch.cuda.empty_cache()
+        log(f"[kernels] full width bits={bits}: K1 K2 K3 bit-identical to "
+            "plain")
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for total, be in ((3 * (1 << 22) + 12_345, ops.DEFAULT_BUCKET_ELEMS),
+                      (300_001, 4096)):
+        flat = torch.randn(total, generator=g, device="cuda") * 0.05
+        for bits in (8, 4, 2):
+            _, cap, nb, _, _ = ops.flat_geometry(total, bits=bits,
+                                                 bucket_elems=be)
+            merge(check_kernels(ops.edge_pad(flat, nb * cap), total,
+                                prng.PRNGKey(total + bits), bits=bits,
+                                bucket_elems=be))
+        log(f"[kernels] unaligned total={total} bucket_elems={be}: "
+            "bits 8/4/2 bit-identical to plain")
+    del params
+    torch.cuda.empty_cache()
+    for name in KERNELS:
+        timing[name]["max_abs_err"] = errs[name]
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# serve phase (the main path)
+# ---------------------------------------------------------------------------
+
+
+def serve_phase(torch) -> dict:
+    from repro_torch import serve
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.models import transformer_scan
+
+    cfg = serve.ServeConfig(arch=FULL_ARCH, reduced=False, slots=4,
+                            n_requests=8, prompt_len=32,
+                            mixed_gen=(8, 16, 32), max_len=65,
+                            temperature=0)
+    eng = serve.Engine(cfg)
+    channel = serve.CheckpointChannel()
+    eng.subscribe(channel)
+    reqs = serve.synthetic_requests(cfg)
+    eng.warmup([cfg.prompt_len])
+    trained = transformer_scan.init(eng.model_cfg,
+                                    transformer_scan.generator(7, "cuda"))
+    torch.cuda.synchronize()
+
+    kernel.reset_launches()
+    eng._t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r.tokens, r.max_new_tokens, rid=r.rid)
+    for _ in range(3):
+        eng.step()
+    t0 = time.perf_counter()
+    pub = channel.publish(trained, step=1, codec="rq8")
+    torch.cuda.synchronize()
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    swapped = eng.maybe_swap()
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    torch.cuda.synchronize()
+    launches = kernel.launch_counts()
+    stats = eng.stats()
+
+    c = eng.counters
+    log(f"[serve] completed={c['completed']} dropped={c['dropped']} "
+        f"swaps={c['swaps']} launches={launches}")
+    if not swapped or (c["completed"], c["dropped"], c["swaps"]) != (8, 0, 1):
+        raise AssertionError(f"serve run: {c}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "serve path")
+    for comp in eng.completions.values():
+        if len(comp.tokens) != reqs[comp.rid].max_new_tokens or not all(
+                0 <= t < eng.model_cfg.vocab for t in comp.tokens):
+            raise AssertionError(f"request {comp.rid}: bad stream")
+
+    # hot == cold: a probe on the swapped engine against a cold engine
+    # started from the same published checkpoint
+    probe = reqs[0].tokens[::-1].copy()
+    rid = eng.submit(probe, 8)
+    eng.run()
+    cold = serve.Engine(cfg, params=serve.CheckpointChannel.decode(pub))
+    cid = cold.submit(probe, 8)
+    cold.run()
+    if eng.result(rid).tokens != cold.result(cid).tokens:
+        raise AssertionError("hot-swapped engine != cold start")
+    log(f"[serve] probe hot == cold: {eng.result(rid).tokens}")
+    del cold
+
+    # a flipped bit must be rejected with the params untouched
+    before = eng.params
+    channel.publish_packed(compression.flip_bit(pub.packed, 77), pub.crc,
+                           step=2)
+    if eng.maybe_swap() or eng.params is not before or \
+            eng.counters["swaps_rejected"] != 1:
+        raise AssertionError("corrupt checkpoint was not rejected")
+    log("[serve] flipped-bit checkpoint rejected, params unchanged")
+
+    out = {"tokens_per_s": stats["tokens_per_s"],
+           "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "decode_steps": stats["decode_steps"],
+           "generated_tokens": stats["generated_tokens"],
+           "wall_s": stats["wall_s"], "publish_ms": publish_ms,
+           "swap_ms": swap_ms, "wire_mb": pub.wire_bytes / 1e6,
+           "launches": launches}
+    log("[serve] " + json.dumps(out))
+    log("[serve] breakdown " + json.dumps(breakdown(torch, eng, pub)))
+    return out
+
+
+def host_ms(torch, fn, reps: int = 5) -> float:
+    """Mean host-clock time of ``fn`` over ``reps`` runs, synchronized
+    (after a warm-up run)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def breakdown(torch, eng, pub) -> dict:
+    """Where the serve path's time goes, piece by piece at full width:
+    one decode step over the 4 slots, one 32-token bulk prefill, one
+    bucket's threefry uniform draw (of the 111 a publish makes), the
+    host CRC over the checkpoint, and the decode of it (K3)."""
+    from repro_torch.core import compression, prng
+    from repro_torch.serve import engine as engine_mod
+
+    state = engine_mod._clone(eng._state)
+    toks = torch.zeros((1, eng.cfg.prompt_len), dtype=torch.long,
+                       device="cuda")
+    codec = compression.codec(pub.codec)
+    return {
+        "decode_step_ms": host_ms(torch, lambda: eng._serve_step(
+            eng.params, state, {"tokens": eng._tokens})),
+        "prefill_32_ms": host_ms(torch, lambda: eng._prefill(
+            toks, prng.PRNGKey(0)), reps=2),
+        "uniform_draw_per_bucket_ms": host_ms(torch, lambda: prng.uniform(
+            prng.PRNGKey(0), (1, 8192, 512), device="cuda")),
+        "crc_ms": host_ms(torch, lambda: compression.wire_crc32(pub.packed),
+                          reps=2),
+        "tree_decode_ms": host_ms(torch, lambda: codec.tree_decode_flat(
+            pub.packed), reps=3),
+    }
+
+
+def cross_device_check(torch) -> None:
+    """The same small checkpoint published on the card and on the CPU
+    (plain versions): equal payload, params and CRC."""
+    from repro_torch import configs, serve
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer_scan
+
+    mc = configs.get_config(FULL_ARCH).reduced()
+    params = transformer_scan.init(mc, transformer_scan.generator(5))
+    gpu = serve.CheckpointChannel().publish(
+        pytree.tree_map(lambda a: a.cuda(), params), step=3)
+    cpu = serve.CheckpointChannel().publish(params, step=3)
+    if gpu.crc != cpu.crc or not bits_equal(gpu.packed.payload.cpu(),
+                                            cpu.packed.payload) \
+            or not bits_equal(gpu.packed.params.cpu(), cpu.packed.params):
+        raise AssertionError("card and CPU publish different bytes")
+    dec_g = serve.CheckpointChannel.decode(gpu)
+    dec_c = serve.CheckpointChannel.decode(cpu)
+    for a, b in zip(pytree.tree_leaves(dec_g), pytree.tree_leaves(dec_c)):
+        if not bits_equal(a.cpu(), b):
+            raise AssertionError("card and CPU decode differently")
+    log(f"[check] reduced {FULL_ARCH} checkpoint: card == CPU bytes, CRC "
+        f"0x{gpu.crc:08x}, decode")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from repro_torch.kernels.quant import kernel
+
+    card = smi_line()
+    log(f"[card] {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    kernel.build(force=True)
+    log(f"[build] {kernel.LIBRARY.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    timing = kernels_phase(torch)
+    served = serve_phase(torch)
+    cross_device_check(torch)
+
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "repro.")))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
+
+    rows = []
+    for name, replaces in KERNELS.items():
+        t = timing[name]
+        row = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": replaces, "launches": served["launches"][name],
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": "bytes", "library_ms": t["library_ms"]}
+        log(json.dumps({"kernel": name, "kernel_ms": t["ms"],
+                        "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"],
+                        "launches": row["launches"],
+                        "library_ms": t["library_ms"]}))
+        rows.append(row)
+    log(json.dumps({"kernels": rows}))
+    log(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
+
+Module paths mirror ``repro``: ``repro/x/y.py`` has its counterpart in
+``repro_torch/x/y.py``. The package imports torch and numpy only — never
+jax and nothing of ``repro`` — and its entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+
+Ported so far: the serving path (``serve``, ``models.transformer_scan``
+for attention-only stacks, ``train.steps``' serve and prefill step
+factories) and the rq8/rq4/rq2 checkpoint codec (``core.compression`` on
+the ``kernels.quant`` CUDA kernels, ``csrc/quant.cu``).
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

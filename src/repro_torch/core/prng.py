@@ -1,0 +1,149 @@
+"""Threefry-2x32 counter PRNG, bit-compatible with ``jax.random``.
+
+The counterpart of JAX's default ``threefry2x32`` implementation with
+the **partitionable** bit layout (``jax_threefry_partitionable=True``,
+the default of current JAX): element i of a draw of any shape hashes
+the 64-bit counter i, split into (hi, lo) 32-bit words, under the key,
+and 32 random bits are ``hash_0 ^ hash_1``. ``fold_in`` and ``split``
+use the same fold-like layout. The legacy (non-partitionable) layout is
+not implemented: ``check_layout`` refuses it.
+
+Every codec draw goes through here (``bucket_key = fold_in(key, b)``,
+then ``uniform(k, (pack, R, 512))``), which is what lets the port's
+published checkpoint bytes equal the JAX package's.
+
+Arithmetic is int64 holding uint32 values with ``& 0xFFFFFFFF`` after
+every add and shift, in plain torch on either device. The same round
+function also runs on Python ints, which is how the (tiny) key
+derivations run without touching a device.
+
+A key is a length-2 int64 tensor of uint32 values on the CPU, the shape
+and values of a raw ``jax.random.PRNGKey``.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def check_layout(partitionable: bool) -> None:
+    """Refuse a reference that draws with the legacy bit layout."""
+    if not partitionable:
+        raise NotImplementedError(
+            "repro_torch.core.prng implements only the partitionable "
+            "threefry layout (jax_threefry_partitionable=True); the legacy "
+            "layout gives different bits and is not ported")
+
+
+def _rotl(v, r: int):
+    return ((v << r) & M32) | (v >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds), on Python ints or int64
+    tensors holding uint32 values. Returns (y0, y1)."""
+    ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & M32)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def _ints(key) -> tuple[int, int]:
+    k = key.tolist() if isinstance(key, torch.Tensor) else list(key)
+    if len(k) != 2:
+        raise ValueError(f"a raw threefry key has 2 words, got {k}")
+    return int(k[0]) & M32, int(k[1]) & M32
+
+
+def _key(k0: int, k1: int) -> torch.Tensor:
+    return torch.tensor([k0, k1], dtype=torch.int64)
+
+
+def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 (mirrors jax.random)
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: [0, seed]."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 32):
+        raise ValueError(f"seed {seed} outside 32 bits")
+    return _key(0, seed & M32)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: hash the counter (0, data) under key."""
+    k0, k1 = _ints(key)
+    return _key(*threefry2x32(k0, k1, 0, int(data) & M32))
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: (num, 2) keys; key i hashes counter i."""
+    k0, k1 = _ints(key)
+    out = [threefry2x32(k0, k1, i >> 32, i & M32) for i in range(num)]
+    return torch.tensor(out, dtype=torch.int64).reshape(num, 2)
+
+
+def _counters(n: int, device) -> tuple:
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & M32
+
+
+def random_bits(key, shape: Sequence[int], *,
+                device: Union[str, torch.device, None] = None
+                ) -> torch.Tensor:
+    """32 random bits per element (uint32 values in int64)."""
+    shape = tuple(int(d) for d in shape)
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    k0, k1 = _ints(key)
+    hi, lo = _counters(n, device)
+    y0, y1 = threefry2x32(k0, k1, hi, lo)
+    return (y0 ^ y1).reshape(shape)
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """[0, 1) floats from the top 23 bits, the JAX way: mantissa bits
+    under exponent 0 (a float in [1, 2)), minus 1 — exact."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform(key, shape: Sequence[int], *,
+            device: Union[str, torch.device, None] = None,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``. XLA
+    contracts ``u * span + lo`` into one FMA, so the product and sum run
+    in float64 (the product is exact there) and round once."""
+    u = _bits_to_unit(random_bits(key, shape, device=device))
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo = np.float32(minval)
+    span = np.float32(np.float32(maxval) - lo)
+    out = (u.double() * float(span) + float(lo)).float()
+    return torch.clamp_min(out, float(lo))
+
+
+def gumbel(key, shape: Sequence[int], *,
+           device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode "low"): -log(-log(u)), u on
+    [tiny, 1). Each log runs in float64 and rounds once to float32, as
+    each of JAX's float32 logs rounds once; XLA's log may still differ
+    in the last bit, which moves a categorical draw only if two classes
+    tie to within that bit."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, shape, device=device, minval=tiny, maxval=1.0)
+    inner = (-torch.log(u.double())).float()
+    return (-torch.log(inner.double())).float()
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical``: argmax(gumbel + logits) along axis."""
+    g = gumbel(key, logits.shape, device=logits.device)
+    return torch.argmax(g + logits.float(), dim=axis)

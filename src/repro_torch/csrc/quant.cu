@@ -1,0 +1,254 @@
+// Hand-written Hopper (sm_90a) kernels for the rq8/rq4/rq2 codec of the
+// checkpoint wire: per-bucket min/max (K1), quantize + bit-pack (K2) and
+// unpack + dequantize (K3). Plain C interface, loaded with ctypes by
+// repro_torch/kernels/quant/kernel.py, which allocates every buffer,
+// checks shapes and passes PyTorch's current stream.
+//
+// Build (done at first use by kernel.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
+//        -Xcompiler -fPIC -o build/repro_torch/libquant.so quant.cu
+// No --use_fast_math: the division in K2 and the multiply-add in K3 must
+// round exactly as the JAX reference does (see each kernel).
+//
+// Layout (the JAX package's wire format): a bucket of pack * R * 512 fp32
+// elements is pack contiguous segments of R x 512; payload byte (r, c) of
+// the bucket holds the b-bit code of segment k at bits [k*b, (k+1)*b).
+// params is (B, 2) fp32: [lo, scale] per bucket for K2/K3, K1 writes
+// [lo, hi].
+//
+// All three are bound by device memory, not arithmetic: each element is
+// read once and written once, with coalesced accesses (neighbouring
+// threads touch neighbouring addresses in every segment). A bucket is
+// spread over many blocks (grid.y = bucket, grid.x strides over it), so
+// the 110-odd buckets of a full-width checkpoint fill all 132 SMs.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// min/max that propagate NaN, as jnp.minimum / torch.amin do.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Reduce (lo, hi) over the block; thread 0 holds the result.
+__device__ __forceinline__ void block_minmax(float& lo, float& hi) {
+  __shared__ float s_lo[kThreads / 32];
+  __shared__ float s_hi[kThreads / 32];
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = nan_min(lo, __shfl_down_sync(0xffffffffu, lo, off));
+    hi = nan_max(hi, __shfl_down_sync(0xffffffffu, hi, off));
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    lo = lane < kThreads / 32 ? s_lo[lane] : INFINITY;
+    hi = lane < kThreads / 32 ? s_hi[lane] : -INFINITY;
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = nan_min(lo, __shfl_down_sync(0xffffffffu, lo, off));
+      hi = nan_max(hi, __shfl_down_sync(0xffffffffu, hi, off));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 minmax_bucketed. Replaces repro/kernels/quant/kernel.py
+// minmax_bucketed (and the range statistics of encode_packed[_bucketed]).
+// The TPU kernel carried the running range across a sequential grid in
+// its output block; blocks here run in no order, so each block reduces
+// its strided share of one bucket to a partial (lo, hi) and a second,
+// small launch folds a bucket's partials. min and max are exact, so the
+// order of reduction cannot change the result.
+// Bound: bytes — reads B * cap * 4 bytes once.
+// ---------------------------------------------------------------------------
+__global__ void minmax_partial_kernel(const float* __restrict__ x,
+                                      float2* __restrict__ partial,
+                                      long long cap) {
+  const long long b = blockIdx.y;
+  const float* xb = x + b * cap;
+  float lo = INFINITY, hi = -INFINITY;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < cap;
+       i += (long long)gridDim.x * kThreads) {
+    const float v = xb[i];
+    lo = nan_min(lo, v);
+    hi = nan_max(hi, v);
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) partial[b * gridDim.x + blockIdx.x] = make_float2(lo, hi);
+}
+
+__global__ void minmax_final_kernel(const float2* __restrict__ partial,
+                                    float* __restrict__ out, int nblk) {
+  const long long b = blockIdx.x;
+  float lo = INFINITY, hi = -INFINITY;
+  for (int i = threadIdx.x; i < nblk; i += kThreads) {
+    const float2 p = partial[b * nblk + i];
+    lo = nan_min(lo, p.x);
+    hi = nan_max(hi, p.y);
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) {
+    out[2 * b] = lo;
+    out[2 * b + 1] = hi;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 encode_packed. Replaces repro/kernels/quant/kernel.py
+// encode_packed_bucketed (full buckets) and encode_packed (the tail, run
+// here as B = 1). One thread per output byte: it reads the pack segment
+// values and uniforms of its byte position, rounds each stochastically
+// and ORs code << k*bits. The division is __fdiv_rn, the correctly
+// rounded fp32 quotient XLA computes for (x - lo) / scale.
+// Bound: bytes — reads 8 B per element (x and u), writes 1/pack B.
+// ---------------------------------------------------------------------------
+template <int BITS>
+__global__ void encode_packed_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ params,
+                                     uint8_t* __restrict__ out,
+                                     long long row_elems) {
+  constexpr int kPack = 8 / BITS;
+  constexpr float kLevels = (float)((1 << BITS) - 1);
+  const long long b = blockIdx.y;
+  const float lo = params[2 * b];
+  const float scale = params[2 * b + 1];
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < row_elems; i += (long long)gridDim.x * kThreads) {
+    unsigned acc = 0;
+#pragma unroll
+    for (int k = 0; k < kPack; ++k) {
+      const long long j = (b * kPack + k) * row_elems + i;
+      const float norm = __fdiv_rn(x[j] - lo, scale);
+      const float fl = floorf(norm);
+      const float frac = norm - fl;
+      float q = fl + (u[j] < frac ? 1.0f : 0.0f);
+      q = fminf(fmaxf(q, 0.0f), kLevels);
+      acc |= ((unsigned)q) << (k * BITS);
+    }
+    out[b * row_elems + i] = (uint8_t)acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 decode_packed. Replaces repro/kernels/quant/kernel.py
+// decode_packed_bucketed (full buckets) and decode_packed (the tail, as
+// B = 1). One thread per payload byte writes its pack dequantized values,
+// code * scale + lo as ONE fused multiply-add (__fmaf_rn): XLA contracts
+// the reference's multiply and add into an FMA, so a separate multiply
+// and add would differ in the last bit.
+// Bound: bytes — reads 1/pack B, writes 4 B per element.
+// ---------------------------------------------------------------------------
+template <int BITS>
+__global__ void decode_packed_kernel(const uint8_t* __restrict__ payload,
+                                     const float* __restrict__ params,
+                                     float* __restrict__ out,
+                                     long long row_elems) {
+  constexpr int kPack = 8 / BITS;
+  constexpr unsigned kMask = (1u << BITS) - 1u;
+  const long long b = blockIdx.y;
+  const float lo = params[2 * b];
+  const float scale = params[2 * b + 1];
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < row_elems; i += (long long)gridDim.x * kThreads) {
+    const unsigned p = payload[b * row_elems + i];
+#pragma unroll
+    for (int k = 0; k < kPack; ++k) {
+      const float code = (float)((p >> (k * BITS)) & kMask);
+      out[(b * kPack + k) * row_elems + i] = __fmaf_rn(code, scale, lo);
+    }
+  }
+}
+
+// Blocks along one bucket: enough to cover it once, but no more than
+// keeps ~64 resident blocks per SM across all buckets.
+unsigned blocks_per_bucket(long long elems, long long n_buckets) {
+  long long want = (elems + kThreads - 1) / kThreads;
+  long long cap = (132LL * 64) / (n_buckets > 0 ? n_buckets : 1);
+  if (cap < 1) cap = 1;
+  if (want > cap) want = cap;
+  return (unsigned)(want < 1 ? 1 : want);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (B, cap) fp32; partial: (B, nblk) float2 scratch; out: (B, 2) fp32.
+int quant_minmax_bucketed(const void* x, void* partial, void* out,
+                          long long n_buckets, long long cap, int nblk,
+                          void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || cap < 1 || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  minmax_partial_kernel<<<dim3(nblk, (unsigned)n_buckets), kThreads, 0, s>>>(
+      (const float*)x, (float2*)partial, cap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  minmax_final_kernel<<<(unsigned)n_buckets, kThreads, 0, s>>>(
+      (const float2*)partial, (float*)out, nblk);
+  return (int)cudaGetLastError();
+}
+
+// Blocks per bucket K1 launches for a bucket of cap elements (the
+// wrapper sizes the partial scratch with it).
+int quant_minmax_blocks(long long n_buckets, long long cap) {
+  return (int)blocks_per_bucket(cap, n_buckets);
+}
+
+// x, u: (B, pack, R, 512) fp32; params: (B, 2); out: (B, R, 512) uint8.
+int quant_encode_packed(const void* x, const void* u, const void* params,
+                        void* out, long long n_buckets, long long rows,
+                        int bits, void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long row_elems = rows * 512;
+  const dim3 grid(blocks_per_bucket(row_elems, n_buckets), (unsigned)n_buckets);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* uf = (const float*)u;
+  const float* pf = (const float*)params;
+  uint8_t* o = (uint8_t*)out;
+  switch (bits) {
+    case 8: encode_packed_kernel<8><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
+    case 4: encode_packed_kernel<4><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
+    case 2: encode_packed_kernel<2><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// payload: (B, R, 512) uint8; params: (B, 2); out: (B, pack, R, 512) fp32.
+int quant_decode_packed(const void* payload, const void* params, void* out,
+                        long long n_buckets, long long rows, int bits,
+                        void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long row_elems = rows * 512;
+  const dim3 grid(blocks_per_bucket(row_elems, n_buckets), (unsigned)n_buckets);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* p = (const uint8_t*)payload;
+  const float* pf = (const float*)params;
+  float* o = (float*)out;
+  switch (bits) {
+    case 8: decode_packed_kernel<8><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
+    case 4: decode_packed_kernel<4><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
+    case 2: decode_packed_kernel<2><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

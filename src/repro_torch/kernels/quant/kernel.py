@@ -1,0 +1,229 @@
+"""ctypes wrappers for the codec's hand-written CUDA kernels
+(``repro_torch/csrc/quant.cu``), with their plain versions beside them.
+
+  K1 ``minmax_bucketed``  per-bucket [lo, hi]       (B, R, 512) f32 -> (B, 2)
+  K2 ``encode_packed``    quantize + bit-pack       (B, pack, R, 512) -> (B, R, 512) u8
+  K3 ``decode_packed``    unpack + dequantize       (B, R, 512) u8 -> (B, pack, R, 512)
+
+Each replaces a pair of the JAX package's Pallas kernels: the bucketed
+form on the full buckets, and the per-leaf form as B = 1 on the tail.
+
+Dispatch follows the tensor: a CPU tensor takes the plain version in
+``ref.py``; a CUDA tensor launches the kernel on PyTorch's current
+stream or raises — there is no fallback. Each wrapper counts its CUDA
+launches in ``<wrapper>.launches`` (``reset_launches`` zeroes them).
+
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/repro_torch/libquant.so`` under the checkout (rebuilt when the
+source is newer), never at import: importing this module needs no
+compiler and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.quant import ref
+
+LANES = 512
+_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
+SOURCE = _PKG / "csrc" / "quant.cu"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+LIBRARY = BUILD_DIR / "libquant.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH): the "
+                           "codec's CUDA kernels cannot be built")
+    return found
+
+
+def build(*, force: bool = False) -> Path:
+    """Compile ``quant.cu`` into ``libquant.so`` unless an up-to-date
+    build exists. Raises with the compiler's output on failure."""
+    if (not force and LIBRARY.exists()
+            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+        return LIBRARY
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_name(f".{LIBRARY.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return LIBRARY
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.quant_minmax_bucketed.argtypes = [vp, vp, vp, ll, ll, i, vp]
+            lib.quant_minmax_blocks.argtypes = [ll, ll]
+            lib.quant_encode_packed.argtypes = [vp, vp, vp, vp, ll, ll, i,
+                                                vp]
+            lib.quant_decode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp]
+            for fn in (lib.quant_minmax_bucketed, lib.quant_minmax_blocks,
+                       lib.quant_encode_packed, lib.quant_decode_packed):
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one, else raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
+             device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+
+
+def _bits_ok(bits: int) -> int:
+    if bits not in (8, 4, 2):
+        raise ValueError(f"bits must be 8, 4 or 2, got {bits}")
+    return 8 // bits
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def minmax_bucketed(x3: torch.Tensor) -> torch.Tensor:
+    """K1: (B, R, 512) fp32 bucket view -> (B, 2) fp32 [lo, hi]."""
+    if x3.dim() != 3 or x3.shape[2] != LANES:
+        raise ValueError(f"minmax_bucketed: need (B, R, {LANES}), got "
+                         f"{tuple(x3.shape)}")
+    if not _on_cuda(x3, "minmax_bucketed"):
+        lo, hi = ref.minmax_bucketed(x3)
+        return torch.stack([lo, hi], dim=1)
+    b, r, _ = x3.shape
+    _require(x3, "minmax_bucketed x", torch.float32, (b, r, LANES), x3.device)
+    lib = _load()
+    cap = r * LANES
+    nblk = lib.quant_minmax_blocks(b, cap)
+    partial = torch.empty((b, nblk, 2), dtype=torch.float32,
+                          device=x3.device)
+    out = torch.empty((b, 2), dtype=torch.float32, device=x3.device)
+    _check(lib.quant_minmax_bucketed(x3.data_ptr(), partial.data_ptr(),
+                                     out.data_ptr(), b, cap, nblk,
+                                     _stream()), "minmax_bucketed")
+    minmax_bucketed.launches += 1
+    return out
+
+
+def encode_packed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
+                  *, bits: int, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """K2: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
+    (B, R, 512) uint8 payload (into ``out`` when given)."""
+    pack = _bits_ok(bits)
+    if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
+        raise ValueError(f"encode_packed: need (B, {pack}, R, {LANES}) for "
+                         f"bits={bits}, got {tuple(x4.shape)}")
+    b, _, r, _ = x4.shape
+    if not _on_cuda(x4, "encode_packed"):
+        res = ref.encode_packed_bucketed(x4, u4, params[:, 0], params[:, 1],
+                                         bits=bits)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    dev = x4.device
+    _require(x4, "encode_packed x", torch.float32, (b, pack, r, LANES), dev)
+    _require(u4, "encode_packed u", torch.float32, (b, pack, r, LANES), dev)
+    _require(params, "encode_packed params", torch.float32, (b, 2), dev)
+    if out is None:
+        out = torch.empty((b, r, LANES), dtype=torch.uint8, device=dev)
+    _require(out, "encode_packed out", torch.uint8, (b, r, LANES), dev)
+    _check(_load().quant_encode_packed(x4.data_ptr(), u4.data_ptr(),
+                                       params.data_ptr(), out.data_ptr(), b,
+                                       r, bits, _stream()), "encode_packed")
+    encode_packed.launches += 1
+    return out
+
+
+def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: (B, R, 512) uint8 + params (B, 2) [lo, scale] ->
+    (B, pack, R, 512) fp32 (into ``out`` when given)."""
+    pack = _bits_ok(bits)
+    if payload.dim() != 3 or payload.shape[2] != LANES:
+        raise ValueError(f"decode_packed: need (B, R, {LANES}), got "
+                         f"{tuple(payload.shape)}")
+    b, r, _ = payload.shape
+    if not _on_cuda(payload, "decode_packed"):
+        res = ref.decode_packed_bucketed(payload, params[:, 0],
+                                         params[:, 1], bits=bits)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    dev = payload.device
+    _require(payload, "decode_packed payload", torch.uint8, (b, r, LANES),
+             dev)
+    _require(params, "decode_packed params", torch.float32, (b, 2), dev)
+    if out is None:
+        out = torch.empty((b, pack, r, LANES), dtype=torch.float32,
+                          device=dev)
+    _require(out, "decode_packed out", torch.float32, (b, pack, r, LANES),
+             dev)
+    _check(_load().quant_decode_packed(payload.data_ptr(), params.data_ptr(),
+                                       out.data_ptr(), b, r, bits,
+                                       _stream()), "decode_packed")
+    decode_packed.launches += 1
+    return out
+
+
+KERNELS = (minmax_bucketed, encode_packed, decode_packed)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launches()

@@ -1,0 +1,177 @@
+"""Bucketed flat-buffer codec: geometry, uniform draws and kernel dispatch.
+
+The port of the parts of ``repro.kernels.quant.ops`` on the checkpoint
+wire's path (``encode_flat`` / ``decode_flat`` and their geometry). The
+wire layout is the JAX package's, byte for byte:
+
+  * the flat fp32 buffer is cut into buckets of ``cap`` elements (a
+    granule-aligned cap on ``bucket_elems``); bucket b owns elements
+    [b*cap, (b+1)*cap) and one [lo, scale] params row;
+  * the buffer is edge-padded ONCE to n_buckets * cap by repeating its
+    last REAL element, so the pad never moves a bucket's (lo, hi);
+  * full buckets are segment-packed as (pack, Rb, 512) views and go to
+    ONE bucketed kernel launch; the last (tail) bucket is padded only to
+    the pack*512 granule, gets its own Rt = ceil(t / granule) rows, and
+    goes as a B = 1 launch of the same kernel;
+  * bucket b draws its uniforms under ``bucket_key(key, b)`` =
+    ``fold_in(key, b)`` with the port's threefry, which gives the JAX
+    package's bits — so the published payload equals JAX's.
+
+Dispatch follows the tensor's device (see ``kernel.py``): the CUDA
+kernels for a CUDA buffer, the plain versions for a CPU one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels.quant import kernel, ref
+
+LANES = 512
+
+# Elements per quantization bucket (4Mi elements = 16 MiB fp32 per
+# bucket); one [lo, scale] params row each. repro_torch.core.compression
+# re-exports it.
+DEFAULT_BUCKET_ELEMS = 1 << 22
+
+
+def _align_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flat_geometry(total: int, *, bits: int,
+                  bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+    """Static bucket geometry for a flat buffer of ``total`` elements.
+
+    Returns (pack, cap, n_buckets, rows_per_bucket, rows_kept):
+      cap             elements per full bucket (granule-aligned cap on
+                      ``bucket_elems``, shrunk for small buffers);
+      rows_per_bucket payload rows each full bucket contributes;
+      rows_kept       total payload rows on the wire — Rb per full bucket
+                      plus the tail bucket's granule-aligned Rt.
+    """
+    if total <= 0:
+        raise ValueError(f"empty flat buffer (total={total})")
+    pack = 8 // bits
+    granule = pack * LANES
+    cap = _align_up(min(bucket_elems, total), granule)
+    n_buckets = -(-total // cap)
+    rows_b = cap // granule
+    tail = total - (n_buckets - 1) * cap
+    rows_kept = (n_buckets - 1) * rows_b + -(-tail // granule)
+    return pack, cap, n_buckets, rows_b, rows_kept
+
+
+def edge_pad(flat: torch.Tensor, padded_len: int) -> torch.Tensor:
+    """``flat`` followed by copies of its last element, ``padded_len``
+    long (``flat`` itself when no pad is needed)."""
+    n = flat.shape[0]
+    if padded_len == n:
+        return flat
+    out = torch.empty((padded_len,), dtype=flat.dtype, device=flat.device)
+    out[:n] = flat
+    out[n:] = flat[n - 1]
+    return out
+
+
+def bucket_key(key, b: int):
+    """Bucket b's uniform-draw key: fold_in(key, b)."""
+    return prng.fold_in(key, b)
+
+
+def bucket_params(x2: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Per-bucket (n_buckets, 2) [lo, scale] rows from ONE read of the
+    (n_buckets, cap) view (K1), scale finalized in plain torch."""
+    nb, cap = x2.shape
+    mm = kernel.minmax_bucketed(x2.reshape(nb, cap // LANES, LANES))
+    lo, hi = mm[:, 0], mm[:, 1]
+    return torch.stack([lo, ref.scale_of(lo, hi, bits)], dim=1)
+
+
+def _bucket_views(padded: torch.Tensor, total: int, key, *, bits: int,
+                  bucket_elems: int):
+    """Head/tail segment views of an edge-padded buffer, their uniforms
+    and the per-bucket params."""
+    pack, cap, nb, rows_b, _ = flat_geometry(total, bits=bits,
+                                             bucket_elems=bucket_elems)
+    if padded.shape != (nb * cap,) or padded.dtype != torch.float32:
+        raise ValueError(f"need an edge-padded ({nb * cap},) fp32 buffer, "
+                         f"got {tuple(padded.shape)} {padded.dtype}")
+    granule = pack * LANES
+    head_elems = (nb - 1) * cap
+    t = total - head_elems
+    rt = -(-t // granule)
+    dev = padded.device
+    params = bucket_params(padded.view(nb, cap), bits=bits)
+    x4 = u4 = None
+    if nb > 1:
+        x4 = padded[:head_elems].view(nb - 1, pack, rows_b, LANES)
+        u4 = torch.empty_like(x4)
+        for b in range(nb - 1):
+            u4[b] = prng.uniform(bucket_key(key, b), (pack, rows_b, LANES),
+                                 device=dev)
+    x3 = padded[head_elems:head_elems + rt * granule].view(1, pack, rt,
+                                                           LANES)
+    u3 = prng.uniform(bucket_key(key, nb - 1), (1, pack, rt, LANES),
+                      device=dev)
+    return x4, u4, x3, u3, params, (nb, rows_b, rt)
+
+
+def encode_padded(padded: torch.Tensor, total: int, key, *, bits: int = 8,
+                  bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+    """``encode_flat`` of a buffer already edge-padded to n_buckets * cap
+    (what ``FlatLayout.flatten(tree, padded=True)`` produces)."""
+    x4, u4, x3, u3, params, (nb, rows_b, rt) = _bucket_views(
+        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    head_rows = (nb - 1) * rows_b
+    payload = torch.empty((head_rows + rt, LANES), dtype=torch.uint8,
+                          device=padded.device)
+    if nb > 1:
+        kernel.encode_packed(x4, u4, params[:nb - 1], bits=bits,
+                             out=payload[:head_rows].view(nb - 1, rows_b,
+                                                          LANES))
+    kernel.encode_packed(x3, u3, params[nb - 1:], bits=bits,
+                         out=payload[head_rows:].view(1, rt, LANES))
+    return payload, params
+
+
+def encode_flat(flat: torch.Tensor, key, *, bits: int = 8,
+                bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+    """Bucketed encode of a flat fp32 buffer.
+
+    Returns (payload uint8 (rows_kept, 512), params fp32 (n_buckets, 2)).
+    Wire bytes = payload.nbytes + params.nbytes."""
+    flat = flat.reshape(-1).float()
+    total = flat.shape[0]
+    _, cap, nb, _, _ = flat_geometry(total, bits=bits,
+                                     bucket_elems=bucket_elems)
+    return encode_padded(edge_pad(flat, nb * cap), total, key, bits=bits,
+                         bucket_elems=bucket_elems)
+
+
+def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
+                bits: int = 8, bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                ) -> torch.Tensor:
+    """Unpack + dequantize a bucketed wire payload to (total,) fp32: the
+    full buckets decode straight into the output, the tail through a
+    Rt-row temporary trimmed to its t real elements."""
+    pack, cap, nb, rows_b, rows_kept = flat_geometry(
+        total, bits=bits, bucket_elems=bucket_elems)
+    if tuple(payload.shape) != (rows_kept, LANES) or \
+            tuple(params.shape) != (nb, 2):
+        raise ValueError(
+            f"wire shapes {tuple(payload.shape)}, {tuple(params.shape)} do "
+            f"not match total={total} bits={bits} bucket_elems="
+            f"{bucket_elems}: expected ({rows_kept}, {LANES}), ({nb}, 2)")
+    head_rows = (nb - 1) * rows_b
+    head_elems = (nb - 1) * cap
+    rt = rows_kept - head_rows
+    out = torch.empty((total,), dtype=torch.float32, device=payload.device)
+    if nb > 1:
+        kernel.decode_packed(
+            payload[:head_rows].view(nb - 1, rows_b, LANES), params[:nb - 1],
+            bits=bits, out=out[:head_elems].view(nb - 1, pack, rows_b, LANES))
+    tail = kernel.decode_packed(payload[head_rows:].view(1, rt, LANES),
+                                params[nb - 1:], bits=bits)
+    out[head_elems:] = tail.reshape(-1)[:total - head_elems]
+    return out

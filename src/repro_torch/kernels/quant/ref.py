@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the codec kernels (the CPU path and the
+yardstick ``chip_smoke.py`` holds the CUDA kernels against).
+
+Bit-for-bit equal to the JAX package's jitted reference
+(``repro.kernels.quant.ref`` under XLA) given the same uniforms, which
+takes three choices that a literal transcription gets wrong:
+
+  * scale = ``(hi - lo) * f32(1 / levels)``: XLA compiles the division
+    by the constant ``levels`` as a multiply by its fp32 reciprocal;
+  * decode = ``code * scale + lo`` with ONE rounding: XLA contracts it
+    into a fused multiply-add. In float64 the product is exact (a code
+    has at most 8 bits, scale 24), so rounding the float64 sum once to
+    float32 matches the FMA (in all but sums that need more than 53
+    bits, i.e. a bucket whose range is a few ulps of its offset);
+  * encode = a true fp32 division ``(x - lo) / scale``.
+
+Layouts follow ``repro.kernels.quant``: a bucket of pack * R * 512
+elements is pack contiguous (R, 512) segments, and payload byte (r, c)
+packs ``code_k << k * bits`` over the segments k.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def levels_of(bits: int) -> int:
+    return (1 << bits) - 1
+
+
+def minmax_bucketed(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-bucket (lo, hi) of a (B, cap) view; NaN propagates."""
+    x2 = x2.reshape(x2.shape[0], -1).float()
+    return x2.amin(dim=1), x2.amax(dim=1)
+
+
+def scale_of(lo: torch.Tensor, hi: torch.Tensor, bits: int) -> torch.Tensor:
+    """``where(hi > lo, (hi - lo) * f32(1/levels), 1)``, the jitted form."""
+    inv = float(np.float32(1.0 / levels_of(bits)))
+    return torch.where(hi > lo, (hi - lo) * inv, torch.ones_like(lo))
+
+
+def _bcast(v: torch.Tensor) -> torch.Tensor:
+    """(B,) per-bucket param -> broadcastable against (B, pack, R, C)."""
+    return v.reshape(-1, 1, 1, 1)
+
+
+def encode(x: torch.Tensor, u: torch.Tensor, lo, scale, *,
+           bits: int) -> torch.Tensor:
+    """Stochastic round to b-bit codes (uint8)."""
+    norm = (x.float() - lo) / scale
+    floor = torch.floor(norm)
+    q = floor + (u < (norm - floor)).float()
+    return torch.clamp(q, 0.0, float(levels_of(bits))).to(torch.uint8)
+
+
+def decode(codes: torch.Tensor, lo, scale) -> torch.Tensor:
+    """``codes * scale + lo`` rounded once (see the module note)."""
+    lo = lo.double() if isinstance(lo, torch.Tensor) else float(lo)
+    scale = scale.double() if isinstance(scale, torch.Tensor) \
+        else float(scale)
+    return (codes.double() * scale + lo).float()
+
+
+def encode_packed_bucketed(x4: torch.Tensor, u4: torch.Tensor,
+                           lo: torch.Tensor, scale: torch.Tensor, *,
+                           bits: int) -> torch.Tensor:
+    """(B, pack, R, C) segments + per-bucket (B,) params -> (B, R, C)."""
+    codes = encode(x4, u4, _bcast(lo), _bcast(scale), bits=bits)
+    pack = codes.shape[1]
+    if pack != 8 // bits:
+        raise ValueError(f"pack {pack} does not match bits {bits}")
+    acc = torch.zeros(codes.shape[:1] + codes.shape[2:], dtype=torch.int32,
+                      device=codes.device)
+    for k in range(pack):
+        acc |= codes[:, k].to(torch.int32) << (k * bits)
+    return acc.to(torch.uint8)
+
+
+def unpack_codes(payload: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """(B, R, C) uint8 payload -> (B, pack, R, C) codes."""
+    pack = 8 // bits
+    shifts = (torch.arange(pack, dtype=torch.int32, device=payload.device)
+              * bits).reshape(1, pack, 1, 1)
+    return (payload.to(torch.int32).unsqueeze(1) >> shifts) \
+        & levels_of(bits)
+
+
+def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
+                           scale: torch.Tensor, *,
+                           bits: int) -> torch.Tensor:
+    """(B, R, C) payload + per-bucket (B,) params -> (B, pack, R, C)."""
+    return decode(unpack_codes(payload, bits=bits), _bcast(lo),
+                  _bcast(scale))

@@ -1,0 +1,122 @@
+"""GQA attention: the cached one-token decode path.
+
+The port of ``repro.models.attention``'s parameter init, RoPE, the
+reference grouped-query SDPA (fp32 softmax) and the KV cache (full, or a
+ring buffer of ``window`` slots), in fp32 or bf16. The int8 KV cache,
+M-RoPE, cross attention and the full-sequence prefill paths come with
+later slices.
+
+The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
+with ``jax.vmap``. Here the slot axis is a batch dimension written out:
+``cursor`` is (B,), every row writes its own (ring) slot and masks its
+own history. ``decode_attention`` updates the cache IN PLACE (the ring
+buffers are the decode state's bulk; copying them per token buys
+nothing) and returns it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.common import ModelConfig
+
+NEG_INF = -2.0**30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple = (),
+              dtype=torch.float32) -> dict:
+    kw = dict(lead=lead, dtype=dtype)
+    return {
+        "q": layers.dense_init(gen, cfg.d_model, cfg.q_dim,
+                               bias=cfg.qkv_bias, **kw),
+        "k": layers.dense_init(gen, cfg.d_model, cfg.kv_dim,
+                               bias=cfg.qkv_bias, **kw),
+        "v": layers.dense_init(gen, cfg.d_model, cfg.kv_dim,
+                               bias=cfg.qkv_bias, **kw),
+        "o": layers.dense_init(gen, cfg.q_dim, cfg.d_model,
+                               bias=cfg.out_bias, **kw),
+    }
+
+
+def _rotate(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    if cfg.rope_variant == "rope":
+        return layers.apply_rope(x, positions, theta=cfg.rope_theta)
+    if cfg.rope_variant == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (vlm slice)")
+    return x
+
+
+def sdpa_reference(q, k, v, mask, *, softcap: float = 0.0) -> torch.Tensor:
+    """Grouped-query scaled-dot-product attention, fp32 softmax.
+
+    q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); mask bool, broadcastable to
+    (B, Sq, Sk), True = attend.
+    """
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    # (B, Hkv, G, Sq, D) @ (B, Hkv, 1, D, Sk): batched matmuls, the
+    # einsums "bqhgd,bkhd->bhgqk" / "bhgqk,bkhd->bqhgd" without
+    # einsum's per-call planning on the host
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    kt = k.float().permute(0, 2, 3, 1).unsqueeze(2)
+    logits = torch.matmul(qg, kt) / math.sqrt(d)
+    logits = layers.softcap(logits, softcap)
+    m = mask[:, None, None] if mask.dim() == 3 else mask
+    logits = logits.masked_fill(~m, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w, v.float().permute(0, 2, 1, 3).unsqueeze(2))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               window: int = 0, dtype=torch.float32, device=None,
+               lead: tuple = ()) -> dict:
+    """window > 0 -> ring buffer of ``window`` slots; else seq_len slots.
+    ``lead`` prepends stacking dims (the scanned layers' n_rep)."""
+    slots = min(window, seq_len) if window > 0 else seq_len
+    shape = lead + (batch, slots, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position held by each slot (-1 = empty)
+        "slot_pos": torch.full(lead + (batch, slots), -1, dtype=torch.long,
+                               device=device),
+        # next absolute position, per row
+        "cursor": torch.zeros(lead + (batch,), dtype=torch.long,
+                              device=device),
+        "window": window if window > 0 else 0,
+    }
+
+
+def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict) -> tuple:
+    """One-token decode. x: (B, 1, d). Writes the cache in place and
+    returns (out, cache)."""
+    b = x.shape[0]
+    pos = cache["cursor"]                                     # (B,)
+    positions = pos[:, None]
+    q = layers.dense(p["q"], x).view(b, 1, cfg.n_heads, cfg.head_dim)
+    k = layers.dense(p["k"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = layers.dense(p["v"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = _rotate(cfg, q, positions)
+    k = _rotate(cfg, k, positions)
+
+    ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
+    slots = ck.shape[1]
+    window = cache["window"]
+    slot = pos % slots if window > 0 else pos.clamp(max=slots - 1)
+    rows = torch.arange(b, device=x.device)
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    spos[rows, slot] = pos
+
+    # valid slots: filled AND (no window OR within window of pos)
+    valid = spos >= 0
+    if window > 0:
+        valid &= spos > (pos - window)[:, None]
+    out = sdpa_reference(q, ck.to(q.dtype), cv.to(q.dtype), valid[:, None, :],
+                         softcap=cfg.logit_softcap)
+    pos += 1
+    return layers.dense(p["o"], out.reshape(b, 1, cfg.q_dim)), cache

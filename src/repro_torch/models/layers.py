@@ -1,0 +1,109 @@
+"""Shared layer primitives (plain functions over parameter dicts).
+
+The port of ``repro.models.layers``' dense / RMSNorm / RoPE / SiLU-MLP
+pieces (LayerNorm, GELU and M-RoPE come with the models slice). Parameters are nested dicts of tensors with the JAX package's
+keys and shapes (a dense weight is (d_in, d_out), applied as ``x @ w``),
+so a JAX parameter tree converts leaf for leaf (``interop``). Random
+init draws from an explicit ``torch.Generator``; it gives other numbers
+than ``jax.random`` from the same seed, by design — the tests carry JAX's
+parameters across instead.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def normal(gen: torch.Generator, shape: tuple, *, dtype=torch.float32
+           ) -> torch.Tensor:
+    """Standard normal draw on the generator's device."""
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = False, scale: Optional[float] = None,
+               lead: tuple = (), dtype=torch.float32) -> dict:
+    """``lead`` prepends stacking dims (the scanned layers' n_rep)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": (normal(gen, lead + (d_in, d_out)) * scale).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _rmsnorm_only(kind: str) -> None:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm '{kind}' is not ported yet")
+
+
+def norm_init(d: int, kind: str, *, lead: tuple = (), dtype=torch.float32,
+              device=None) -> dict:
+    _rmsnorm_only(kind)
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+
+
+def apply_norm(p: dict, x: torch.Tensor, *, kind: str, eps: float
+               ) -> torch.Tensor:
+    _rmsnorm_only(kind)
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    return (x32 * p["scale"].float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, cached per (head_dim, theta, device): every
+    layer of every decode step asks for the same (D/2,) tensor."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, D/2)
+    ang = ang[..., None, :]                                 # (..., S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, glu: bool,
+             lead: tuple = (), dtype=torch.float32) -> dict:
+    p = {"up": dense_init(gen, d_model, d_ff, lead=lead, dtype=dtype),
+         "down": dense_init(gen, d_ff, d_model, lead=lead, dtype=dtype)}
+    if glu:
+        p["gate"] = dense_init(gen, d_model, d_ff, lead=lead, dtype=dtype)
+    return p
+
+
+def mlp(p: dict, x: torch.Tensor, *, act: str, glu: bool) -> torch.Tensor:
+    if act != "silu":
+        raise NotImplementedError(f"activation '{act}' is not ported yet")
+    a = F.silu
+    up = dense(p["up"], x)
+    h = a(dense(p["gate"], x)) * up if glu else a(up)
+    return dense(p["down"], h)
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)

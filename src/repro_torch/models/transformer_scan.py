@@ -1,0 +1,139 @@
+"""Scan-over-layers model assembly: init and the cached decode step.
+
+The port of ``repro.models.transformer_scan`` for attention-only stacks.
+It keeps the JAX package's parameter tree exactly — ``embed``,
+``final_norm``, ``lm_head`` (untied only), ``prefix_layers``,
+``scan_blocks`` (one block per position of the repeating unit, every
+leaf with a leading ``n_rep`` dim) and ``suffix_layers`` — so the flat
+wire layout of a checkpoint, and a JAX parameter tree carried across
+(``interop.params_from_jax``), line up leaf for leaf. The ``lax.scan``
+over layers becomes a loop over the layer index of the stacked leaves.
+
+The decode state mirrors JAX's ``{prefix, scan, suffix}`` with the batch
+axis written out and a per-row cursor (see ``attention``);
+``decode_step`` updates it in place and returns it. Non-attention block
+kinds raise ``NotImplementedError`` naming the models slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import (ATTN_KINDS, _block_init,
+                                            _ffn_apply, _lm_head,
+                                            _moe_skipped, _norm,
+                                            embed_inputs, not_ported)
+
+
+def pattern_segments(cfg: ModelConfig):
+    """-> (prefix_kinds, unit_kinds, n_rep, suffix_kinds)."""
+    pattern = tuple(cfg.block_pattern)
+    start = 1 if (cfg.moe is not None and _moe_skipped(cfg, 0)) else 0
+    rest = pattern[start:]
+    unit, n_rep = rest[:1] or ("attn",), 0
+    for u in (1, 2, 3, 4, 6):
+        if not rest or len(rest) < u:
+            break
+        reps = len(rest) // u
+        if reps >= 1 and all(rest[i] == rest[i % u] for i in range(reps * u)):
+            unit, n_rep = rest[:u], reps
+            break
+    suffix = rest[n_rep * len(unit):]
+    return pattern[:start], unit, n_rep, suffix
+
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """The explicit parameter-init generator for ``init``."""
+    return torch.Generator(device=torch.device(device or "cpu")
+                           ).manual_seed(int(seed))
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
+         ) -> dict:
+    """Random parameters on ``gen``'s device, in JAX's tree shape."""
+    prefix, unit, n_rep, suffix = pattern_segments(cfg)
+    dev = gen.device
+    params: dict = {
+        "embed": (layers.normal(gen, (cfg.vocab, cfg.d_model)) * 0.02
+                  ).to(dtype),
+        "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dtype=dtype,
+                                       device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
+                                              dtype=dtype)
+    params["prefix_layers"] = [_block_init(gen, cfg, kind, i, dtype=dtype)
+                               for i, kind in enumerate(prefix)]
+    params["scan_blocks"] = [
+        _block_init(gen, cfg, kind, len(prefix) + j, lead=(n_rep,),
+                    dtype=dtype)
+        for j, kind in enumerate(unit)] if n_rep else []
+    off = len(prefix) + n_rep * len(unit)
+    params["suffix_layers"] = [_block_init(gen, cfg, kind, off + i,
+                                           dtype=dtype)
+                               for i, kind in enumerate(suffix)]
+    return params
+
+
+def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                 window: int, dtype, device, lead: tuple = ()) -> dict:
+    if kind not in ATTN_KINDS:
+        raise not_ported(f"block kind '{kind}'")
+    w = cfg.local_window if kind == "local_attn" else window
+    return attention.init_cache(cfg, batch, seq_len, window=w, dtype=dtype,
+                                device=device, lead=lead)
+
+
+def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
+                      seq_len: int, *, window: int = 0,
+                      dtype=torch.float32, device=None) -> dict:
+    prefix, unit, n_rep, suffix = pattern_segments(cfg)
+    if device is None:
+        device = params["embed"].device
+    mk = lambda k, lead=(): _block_state(cfg, k, batch, seq_len, window,  # noqa: E731
+                                         dtype, device, lead)
+    return {
+        "prefix": [mk(k) for k in prefix],
+        "scan": [mk(k, (n_rep,)) for k in unit] if n_rep else [],
+        "suffix": [mk(k) for k in suffix],
+    }
+
+
+def _at(tree, i: int):
+    """Layer i of a stacked dict subtree (views; non-tensor leaves
+    kept). Walks dicts only — the shape of a block's params and cache."""
+    if isinstance(tree, dict):
+        return {k: _at(v, i) for k, v in tree.items()}
+    return tree[i] if isinstance(tree, torch.Tensor) else tree
+
+
+def _block_decode(p: dict, cfg: ModelConfig, layer_idx: int,
+                  x: torch.Tensor, st: dict) -> torch.Tensor:
+    h = _norm(cfg, p["ln1"], x)
+    mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
+    if cfg.parallel_block:
+        return x + mix + _ffn_apply(p["ffn"], cfg, h, layer_idx)
+    x = x + mix
+    h2 = _norm(cfg, p["ln2"], x)
+    return x + _ffn_apply(p["ffn"], cfg, h2, layer_idx)
+
+
+def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
+                state: dict) -> tuple:
+    """One token for the whole stack. inputs: {"tokens": (B, 1)}.
+    Returns (logits (B, 1, V), state) — ``state`` updated in place."""
+    prefix, unit, n_rep, suffix = pattern_segments(cfg)
+    x = embed_inputs(params, cfg, inputs)
+    for i, p in enumerate(params["prefix_layers"]):
+        x = _block_decode(p, cfg, i, x, state["prefix"][i])
+    for r in range(n_rep):
+        for j in range(len(unit)):
+            x = _block_decode(_at(params["scan_blocks"][j], r), cfg,
+                              len(prefix) + j, x,
+                              _at(state["scan"][j], r))
+    off = len(prefix) + n_rep * len(unit)
+    for i, p in enumerate(params["suffix_layers"]):
+        x = _block_decode(p, cfg, off + i, x, state["suffix"][i])
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_head(params, cfg, x), state
