@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: builds the codec's
-CUDA kernels, holds each against its plain PyTorch version, and serves
-full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap.
+CUDA kernels, holds each against its plain PyTorch version, serves
+full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap, and trains
+full-width repro-100m with rq4 + error-feedback gradient compression.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -18,7 +19,18 @@ Phases (any failure raises and the script exits non-zero):
      swap, run to completion; hot == cold tokens on a probe; a flipped
      bit is rejected; every kernel launched on that path;
   4. a codec cross-check on a small input: the card's published bytes
-     and CRC equal the CPU's (plain versions).
+     and CRC equal the CPU's (plain versions);
+  5. train: K4 qdq_bucketed against its plain version and against
+     K3(K2(x)) on the card, bit for bit, at the full-width repro-100m
+     geometry for bits 8/4/2, on the unaligned buffers and on a bucket
+     holding an Inf and a NaN; its CUDA-event time at rq4 beside the
+     bytes bound. Then ~30 AdamW steps of full-width repro-100m (the
+     unrolled tree, batch 8, seq 256, rq4 + error feedback) through the
+     trainer's setup and step: finite, falling losses, K1 once and K4
+     twice a step, comm_bytes equal to the fused message's wire bytes;
+     step time, tokens/s, peak memory and a breakdown of the step; the
+     trained state through save_state / load_state bit for bit; and one
+     reduced step on the card against the CPU.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -27,8 +39,11 @@ JSON summary of the kernels.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,13 +59,24 @@ FULL_TOTAL = 463_987_712
 FULL_BUCKETS = 111
 FULL_TAIL = 2_614_272
 
+TRAIN_ARCH = "repro-100m"
+# JAX's flat_geometry on both of its repro-100m parameter trees at full
+# width (the same at bits 8, 4 and 2)
+TRAIN_TOTAL = 128_994_048
+TRAIN_BUCKETS = 31
+TRAIN_TAIL = 3_164_928
+TRAIN_STEPS = 30
+
 TPU_KERNEL = "src/repro/kernels/quant/kernel.py"
 SOURCE = "src/repro_torch/csrc/quant.cu"
 KERNELS = {  # name -> the TPU kernel it replaces (its bucketed form)
     "minmax_bucketed": f"{TPU_KERNEL}:246",
     "encode_packed": f"{TPU_KERNEL}:203",
     "decode_packed": f"{TPU_KERNEL}:394",
+    "qdq_bucketed": f"{TPU_KERNEL}:187",
 }
+SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
+TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
 
 
 def log(msg: str) -> None:
@@ -74,8 +100,22 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def same_bits(a, b) -> bool:
+    """Equal bits where not NaN, and NaN at the same places (a NaN's
+    payload is not part of the result)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and bits_equal(a[~nan], b[~nan])
+
+
 def max_abs(a, b) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    fin = a.isfinite() & b.isfinite()
+    return float((a[fin].double() - b[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -258,7 +298,7 @@ def kernels_phase(torch) -> dict:
             "bits 8/4/2 bit-identical to plain")
     del params
     torch.cuda.empty_cache()
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         timing[name]["max_abs_err"] = errs[name]
     return timing
 
@@ -311,8 +351,8 @@ def serve_phase(torch) -> dict:
         f"swaps={c['swaps']} launches={launches}")
     if not swapped or (c["completed"], c["dropped"], c["swaps"]) != (8, 0, 1):
         raise AssertionError(f"serve run: {c}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in SERVE_KERNELS:
+        if launches[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "serve path")
     for comp in eng.completions.values():
@@ -417,6 +457,296 @@ def cross_device_check(torch) -> None:
         f"0x{gpu.crc:08x}, decode")
 
 
+# ---------------------------------------------------------------------------
+# train phase (the second main path)
+# ---------------------------------------------------------------------------
+
+
+def check_qdq(padded, total: int, key, *, bits: int, bucket_elems: int,
+              timed: bool = False) -> dict:
+    """K4 (head buckets + tail, as qdq_flat launches it) against its
+    plain version and against K3(K2(x)) on the same card tensors."""
+    import torch
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    x4, u4, x3, u3, params, (nb, _, _) = ops._bucket_views(
+        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    parts = ([(x4, u4, params[:nb - 1])] if nb > 1 else []) \
+        + [(x3, u3, params[nb - 1:])]
+
+    def k4():
+        return [kernel.qdq_bucketed(x, u, p, bits=bits) for x, u, p in parts]
+
+    def k4_plain():
+        return [ref.qdq_bucketed(x, u, p[:, 0], p[:, 1], bits=bits)
+                for x, u, p in parts]
+
+    got, want = k4(), k4_plain()
+    if not all(same_bits(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K4 qdq_bucketed != plain (bits={bits}, "
+                             f"total={total})")
+    res = {"max_abs_err": max(max_abs(g, w) for g, w in zip(got, want))}
+    finite = bool(torch.isfinite(params).all())
+    if finite:
+        via = [kernel.decode_packed(kernel.encode_packed(x, u, p, bits=bits),
+                                    p, bits=bits) for x, u, p in parts]
+        if not all(bits_equal(g, v) for g, v in zip(got, via)):
+            raise AssertionError(f"K4 != K3(K2(x)) (bits={bits}, "
+                                 f"total={total})")
+        del via
+    del got, want
+    if timed:
+        elems = sum(x.numel() for x, _, _ in parts)
+        res.update(ms=time_ms(k4), plain_ms=time_ms(k4_plain),
+                   library_ms=None,
+                   bound_ms=(elems * 12 + nb * 8) / HBM_BYTES_PER_S * 1e3)
+    return res
+
+
+def qdq_phase(torch, params) -> dict:
+    """K4 at the full-width repro-100m geometry (bits 8/4/2, timed at
+    rq4), on the two unaligned buffers, and on a non-finite bucket."""
+    from repro_torch.core import compression, prng
+    from repro_torch.kernels.quant import ops
+
+    layout = compression.FlatLayout.from_tree(params)
+    err, timing = 0.0, {}
+    for bits in (8, 4, 2):
+        _, cap, nb, _, _ = ops.flat_geometry(layout.total, bits=bits)
+        tail = layout.total - (nb - 1) * cap
+        if (layout.total, nb, tail) != (TRAIN_TOTAL, TRAIN_BUCKETS,
+                                        TRAIN_TAIL):
+            raise AssertionError(
+                f"port {TRAIN_ARCH} tree: {layout.total} elements, {nb} "
+                f"buckets, tail {tail} at bits={bits}; the JAX package "
+                f"gives {TRAIN_TOTAL}, {TRAIN_BUCKETS}, {TRAIN_TAIL}")
+        padded = layout.flatten(params, padded_len=nb * cap)
+        res = check_qdq(padded, layout.total, prng.PRNGKey(10 + bits),
+                        bits=bits, bucket_elems=ops.DEFAULT_BUCKET_ELEMS,
+                        timed=(bits == 4))
+        err = max(err, res["max_abs_err"])
+        if bits == 4:
+            timing = res
+        del padded
+        torch.cuda.empty_cache()
+        log(f"[train] K4 full width bits={bits} ({layout.total} elements, "
+            f"{nb} buckets, tail {tail}): == plain, == K3(K2(x))")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for total, be in ((3 * (1 << 22) + 12_345, ops.DEFAULT_BUCKET_ELEMS),
+                      (300_001, 4096)):
+        flat = torch.randn(total, generator=g, device="cuda") * 0.05
+        for bits in (8, 4, 2):
+            _, cap, nb, _, _ = ops.flat_geometry(total, bits=bits,
+                                                 bucket_elems=be)
+            err = max(err, check_qdq(ops.edge_pad(flat, nb * cap), total,
+                                     prng.PRNGKey(total - bits), bits=bits,
+                                     bucket_elems=be)["max_abs_err"])
+        log(f"[train] K4 unaligned total={total} bucket_elems={be}: bits "
+            "8/4/2 == plain, == K3(K2(x))")
+    flat = torch.randn(3 * 4096, generator=g, device="cuda")
+    flat[4096 + 7] = float("inf")
+    flat[4096 + 9] = float("nan")
+    flat[2 * 4096 + 3] = -float("inf")
+    res = check_qdq(flat, flat.numel(), prng.PRNGKey(1), bits=4,
+                    bucket_elems=4096)
+    out = ops.qdq_flat(flat, prng.PRNGKey(1), bits=4, bucket_elems=4096)
+    bad = ~torch.isfinite(out.view(3, 4096)).all(dim=1)
+    if bad.tolist() != [False, True, True]:
+        raise AssertionError(f"non-finite buckets {bad.tolist()}")
+    log(f"[train] K4 buckets with Inf/NaN: same NaN pattern as plain "
+        f"(non-finite buckets {bad.tolist()})")
+    timing["max_abs_err"] = max(err, res["max_abs_err"])
+    return timing
+
+
+def train_phase(torch) -> dict:
+    """Full-width repro-100m, rq4 + error feedback, TRAIN_STEPS AdamW
+    steps through the trainer's setup and step function."""
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--arch", TRAIN_ARCH, "--compression", "rq4",
+                             "--error-feedback", "--steps",
+                             str(TRAIN_STEPS)])
+    run = train.setup(args)
+    state, train_step, data = run["state"], run["train_step"], run["data"]
+    timing = qdq_phase(torch, state["params"])
+    codec = compression.codec("rq4")
+    wire = codec.tree_wire_bytes_flat(state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernel.reset_launches()
+    losses, gnorms, step_ms = [], [], []
+    for t in range(TRAIN_STEPS):
+        batch = train.to_device(data.batch_at(t), run["device"])
+        before = kernel.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = kernel.launch_counts()
+        per = {k: after[k] - before[k] for k in TRAIN_KERNELS}
+        if per != {"minmax_bucketed": 1, "qdq_bucketed": 2}:
+            raise AssertionError(f"step {t}: launches {per}")
+        if float(m["comm_bytes"]) != float(torch.tensor(wire)):
+            raise AssertionError(f"comm_bytes {float(m['comm_bytes'])} != "
+                                 f"wire {wire}")
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if t % 10 == 0 or t == TRAIN_STEPS - 1:
+            log(f"[train] step {t:3d} loss {losses[-1]:.4f} gnorm "
+                f"{gnorms[-1]:.3f} step {step_ms[-1]:.1f} ms")
+    launches = kernel.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError("non-finite loss or grad norm")
+    last5 = sum(losses[-5:]) / 5
+    if not last5 < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]}, "
+                             f"last-5 mean {last5}")
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out = {"steps": TRAIN_STEPS, "first_loss": losses[0],
+           "last5_loss": last5, "median_step_ms": med,
+           "tokens_per_s": args.batch * args.seq / (med / 1e3),
+           "max_memory_allocated": peak, "comm_bytes": wire,
+           "launches": launches}
+    log(f"[train] median step {med:.3f} ms (first step {step_ms[0]:.1f} "
+        "ms)")
+    log(f"[train] tokens/s {out['tokens_per_s']:.1f}")
+    log(f"[train] max_memory_allocated {peak} B")
+    log("[train] " + json.dumps(out))
+    log("[train] breakdown " + json.dumps(train_breakdown(
+        torch, run, state, batch)))
+    checkpoint_check(torch, state)
+    train_cross_device_check(torch)
+    out["qdq"] = timing
+    return out
+
+
+def train_breakdown(torch, run, state, batch) -> dict:
+    """Where a full-width rq4 + EF step's time goes, piece by piece."""
+    from repro_torch.core import compression, prng, pytree
+    from repro_torch.kernels.quant import kernel, ops
+    from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
+    from repro_torch.train import steps
+
+    scfg = steps.TrainStepConfig(grad_compression="rq4", error_feedback=True)
+    loss_fn = steps.make_loss_fn(run["cfg"], scfg)
+    params = state["params"]
+    _, grads = steps.value_and_grad(loss_fn, params, batch)
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    layout = compression.FlatLayout.from_tree(grads)
+    pack, cap, nb, rows_b, _ = ops.flat_geometry(layout.total, bits=4)
+    key = prng.PRNGKey(0)
+    v = layout.flatten(grads).add_(state["ec_err"])
+    padded = ops.edge_pad(v, nb * cap)
+    x4, u4, x3, u3, par, (_, _, rt) = ops._bucket_views(
+        padded, layout.total, key, bits=4,
+        bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
+
+    def draws():
+        for b in range(nb - 1):
+            prng.uniform(ops.bucket_key(key, b), (pack, rows_b, ops.LANES),
+                         device="cuda")
+        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
+                     device="cuda")
+
+    def k4():
+        if nb > 1:
+            kernel.qdq_bucketed(x4, u4, par[:nb - 1], bits=4)
+        kernel.qdq_bucketed(x3, u3, par[nb - 1:], bits=4)
+
+    # the update runs on copies: the trained state stays as it is
+    scratch = pytree.tree_map(torch.clone, params)
+    upd_opt = adamw(1e-6)
+    upd_state = upd_opt.init(scratch)
+    return {
+        "fwd_bwd_ms": host_ms(torch, lambda: steps.value_and_grad(
+            loss_fn, params, batch), reps=3),
+        "clip_ms": host_ms(torch, lambda: clip_by_global_norm(grads, 1.0)),
+        "flatten_ef_ms": host_ms(torch, lambda: layout.flatten(grads).add_(
+            state["ec_err"])),
+        "uniform_draws_ms": host_ms(torch, draws, reps=2),
+        "uniform_draws_buckets": nb,
+        "k1_bucket_params_ms": host_ms(torch, lambda: ops.bucket_params(
+            padded.view(nb, cap), bits=4)),
+        "k4_ms": host_ms(torch, k4),
+        "optimizer_update_ms": host_ms(torch, lambda: apply_updates(
+            scratch, upd_opt.update(grads, upd_state, scratch)[0])),
+    }
+
+
+def checkpoint_check(torch, state) -> None:
+    """The trained full-width state through save_state / load_state:
+    every leaf back bit for bit, on its device, CRCs verified."""
+    from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.core import pytree
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        fname = save_state(state, d, step=int(state["step"]))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(fname)
+        t0 = time.perf_counter()
+        back = load_state(state, fname)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for a, b in zip(pytree.tree_leaves(state), pytree.tree_leaves(back)):
+        if a.device != b.device or not bits_equal(a, b):
+            raise AssertionError("checkpoint round trip changed a leaf")
+    log(f"[train] checkpoint {size} B: save {save_s:.2f} s, load "
+        f"{load_s:.2f} s (CRCs verified), state back bit for bit")
+
+
+def train_cross_device_check(torch) -> None:
+    """One reduced rq4 + EF step from the same state and batch on the
+    card and on the CPU: losses within 1e-4, and the codec stage given
+    the same gradient bit-equal (qflat and ec_err)."""
+    from repro_torch import configs
+    from repro_torch.core import compression, prng, pytree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    mc = configs.get_config(TRAIN_ARCH).reduced()
+    scfg = steps.TrainStepConfig(grad_compression="rq4",
+                                 error_feedback=True)
+    opt = adamw(1e-3)
+    cpu = steps.init_train_state(mc, opt, prng.PRNGKey(2), step_cfg=scfg,
+                                 device="cpu")
+    cpu["ec_err"].normal_(generator=torch.Generator().manual_seed(3))
+    card = steps.state_to(cpu, "cuda")
+    batch = SyntheticLM(vocab=mc.vocab, seq_len=65, batch=4,
+                        seed=2).batch_at(0)
+    loss_fn = steps.make_loss_fn(mc, scfg)
+    lc, gc = steps.value_and_grad(loss_fn, cpu["params"], batch)
+    lg, _ = steps.value_and_grad(loss_fn, card["params"],
+                                 {k: v.cuda() for k, v in batch.items()})
+    if abs(float(lc) - float(lg)) > 1e-4:
+        raise AssertionError(f"card loss {float(lg)} != CPU {float(lc)}")
+    codec = compression.codec("rq4")
+    key = prng.fold_in(cpu["rng"], 0)
+    qc, ec, _ = steps.compress_grads(codec, gc, key, cpu["ec_err"].clone())
+    qg, eg, _ = steps.compress_grads(
+        codec, pytree.tree_map(lambda t: t.cuda(), gc), key,
+        card["ec_err"].clone())
+    if not bits_equal(eg.cpu(), ec) or not all(
+            bits_equal(a.cpu(), b) for a, b in zip(pytree.tree_leaves(qg),
+                                                   pytree.tree_leaves(qc))):
+        raise AssertionError("card and CPU codec stage differ")
+    step = steps.make_train_step(mc, opt, scfg)
+    _, mc_ = step(cpu, batch)
+    _, mg_ = step(card, {k: v.cuda() for k, v in batch.items()})
+    if abs(float(mc_["loss"]) - float(mg_["loss"])) > 1e-4:
+        raise AssertionError("card and CPU train step losses differ")
+    log(f"[check] reduced {TRAIN_ARCH} rq4 + EF step: loss card "
+        f"{float(mg_['loss']):.6f} CPU {float(mc_['loss']):.6f}; "
+        "qflat and ec_err card == CPU bit for bit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -437,17 +767,22 @@ def main() -> int:
     timing = kernels_phase(torch)
     served = serve_phase(torch)
     cross_device_check(torch)
+    trained = train_phase(torch)
+    timing["qdq_bucketed"] = trained["qdq"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
+    log("[launches] " + json.dumps({"serve": served["launches"],
+                                    "train": trained["launches"]}))
     rows = []
     for name, replaces in KERNELS.items():
         t = timing[name]
+        path = served if name in SERVE_KERNELS else trained
         row = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": replaces, "launches": served["launches"][name],
+               "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": "bytes", "library_ms": t["library_ms"]}

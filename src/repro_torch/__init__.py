@@ -7,8 +7,12 @@ unless the caller passes ``device="cpu"``.
 
 Ported so far: the serving path (``serve``, ``models.transformer_scan``
 for attention-only stacks, ``train.steps``' serve and prefill step
-factories) and the rq8/rq4/rq2 checkpoint codec (``core.compression`` on
-the ``kernels.quant`` CUDA kernels, ``csrc/quant.cu``).
+factories), the rq8/rq4/rq2 checkpoint codec (``core.compression`` on
+the ``kernels.quant`` CUDA kernels, ``csrc/quant.cu``), and the training
+path on one card (``launch.train``, ``train.steps.make_train_step`` with
+the fused rq gradient compression and error feedback, ``optim``,
+``data.pipeline.SyntheticLM``, ``checkpoint.npz``, the full-sequence
+``apply`` / ``loss_fn`` of both parameter trees).
 """
 from repro_torch.device import resolve_device
 

@@ -3,13 +3,13 @@ of Section 3 of the paper, their fused flat-buffer wire object and its
 CRC32 framing.
 
 The port of the parts of ``repro.core.compression`` the serving path
-runs: ``CompressionSpec``, ``FlatLayout``, ``FlatPacked``,
-``QuantCodec``'s fused flat tier (``flat_encode`` / ``flat_decode`` /
-``tree_encode_flat`` / ``tree_decode_flat`` / ``tree_wire_bytes_flat``),
-the ``codec()`` registry and the wire-integrity helpers. The per-leaf
-``Packed`` tier, the partitioned ring view, the qdq-only operators
-(sparsifiers, sign, clipping) and the ``flat_qdq`` training path come
-with later slices.
+and the training paths run: ``CompressionSpec``, ``FlatLayout``,
+``FlatPacked``, ``QuantCodec``'s fused flat tier (``flat_encode`` /
+``flat_decode`` / ``flat_qdq`` and their tree forms,
+``tree_wire_bytes_flat``), the identity codec ``none``, the ``codec()``
+registry and the wire-integrity helpers. The per-leaf ``Packed`` tier,
+the partitioned ring view and the other qdq-only operators (sparsifiers,
+sign, clipping) come with later slices.
 
 A ``FlatLayout`` flattens a parameter tree onto ONE contiguous fp32
 buffer in JAX's leaf order (dict keys sorted, ``core.pytree``), so the
@@ -50,6 +50,14 @@ class CompressionSpec:
     bits_per_el: float
     density: float = 1.0
     overhead_bytes: int = 8
+
+    def compressed_bytes(self, n_elements: int) -> float:
+        """Wire bytes for a message of n_elements (fp32 baseline = 4n)."""
+        payload = n_elements * self.density * self.bits_per_el / 8.0
+        if self.density < 1.0:
+            # sparse formats also ship indices (4 bytes each)
+            payload += n_elements * self.density * 4.0
+        return payload + self.overhead_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +202,25 @@ class QuantCodec:
     def tree_decode_flat(self, packed: FlatPacked):
         return packed.layout.unflatten(self.flat_decode(packed))
 
+    def flat_qdq(self, flat: torch.Tensor, key, *,
+                 bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                 donate: bool = False) -> torch.Tensor:
+        """Fused per-bucket qdq of one flat fp32 buffer (K1 + K4),
+        equal to ``flat_decode(flat_encode(flat, key))`` bit for bit.
+        ``donate=True`` lets K4 write over ``flat``: pass it only when
+        the caller's buffer is dead after the call."""
+        return ops.qdq_flat(flat, key, bits=self.bits,
+                            bucket_elems=bucket_elems, donate=donate)
+
+    def tree_qdq_flat(self, tree, key, *,
+                      bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+        """Whole-tree fused qdq through one flat buffer; the buffer is
+        this call's own, so K4 writes over it."""
+        layout = FlatLayout.from_tree(tree)
+        return layout.unflatten(self.flat_qdq(
+            layout.flatten(tree), key, bucket_elems=bucket_elems,
+            donate=True))
+
     def tree_wire_bytes_flat(self, tree, *,
                              bucket_elems: int = DEFAULT_BUCKET_ELEMS
                              ) -> float:
@@ -220,14 +247,41 @@ class QuantCodec:
                               codec=self.name)
 
 
+class IdentityCodec:
+    """The ``none`` codec: no compression. The train step resolves it
+    like any codec and skips the exchange; its fused qdq is the input
+    itself and its wire cost the fp32 message."""
+
+    spec = CompressionSpec("none", True, 32.0, overhead_bytes=0)
+    name = "none"
+
+    def flat_qdq(self, flat: torch.Tensor, key=None, *,
+                 bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                 donate: bool = False) -> torch.Tensor:
+        return flat
+
+    def tree_wire_bytes_flat(self, tree, *,
+                             bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                             ) -> float:
+        return self.spec.compressed_bytes(FlatLayout.from_tree(tree).total)
+
+
 CODECS: Registry = Registry("compression", {
+    "none": IdentityCodec(),
     "rq8": QuantCodec(8),
     "rq4": QuantCodec(4),
     "rq2": QuantCodec(2),
 })
 
+# codecs of the JAX package that the port does not run yet (qdq-only
+# operators without a packed wire format)
+NOT_PORTED = ("clip16", "rand_sparse_10", "sign1", "topk_1")
 
-def codec(name: str) -> QuantCodec:
+
+def codec(name: str):
+    if name in NOT_PORTED:
+        raise KeyError(f"compression '{name}' is not ported to repro_torch "
+                       f"yet; have {CODECS.names()}")
     return CODECS.get(name)
 
 

@@ -130,6 +130,39 @@ def uniform(key, shape: Sequence[int], *,
     return torch.clamp_min(out, float(lo))
 
 
+def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2**32 for uint32 values held in int64, without an
+    int64 overflow: a is split into 16-bit halves."""
+    return (((((a >> 16) * b) & 0xFFFF) << 16) + (a & 0xFFFF) * b) & M32
+
+
+def randint(key, shape: Sequence[int], minval: int, maxval: int, *,
+            device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32
+    (JAX's default with 64-bit off): two 32-bit draws under
+    ``split(key)``, combined as ``(hi % span * (2**32 % span) + lo %
+    span) % span`` in uint32 — JAX's ``_randint``, bit for bit.
+    Returns int32."""
+    lo_v, hi_v = int(minval), int(maxval)
+    if not -(1 << 31) <= lo_v <= hi_v <= (1 << 31) - 1:
+        raise ValueError(f"randint bounds [{lo_v}, {hi_v}) outside int32")
+    span = hi_v - lo_v if hi_v > lo_v else 1
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device=device)
+    lower = random_bits(k2, shape, device=device)
+    mult = ((((1 << 16) % span) ** 2) & M32) % span    # uint32 wrap
+    off = (_mulmod32(higher % span, mult) + lower % span) & M32
+    return (off % span + lo_v).to(torch.int32)
+
+
+def bernoulli(key, p: float, shape: Sequence[int], *,
+              device: Union[str, torch.device, None] = None
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a float32
+    uniform draw below float32(p). Returns bool."""
+    return uniform(key, shape, device=device) < float(np.float32(p))
+
+
 def gumbel(key, shape: Sequence[int], *,
            device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """``jax.random.gumbel`` (mode "low"): -log(-log(u)), u on

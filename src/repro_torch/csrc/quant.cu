@@ -1,22 +1,23 @@
 // Hand-written Hopper (sm_90a) kernels for the rq8/rq4/rq2 codec of the
-// checkpoint wire: per-bucket min/max (K1), quantize + bit-pack (K2) and
-// unpack + dequantize (K3). Plain C interface, loaded with ctypes by
+// checkpoint wire and the training step's gradient compression: per-bucket
+// min/max (K1), quantize + bit-pack (K2), unpack + dequantize (K3) and the
+// fused stochastic quantize -> dequantize (K4). Plain C interface, loaded with ctypes by
 // repro_torch/kernels/quant/kernel.py, which allocates every buffer,
 // checks shapes and passes PyTorch's current stream.
 //
 // Build (done at first use by kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
 //        -Xcompiler -fPIC -o build/repro_torch/libquant.so quant.cu
-// No --use_fast_math: the division in K2 and the multiply-add in K3 must
-// round exactly as the JAX reference does (see each kernel).
+// No --use_fast_math: the divisions in K2/K4 and the multiply-adds in
+// K3/K4 must round exactly as the JAX reference does (see each kernel).
 //
 // Layout (the JAX package's wire format): a bucket of pack * R * 512 fp32
 // elements is pack contiguous segments of R x 512; payload byte (r, c) of
 // the bucket holds the b-bit code of segment k at bits [k*b, (k+1)*b).
-// params is (B, 2) fp32: [lo, scale] per bucket for K2/K3, K1 writes
+// params is (B, 2) fp32: [lo, scale] per bucket for K2/K3/K4, K1 writes
 // [lo, hi].
 //
-// All three are bound by device memory, not arithmetic: each element is
+// All four are bound by device memory, not arithmetic: each element is
 // read once and written once, with coalesced accesses (neighbouring
 // threads touch neighbouring addresses in every segment). A bucket is
 // spread over many blocks (grid.y = bucket, grid.x strides over it), so
@@ -172,6 +173,44 @@ __global__ void decode_packed_kernel(const uint8_t* __restrict__ payload,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 qdq_bucketed. Replaces repro/kernels/quant/kernel.py qdq_bucketed
+// (:187, the full buckets of the training step's qdq_flat) and qdq (:77,
+// the tail, run here as B = 1). Elementwise: the segment layout only
+// orders the uniforms, and that order is flat element order, so a bucket
+// is seen as one run of `elems` values and grid.y picks its params row.
+// Per element, as the reference rounds:
+//   norm = (x - lo) / scale          __fdiv_rn, the true fp32 quotient
+//   q    = floor(norm) + (u < frac)  then clip to [0, levels], NaN kept
+//                                    (XLA's min/max propagate NaN;
+//                                    fminf/fmaxf would drop it)
+//   out  = q * scale + lo            ONE rounding (__fmaf_rn): XLA
+//                                    contracts the reference's multiply
+//                                    and add, as in K3
+// x and out may be the same buffer (the caller donates its input): each
+// element is read and then written by the same thread, so neither pointer
+// is __restrict__.
+// Bound: bytes — reads 8 B per element (x and u), writes 4 B.
+// ---------------------------------------------------------------------------
+template <int BITS>
+__global__ void qdq_kernel(const float* x, const float* __restrict__ u,
+                           const float* __restrict__ params, float* out,
+                           long long elems) {
+  constexpr float kLevels = (float)((1 << BITS) - 1);
+  const long long b = blockIdx.y;
+  const float lo = params[2 * b];
+  const float scale = params[2 * b + 1];
+  const long long base = b * elems;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < elems; i += (long long)gridDim.x * kThreads) {
+    const float norm = __fdiv_rn(x[base + i] - lo, scale);
+    const float fl = floorf(norm);
+    float q = fl + (u[base + i] < norm - fl ? 1.0f : 0.0f);
+    q = nan_min(nan_max(q, 0.0f), kLevels);
+    out[base + i] = __fmaf_rn(q, scale, lo);
+  }
+}
+
 // Blocks along one bucket: enough to cover it once, but no more than
 // keeps ~64 resident blocks per SM across all buckets.
 unsigned blocks_per_bucket(long long elems, long long n_buckets) {
@@ -246,6 +285,28 @@ int quant_decode_packed(const void* payload, const void* params, void* out,
     case 8: decode_packed_kernel<8><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
     case 4: decode_packed_kernel<4><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
     case 2: decode_packed_kernel<2><<<grid, kThreads, 0, s>>>(p, pf, o, row_elems); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, u, out: (B, elems) fp32 (elems = pack * R * 512); params: (B, 2).
+// out may equal x.
+int quant_qdq_bucketed(const void* x, const void* u, const void* params,
+                       void* out, long long n_buckets, long long elems,
+                       int bits, void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || elems < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_per_bucket(elems, n_buckets), (unsigned)n_buckets);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* uf = (const float*)u;
+  const float* pf = (const float*)params;
+  float* o = (float*)out;
+  switch (bits) {
+    case 8: qdq_kernel<8><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
+    case 4: qdq_kernel<4><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
+    case 2: qdq_kernel<2><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

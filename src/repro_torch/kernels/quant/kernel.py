@@ -4,6 +4,7 @@
   K1 ``minmax_bucketed``  per-bucket [lo, hi]       (B, R, 512) f32 -> (B, 2)
   K2 ``encode_packed``    quantize + bit-pack       (B, pack, R, 512) -> (B, R, 512) u8
   K3 ``decode_packed``    unpack + dequantize       (B, R, 512) u8 -> (B, pack, R, 512)
+  K4 ``qdq_bucketed``     quantize -> dequantize    (B, pack, R, 512) -> same shape
 
 Each replaces a pair of the JAX package's Pallas kernels: the bucketed
 form on the full buckets, and the per-leaf form as B = 1 on the tail.
@@ -84,8 +85,10 @@ def _load() -> ctypes.CDLL:
             lib.quant_encode_packed.argtypes = [vp, vp, vp, vp, ll, ll, i,
                                                 vp]
             lib.quant_decode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp]
+            lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i, vp]
             for fn in (lib.quant_minmax_bucketed, lib.quant_minmax_blocks,
-                       lib.quant_encode_packed, lib.quant_decode_packed):
+                       lib.quant_encode_packed, lib.quant_decode_packed,
+                       lib.quant_qdq_bucketed):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -214,7 +217,41 @@ def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
     return out
 
 
-KERNELS = (minmax_bucketed, encode_packed, decode_packed)
+def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
+                 *, bits: int, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """K4: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
+    the stochastically quantized and dequantized x4, same shape, fp32
+    (into ``out`` when given; ``out`` may be ``x4`` itself)."""
+    pack = _bits_ok(bits)
+    if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
+        raise ValueError(f"qdq_bucketed: need (B, {pack}, R, {LANES}) for "
+                         f"bits={bits}, got {tuple(x4.shape)}")
+    b, _, r, _ = x4.shape
+    if not _on_cuda(x4, "qdq_bucketed"):
+        res = ref.qdq_bucketed(x4, u4, params[:, 0], params[:, 1],
+                               bits=bits)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    dev = x4.device
+    shape = (b, pack, r, LANES)
+    _require(x4, "qdq_bucketed x", torch.float32, shape, dev)
+    _require(u4, "qdq_bucketed u", torch.float32, shape, dev)
+    _require(params, "qdq_bucketed params", torch.float32, (b, 2), dev)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    _require(out, "qdq_bucketed out", torch.float32, shape, dev)
+    _check(_load().quant_qdq_bucketed(x4.data_ptr(), u4.data_ptr(),
+                                      params.data_ptr(), out.data_ptr(), b,
+                                      pack * r * LANES, bits, _stream()),
+           "qdq_bucketed")
+    qdq_bucketed.launches += 1
+    return out
+
+
+KERNELS = (minmax_bucketed, encode_packed, decode_packed, qdq_bucketed)
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """Bucketed flat-buffer codec: geometry, uniform draws and kernel dispatch.
 
 The port of the parts of ``repro.kernels.quant.ops`` on the checkpoint
-wire's path (``encode_flat`` / ``decode_flat`` and their geometry). The
-wire layout is the JAX package's, byte for byte:
+wire's path (``encode_flat`` / ``decode_flat`` and their geometry) and
+on the training step's (``qdq_flat``). The wire layout is the JAX
+package's, byte for byte:
 
   * the flat fp32 buffer is cut into buckets of ``cap`` elements (a
     granule-aligned cap on ``bucket_elems``); bucket b owns elements
@@ -15,7 +16,8 @@ wire layout is the JAX package's, byte for byte:
     goes as a B = 1 launch of the same kernel;
   * bucket b draws its uniforms under ``bucket_key(key, b)`` =
     ``fold_in(key, b)`` with the port's threefry, which gives the JAX
-    package's bits — so the published payload equals JAX's.
+    package's bits — so the published payload equals JAX's, and
+    ``qdq_flat`` equals ``decode_flat(encode_flat(...))`` bit for bit.
 
 Dispatch follows the tensor's device (see ``kernel.py``): the CUDA
 kernels for a CUDA buffer, the plain versions for a CPU one.
@@ -175,3 +177,34 @@ def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
                                 params[nb - 1:], bits=bits)
     out[head_elems:] = tail.reshape(-1)[:total - head_elems]
     return out
+
+
+def qdq_flat(flat: torch.Tensor, key, *, bits: int = 8,
+             bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+             donate: bool = False) -> torch.Tensor:
+    """Fused per-bucket stochastic quantize -> dequantize of a flat fp32
+    buffer (the training step's gradient compression): the full buckets
+    in ONE K4 launch, the tail bucket as a B = 1 launch, with the
+    uniforms and params of ``encode_flat`` — so the result equals
+    ``decode_flat(encode_flat(flat, key))`` bit for bit.
+
+    K4 writes over the edge-padded buffer when the pad made one (it is
+    this function's own), and over ``flat`` itself when ``donate`` is
+    set and no pad was needed; otherwise into a new buffer. Returns a
+    (total,) fp32 tensor."""
+    flat = flat.reshape(-1).float()
+    total = flat.shape[0]
+    _, cap, nb, _, _ = flat_geometry(total, bits=bits,
+                                     bucket_elems=bucket_elems)
+    padded = edge_pad(flat, nb * cap)
+    x4, u4, x3, u3, params, _ = _bucket_views(
+        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    out = padded if (padded is not flat or donate) \
+        else torch.empty_like(padded)
+    head_elems = (nb - 1) * cap
+    if nb > 1:
+        kernel.qdq_bucketed(x4, u4, params[:nb - 1], bits=bits,
+                            out=out[:head_elems].view(x4.shape))
+    tail = kernel.qdq_bucketed(x3, u3, params[nb - 1:], bits=bits)
+    out[head_elems:total] = tail.reshape(-1)[:total - head_elems]
+    return out[:total]

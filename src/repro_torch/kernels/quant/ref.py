@@ -86,6 +86,20 @@ def unpack_codes(payload: torch.Tensor, *, bits: int) -> torch.Tensor:
         & levels_of(bits)
 
 
+def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, lo: torch.Tensor,
+                 scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """(B, pack, R, C) segments + per-bucket (B,) params -> the same
+    shape, quantized and dequantized: ``decode(encode(...))`` for finite
+    inputs (the codes are small exact integers), with the codes kept in
+    fp32 instead of uint8 so that a NaN stays NaN, as in the reference's
+    ``clip``; one rounding for ``q * scale + lo`` (see the module note)."""
+    lo4, scale4 = _bcast(lo), _bcast(scale)
+    norm = (x4.float() - lo4) / scale4
+    floor = torch.floor(norm)
+    q = floor + (u4 < (norm - floor)).float()
+    return decode(torch.clamp(q, 0.0, float(levels_of(bits))), lo4, scale4)
+
+
 def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
                            scale: torch.Tensor, *,
                            bits: int) -> torch.Tensor:

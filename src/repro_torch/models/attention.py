@@ -1,10 +1,13 @@
-"""GQA attention: the cached one-token decode path.
+"""GQA attention: the full-sequence train path and the cached one-token
+decode path.
 
 The port of ``repro.models.attention``'s parameter init, RoPE, the
-reference grouped-query SDPA (fp32 softmax) and the KV cache (full, or a
-ring buffer of ``window`` slots), in fp32 or bf16. The int8 KV cache,
-M-RoPE, cross attention and the full-sequence prefill paths come with
-later slices.
+reference grouped-query SDPA (fp32 softmax), the q-chunked exact path
+for long sequences, the full-sequence ``attention`` of training, and the
+KV cache (full, or a ring buffer of ``window`` slots), in fp32 or bf16.
+All of it is plain torch, safe under autograd. The flash-attention
+kernel (``use_flash``), the int8 KV cache, M-RoPE and cross attention
+come with later slices.
 
 The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
 with ``jax.vmap``. Here the slot axis is a batch dimension written out:
@@ -68,6 +71,77 @@ def sdpa_reference(q, k, v, mask, *, softcap: float = 0.0) -> torch.Tensor:
     w = torch.softmax(logits, dim=-1)
     out = torch.matmul(w, v.float().permute(0, 2, 1, 3).unsqueeze(2))
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+CHUNKED_THRESHOLD = 4096   # switch to q-chunked attention at/above this S
+Q_CHUNK = 1024
+
+
+def make_mask(sq: int, sk: int, *, causal: bool, window: int = 0,
+              q_offset: int = 0, device=None) -> torch.Tensor:
+    """(sq, sk) bool mask; q position i attends to k position j."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    kj = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kj <= qi
+    if window > 0:
+        m &= kj > qi - window
+    return m
+
+
+def chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
+                 q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Memory-bounded exact attention: a loop over query chunks, each
+    with the exact softmax over all keys (O(q_chunk * S) logits).
+
+    q (B, S, H, D) with the full q heads; k, v (B, S, H, D) already
+    repeated to the q-head count. Returns (B, S, H, D)."""
+    b, s, h, d = q.shape
+    if s % q_chunk:
+        raise ValueError(f"seq {s} is not a multiple of q_chunk {q_chunk}")
+    scale = 1.0 / math.sqrt(d)
+    qt = q.float().transpose(1, 2)                 # (B, H, S, D)
+    kt = k.float().permute(0, 2, 3, 1)             # (B, H, D, S)
+    vt = v.float().transpose(1, 2)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        logits = torch.matmul(qt[:, :, c0:c0 + q_chunk], kt) * scale
+        logits = layers.softcap(logits, softcap)
+        m = make_mask(q_chunk, s, causal=causal, window=window,
+                      q_offset=c0, device=q.device)
+        logits = logits.masked_fill(~m, NEG_INF)
+        outs.append(torch.matmul(torch.softmax(logits, dim=-1), vt))
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0, use_flash: bool = False) -> torch.Tensor:
+    """Train/prefill path. x: (B, S, d); positions: (B, S).
+
+    The q-chunked exact path for S >= 4096 (a multiple of 1024), the
+    full-S^2 reference below it — the JAX package's selection."""
+    if use_flash:
+        raise NotImplementedError(
+            "use_flash: the flash-attention kernel is not ported to "
+            "repro_torch yet (prefill slice)")
+    b, s, _ = x.shape
+    q = layers.dense(p["q"], x).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = layers.dense(p["k"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = layers.dense(p["v"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _rotate(cfg, q, positions)
+    k = _rotate(cfg, k, positions)
+    if s >= CHUNKED_THRESHOLD and s % Q_CHUNK == 0:
+        group = cfg.n_heads // cfg.n_kv_heads
+        out = chunked_sdpa(q, k.repeat_interleave(group, dim=2),
+                           v.repeat_interleave(group, dim=2), causal=causal,
+                           window=window, softcap=cfg.logit_softcap)
+    else:
+        mask = make_mask(s, s, causal=causal, window=window,
+                         device=x.device)[None]
+        out = sdpa_reference(q, k, v, mask, softcap=cfg.logit_softcap)
+    return layers.dense(p["o"], out.reshape(b, s, cfg.q_dim))
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

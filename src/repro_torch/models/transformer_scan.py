@@ -1,4 +1,5 @@
-"""Scan-over-layers model assembly: init and the cached decode step.
+"""Scan-over-layers model assembly: init, the full-sequence forward and
+loss (training with ``--scan-layers``), and the cached decode step.
 
 The port of ``repro.models.transformer_scan`` for attention-only stacks.
 It keeps the JAX package's parameter tree exactly — ``embed``,
@@ -7,7 +8,11 @@ It keeps the JAX package's parameter tree exactly — ``embed``,
 leaf with a leading ``n_rep`` dim) and ``suffix_layers`` — so the flat
 wire layout of a checkpoint, and a JAX parameter tree carried across
 (``interop.params_from_jax``), line up leaf for leaf. The ``lax.scan``
-over layers becomes a loop over the layer index of the stacked leaves.
+over layers becomes a loop over the layer index of the stacked leaves;
+``remat`` checkpoints each repetition of the unit, keeping nothing
+(``remat_policy="full"``) or the dense projections' matmul outputs
+(``"dots"``, JAX's ``dots_with_no_batch_dims_saveable``) through torch's
+selective activation checkpointing.
 
 The decode state mirrors JAX's ``{prefix, scan, suffix}`` with the batch
 axis written out and a per-row cursor (see ``attention``);
@@ -16,14 +21,20 @@ kinds raise ``NotImplementedError`` naming the models slice.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, layers
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (ATTN_KINDS, _block_init,
-                                            _ffn_apply, _lm_head,
-                                            _moe_skipped, _norm,
-                                            embed_inputs, not_ported)
+from repro_torch.models.transformer import (ATTN_KINDS, _block_apply,
+                                            _block_init, _ffn_apply,
+                                            _lm_head, _moe_skipped, _norm,
+                                            _positions, embed_inputs,
+                                            not_ported, run_block,
+                                            sharded_cross_entropy)
 
 
 def pattern_segments(cfg: ModelConfig):
@@ -74,6 +85,67 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
                                            dtype=dtype)
                                for i, kind in enumerate(suffix)]
     return params
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of matmuls without batch dims (the dense projections, which
+    reach aten as ``mm`` / ``addmm``), recompute everything else —
+    attention's batched matmuls included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat_policy: str):
+    if remat_policy == "full":
+        return None
+    if remat_policy != "dots":
+        raise ValueError(f"unknown remat_policy '{remat_policy}'")
+    return partial(create_selective_checkpoint_contexts, _save_dots)
+
+
+def apply(params: dict, cfg: ModelConfig, batch: dict, *,
+          use_flash: bool = False, remat: bool = False,
+          remat_policy: str = "full") -> torch.Tensor:
+    """Full-sequence forward over the stacked tree -> logits (B, S, V).
+    (The JAX function also returns the MoE aux loss, 0.0 here; its
+    ``logits_positions`` comes with the prefill slice.)"""
+    if cfg.is_encdec:
+        raise not_ported("the encoder-decoder stack")
+    prefix, unit, n_rep, suffix = pattern_segments(cfg)
+    context_fn = _remat_context(remat_policy) if remat else None
+    x = embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, batch, x.device)
+    for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
+        x = _block_apply(p, cfg, kind, i, x, positions, use_flash=use_flash)
+
+    def body(x_, *ps):
+        for j, (p_j, kind) in enumerate(zip(ps, unit)):
+            x_ = _block_apply(p_j, cfg, kind, len(prefix) + j, x_,
+                              positions, use_flash=use_flash)
+        return x_
+
+    for r in range(n_rep):
+        x = run_block(body, remat, x,
+                      *[_at(sp, r) for sp in params["scan_blocks"]],
+                      context_fn=context_fn)
+    off = len(prefix) + n_rep * len(unit)
+    for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
+        x = _block_apply(p, cfg, kind, off + i, x, positions,
+                         use_flash=use_flash)
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_head(params, cfg, x)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            use_flash: bool = False, remat: bool = False,
+            remat_policy: str = "full") -> torch.Tensor:
+    logits = apply(params, cfg, batch, use_flash=use_flash, remat=remat,
+                   remat_policy=remat_policy)
+    return sharded_cross_entropy(logits, batch["labels"],
+                                 softcap=cfg.logit_softcap)
 
 
 def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,

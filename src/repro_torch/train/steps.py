@@ -1,18 +1,179 @@
-"""Step factories: the serving pair (``make_serve_step``,
-``make_bulk_prefill``).
+"""Step factories: the training step and the serving pair.
 
-The port of ``repro.train.steps``' serving step factories. Training steps
-(``make_train_step`` with the flat codec, error feedback and AdamW) and
-the full-sequence ``make_prefill_step`` come with the training slice.
-Only the scanned layout (``transformer_scan``) exists in the port: the
-factories are the JAX package's ``scan_layers=True`` ones.
+The port of ``repro.train.steps`` on one card, with no mesh:
+
+  * ``make_train_step`` builds ``state, metrics = train_step(state,
+    batch)``: loss and gradients (``torch.autograd.grad`` over the
+    parameter leaves), global-norm clipping, then the paper's gradient
+    compression through the fused flat tier — the gradient tree is
+    flattened onto its ``FlatLayout``, the error-feedback residual (ONE
+    flat fp32 buffer, ``state["ec_err"]``) is added, and the codec's
+    ``flat_qdq`` (K1 + K4) quantizes it per bucket under
+    ``fold_in(state["rng"], step)`` — then the optimizer update.
+    ``metrics`` holds ``loss``, ``grad_norm``, ``step`` and
+    ``comm_bytes`` (the measured wire bytes of the one fused message).
+  * ``make_serve_step`` / ``make_bulk_prefill``: the scanned layout's
+    decode step and prompt loop (``transformer_scan``).
+
+The train state mirrors JAX's ``{"params", "opt", "step", "rng",
+"ec_err"?}``. ``step`` and ``rng`` are host tensors (0-d int32, and the
+(2,) threefry key), so deriving the step's key reads nothing back from
+the card. The step updates the state IN PLACE (parameters, moments,
+residual) and returns it; JAX returns new arrays with the same values.
+The full-sequence ``make_prefill_step`` comes with the flash slice.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 
-from repro_torch.models import transformer_scan
+from repro_torch.core import compression, prng, pytree
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer, transformer_scan
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          clip_by_global_norm)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    remat: bool = False
+    use_flash: bool = False
+    grad_clip: float = 1.0
+    grad_compression: str = "none"    # compression registry key
+    error_feedback: bool = False      # single-sided EC on the gradient
+    param_dtype: torch.dtype = torch.float32
+    scan_layers: bool = False         # stacked params, loop over blocks
+    remat_policy: str = "full"        # full | dots (save matmul outputs)
+
+
+def _impl(scan_layers: bool):
+    return transformer_scan if scan_layers else transformer
+
+
+def init_generator(key, device) -> torch.Generator:
+    """The parameter-init generator seeded from a threefry key (both
+    words). It draws other numbers than ``jax.random.normal`` under the
+    same key: tests carry parameters across instead."""
+    k0, k1 = (int(w) for w in key.tolist())
+    return torch.Generator(device=torch.device(device)
+                           ).manual_seed((k0 << 32) | k1)
+
+
+def init_train_state(cfg: ModelConfig, optimizer: Optimizer, key, *,
+                     step_cfg: TrainStepConfig = TrainStepConfig(),
+                     device=None) -> dict:
+    """Parameters (on ``device``: ``cuda`` unless the caller asks for
+    the CPU), optimizer state, step 0, the key, and a zero flat residual
+    when error feedback is on."""
+    gen = init_generator(key, resolve_device(device))
+    params = _impl(step_cfg.scan_layers).init(cfg, gen,
+                                              dtype=step_cfg.param_dtype)
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32),
+             "rng": torch.as_tensor(key, dtype=torch.int64).clone()}
+    if step_cfg.error_feedback:
+        total = compression.FlatLayout.from_tree(params).total
+        state["ec_err"] = torch.zeros((total,), dtype=torch.float32,
+                                      device=gen.device)
+    return state
+
+
+_HOST_LEAVES = ("step", "rng")
+
+
+def state_to(state: dict, device) -> dict:
+    """A copy of a train state with its tensors on ``device``, except the
+    host counters and key (``step``, ``rng``, the optimizer's ``step``),
+    which are cloned where they are."""
+    def place(key, sub):
+        if key in _HOST_LEAVES:
+            return sub.clone()
+        if key == "opt":
+            return {k: place(k, v) for k, v in sub.items()}
+        return pytree.tree_map(lambda t: t.to(device, copy=True), sub)
+
+    return {k: place(k, v) for k, v in state.items()}
+
+
+def make_loss_fn(cfg: ModelConfig,
+                 step_cfg: TrainStepConfig = TrainStepConfig()):
+    """The production loss closure, ``loss(params, batch) -> scalar``."""
+    impl = _impl(step_cfg.scan_layers)
+
+    def loss(params, batch):
+        kw = {}
+        if step_cfg.scan_layers:
+            kw["remat_policy"] = step_cfg.remat_policy
+        return impl.loss_fn(params, cfg, batch, use_flash=step_cfg.use_flash,
+                            remat=step_cfg.remat, **kw)
+
+    return loss
+
+
+def compress_grads(q_codec, grads, key, ec_err: Optional[torch.Tensor]
+                   = None) -> tuple:
+    """The codec stage of a train step: flatten the gradient tree onto
+    its FlatLayout, add the flat residual when there is one, and
+    quantize per bucket (``flat_qdq``). Returns (quantized gradient
+    tree, new residual or None, comm bytes). The new residual ``v -
+    qflat`` is written into ``ec_err`` in place; without error feedback
+    the fresh flat buffer is dead after the qdq, so K4 writes over it."""
+    layout = compression.FlatLayout.from_tree(grads)
+    gflat = layout.flatten(grads)
+    if ec_err is not None:
+        v = gflat.add_(ec_err)
+        qflat = q_codec.flat_qdq(v, key)
+        ec_err = torch.sub(v, qflat, out=ec_err)
+    else:
+        qflat = q_codec.flat_qdq(gflat, key, donate=True)
+    grads = layout.unflatten(qflat)
+    return grads, ec_err, q_codec.tree_wire_bytes_flat(grads)
+
+
+def value_and_grad(loss_fn, params, batch) -> tuple:
+    """(loss, gradient tree) of ``loss_fn(params, batch)``, with
+    ``torch.autograd.grad`` over the parameter leaves."""
+    leaves, treedef = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        live = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        loss = loss_fn(pytree.tree_unflatten(treedef, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), pytree.tree_unflatten(treedef, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                    step_cfg: TrainStepConfig = TrainStepConfig()):
+    q_codec = compression.codec(step_cfg.grad_compression)
+    loss_fn = make_loss_fn(cfg, step_cfg)
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        loss_val, grads = value_and_grad(loss_fn, state["params"], batch)
+        if step_cfg.grad_clip > 0:
+            grads, grad_norm = clip_by_global_norm(grads, step_cfg.grad_clip)
+        else:
+            grad_norm = torch.zeros(())
+        new_state = dict(state)
+        comm_bytes = 0.0
+        if step_cfg.grad_compression != "none":
+            qkey = prng.fold_in(state["rng"], int(state["step"]))
+            ec = state["ec_err"] if step_cfg.error_feedback else None
+            # the residual is updated in place (new_state shares it)
+            grads, _, comm_bytes = compress_grads(q_codec, grads, qkey, ec)
+        updates, new_opt = optimizer.update(grads, state["opt"],
+                                            state["params"])
+        new_state["params"] = apply_updates(state["params"], updates)
+        new_state["opt"] = new_opt
+        new_state["step"] = state["step"] + 1
+        metrics = {"loss": loss_val, "grad_norm": grad_norm,
+                   "step": state["step"],
+                   "comm_bytes": torch.tensor(comm_bytes,
+                                              dtype=torch.float32)}
+        return new_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

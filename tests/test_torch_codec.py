@@ -146,9 +146,14 @@ def test_guard_finite_refuses_nan():
 
 
 def test_codec_registry():
-    assert sorted(tcomp.CODECS) == ["rq2", "rq4", "rq8"]
+    assert sorted(tcomp.CODECS) == ["none", "rq2", "rq4", "rq8"]
     assert tcomp.codec("rq4").bits == 4
-    assert dataclasses.astuple(tcomp.codec("rq8").spec) == \
-        dataclasses.astuple(jcomp.codec("rq8").spec)
-    with pytest.raises(KeyError, match="unknown compression 'sign1'"):
-        tcomp.codec("sign1")
+    for name in ("none", "rq8"):
+        assert dataclasses.astuple(tcomp.codec(name).spec) == \
+            dataclasses.astuple(jcomp.codec(name).spec)
+    for name in tcomp.NOT_PORTED:
+        assert name in jcomp.CODECS
+        with pytest.raises(KeyError, match=f"'{name}' is not ported"):
+            tcomp.codec(name)
+    with pytest.raises(KeyError, match="unknown compression 'gzip'"):
+        tcomp.codec("gzip")

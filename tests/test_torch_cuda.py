@@ -1,5 +1,5 @@
-"""The port on the card: the three CUDA codec kernels against their plain
-versions, and the serving path on ``cuda``. Every test needs an NVIDIA
+"""The port on the card: the four CUDA codec kernels against their plain
+versions, and the serving and training paths on ``cuda``. Every test needs an NVIDIA
 card (``cuda`` marker) and skips without one.
 
 This file imports neither jax nor ``repro``, so it runs on a CUDA host
@@ -20,6 +20,9 @@ from repro_torch.core import prng
 
 pytestmark = pytest.mark.cuda
 
+# the kernels of the checkpoint codec (encode_flat / decode_flat)
+CODEC_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
+
 
 @pytest.fixture
 def card():
@@ -27,6 +30,16 @@ def card():
         pytest.skip("needs an NVIDIA card (run on the card: "
                     "python3 chip_smoke.py)")
     return torch.device("cuda")
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bits where finite or infinite, NaN at the same places (a
+    NaN's payload is not part of the result)."""
+    a, b = a.cpu(), b.cpu()
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        return False
+    return torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
 def _data(n, seed=0):
@@ -45,13 +58,80 @@ def test_cuda_kernels_bit_equal_to_cpu_plain(card, bits, n, be):
     pay, par = ops.encode_flat(x.to(card), prng.PRNGKey(4), bits=bits,
                                bucket_elems=be)
     dec = ops.decode_flat(pay, par, total=n, bits=bits, bucket_elems=be)
-    assert all(v > 0 for v in kernel.launch_counts().values())
+    assert all(kernel.launch_counts()[k] > 0 for k in CODEC_KERNELS)
     cpay, cpar = ops.encode_flat(x, prng.PRNGKey(4), bits=bits,
                                  bucket_elems=be)
     cdec = ops.decode_flat(cpay, cpar, total=n, bits=bits, bucket_elems=be)
     assert torch.equal(pay.cpu(), cpay)
     assert torch.equal(par.cpu().view(torch.int32), cpar.view(torch.int32))
     assert torch.equal(dec.cpu().view(torch.int32), cdec.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("n,be", [(3 * 4096 + 1234, 4096), (77, 4096),
+                                  (300_001, 1 << 22)])
+def test_cuda_qdq_flat_bit_equal_to_cpu_and_to_decode_encode(card, bits, n,
+                                                             be):
+    """qdq_flat through K1 + K4 on the card == the CPU plain version ==
+    decode_flat(encode_flat) on the card, bit for bit; a bucket holding
+    an Inf and a NaN comes out NaN in both."""
+    x = _data(n, seed=n + bits)
+    x[5] = float("inf")
+    x[6] = float("nan")
+    kernel.reset_launches()
+    q = ops.qdq_flat(x.to(card), prng.PRNGKey(3), bits=bits,
+                     bucket_elems=be)
+    assert kernel.qdq_bucketed.launches == (2 if n > be else 1)
+    cq = ops.qdq_flat(x, prng.PRNGKey(3), bits=bits, bucket_elems=be)
+    assert _same_bits(q, cq)
+    assert bool(q[:5].isnan().all())
+    pay, par = ops.encode_flat(x.to(card), prng.PRNGKey(3), bits=bits,
+                               bucket_elems=be)
+    dec = ops.decode_flat(pay, par, total=n, bits=bits, bucket_elems=be)
+    fin = torch.isfinite(par[:, 0]).cpu()
+    keep = fin.repeat_interleave(ops.flat_geometry(
+        n, bits=bits, bucket_elems=be)[1])[:n]
+    assert _same_bits(q.cpu()[keep], dec.cpu()[keep])
+
+
+def test_train_steps_on_the_card_match_the_cpu(card):
+    """Two reduced rq4 + EF steps on the card: the losses match the
+    CPU's, and the codec stage given the same gradient is bit-equal."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    mc = configs.get_config("repro-100m").reduced()
+    scfg = steps.TrainStepConfig(grad_compression="rq4",
+                                 error_feedback=True)
+    opt = adamw(1e-3)
+    st_c = steps.init_train_state(mc, opt, prng.PRNGKey(0), step_cfg=scfg,
+                                  device="cpu")
+    st_g = steps.state_to(st_c, card)
+    step = steps.make_train_step(mc, opt, scfg)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, mc.vocab, size=(2, 33)).astype(np.int32))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    kernel.reset_launches()
+    for _ in range(2):
+        st_c, mc_ = step(st_c, batch)
+        st_g, mg_ = step(st_g, {k: v.to(card) for k, v in batch.items()})
+        assert abs(float(mc_["loss"]) - float(mg_["loss"])) < 1e-4
+    assert kernel.qdq_bucketed.launches == 2
+    g = [torch.from_numpy(np.random.default_rng(i).normal(
+        size=t.shape).astype(np.float32))
+        for i, t in enumerate(pytree.tree_leaves(st_c["params"]))]
+    tree_c = pytree.tree_unflatten(pytree.tree_flatten(st_c["params"])[1], g)
+    tree_g = pytree.tree_map(lambda t: t.to(card), tree_c)
+    from repro_torch.core import compression
+    codec = compression.codec("rq4")
+    err = st_c["ec_err"]
+    qc, ec, _ = steps.compress_grads(codec, tree_c, prng.PRNGKey(9),
+                                     err.clone())
+    qg, eg, _ = steps.compress_grads(codec, tree_g, prng.PRNGKey(9),
+                                     err.to(card))
+    assert torch.equal(eg.cpu().view(torch.int32), ec.view(torch.int32))
+    for a, b in zip(pytree.tree_leaves(qg), pytree.tree_leaves(qc)):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 def test_wrappers_refuse_bad_cuda_inputs(card):
@@ -64,6 +144,9 @@ def test_wrappers_refuse_bad_cuda_inputs(card):
     with pytest.raises(TypeError, match="dtype"):
         kernel.decode_packed(torch.zeros((1, 1, 512), device=card),
                              torch.zeros((1, 2), device=card), bits=8)
+    with pytest.raises(ValueError, match="expected"):
+        kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512),
+                            torch.zeros((2, 2)), bits=8)         # CPU params
 
 
 def test_serving_on_the_card_swaps_and_matches_a_cold_start(card):
@@ -81,7 +164,7 @@ def test_serving_on_the_card_swaps_and_matches_a_cold_start(card):
     pub = ch.publish(new, step=1)
     eng.run()
     assert eng.counters["swaps"] == 1 and eng.counters["completed"] == 3
-    assert all(v > 0 for v in kernel.launch_counts().values())
+    assert all(kernel.launch_counts()[k] > 0 for k in CODEC_KERNELS)
     # the card's publish equals the CPU's, byte for byte
     cpu = serve.CheckpointChannel().publish(
         pytree.tree_map(lambda a: a.cpu(), new), step=1)

@@ -173,12 +173,85 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     pay = kernel.encode_packed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512),
                                params, bits=8)
     kernel.decode_packed(pay, params, bits=8)
+    kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
+                        bits=8)
     assert kernel.launch_counts() == {"minmax_bucketed": 0,
                                       "encode_packed": 0,
-                                      "decode_packed": 0}
+                                      "decode_packed": 0,
+                                      "qdq_bucketed": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.minmax_bucketed(torch.zeros((1, 1, 512), device="meta"))
     with pytest.raises(ValueError, match="bits"):
         kernel.decode_packed(pay, params, bits=3)
     with pytest.raises(ValueError, match="need"):
         kernel.minmax_bucketed(torch.zeros((2, 100)))
+
+
+QDQ_CASES = [(n, bits, be) for n in (77, 4099, 300000) for bits in (8, 4, 2)
+             for be in (4096, 1 << 22)]
+
+
+@pytest.mark.parametrize("n,bits,be", QDQ_CASES)
+def test_qdq_flat_bit_equal_to_jax_and_to_decode_encode(n, bits, be):
+    """qdq_flat (K1 + K4's plain versions) == JAX's qdq_flat on the jnp
+    backend, and == the port's own decode_flat(encode_flat), bit for
+    bit: single-bucket, multi-bucket and unaligned totals."""
+    x = _data(n, seed=n * bits)
+    want = jops.qdq_flat(jnp.asarray(x), jax.random.PRNGKey(n), bits=bits,
+                         bucket_elems=be, backend="jnp")
+    got = ops.qdq_flat(torch.from_numpy(x), prng.PRNGKey(n), bits=bits,
+                       bucket_elems=be)
+    np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
+    pay, par = ops.encode_flat(torch.from_numpy(x), prng.PRNGKey(n),
+                               bits=bits, bucket_elems=be)
+    dec = ops.decode_flat(pay, par, total=n, bits=bits, bucket_elems=be)
+    np.testing.assert_array_equal(_u32(got.numpy()), _u32(dec.numpy()))
+
+
+@pytest.mark.parametrize("n,bits", [(77, 8), (4099, 4), (9000, 2),
+                                    (12288, 8)])
+def test_qdq_flat_bit_equal_to_pallas_interpret(n, bits):
+    """The same against the Pallas qdq_bucketed + qdq kernels
+    (interpret mode), multi-bucket at bucket_elems=4096."""
+    x = _data(n, seed=3)
+    want = jops.qdq_flat(jnp.asarray(x), jax.random.PRNGKey(5), bits=bits,
+                         bucket_elems=4096, backend="pallas")
+    got = ops.qdq_flat(torch.from_numpy(x), prng.PRNGKey(5), bits=bits,
+                       bucket_elems=4096)
+    np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_qdq_plain_equals_jax_ref_and_keeps_nan(bits):
+    """K4's plain version == the JAX package's jitted
+    ref.qdq_bucketed given the same x, u, params; a NaN input stays
+    NaN (the reference's clip keeps it)."""
+    pack = 8 // bits
+    rng = np.random.default_rng(bits)
+    x4 = rng.normal(size=(3, pack, 2, 512)).astype(np.float32)
+    u4 = rng.random(size=x4.shape).astype(np.float32)
+    lo = x4.reshape(3, -1).min(1)
+    scale = ((x4.reshape(3, -1).max(1) - lo) / 15).astype(np.float32)
+    want = np.asarray(jax.jit(jref.qdq_bucketed, static_argnames="bits")(
+        x4, u4, lo, scale, bits=bits))
+    params = torch.from_numpy(np.stack([lo, scale], 1))
+    got = kernel.qdq_bucketed(torch.from_numpy(x4), torch.from_numpy(u4),
+                              params, bits=bits)
+    np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
+    x4[1, 0, 0, 3] = np.nan
+    got = kernel.qdq_bucketed(torch.from_numpy(x4), torch.from_numpy(u4),
+                              params, bits=bits)
+    assert np.isnan(got[1, 0, 0, 3]) and np.isfinite(got[0]).all()
+
+
+def test_qdq_flat_donation_writes_over_an_aligned_input():
+    """donate=True lets K4 write over the caller's buffer when no pad
+    is needed; without it the input is untouched. Same values."""
+    x = torch.from_numpy(_data(3 * 4096, seed=1))
+    keep = x.clone()
+    q = ops.qdq_flat(x, prng.PRNGKey(2), bits=4, bucket_elems=4096)
+    assert torch.equal(x, keep) and q.data_ptr() != x.data_ptr()
+    qd = ops.qdq_flat(x, prng.PRNGKey(2), bits=4, bucket_elems=4096,
+                      donate=True)
+    assert qd.data_ptr() == x.data_ptr()
+    assert torch.equal(qd.view(torch.int32), q.view(torch.int32))
