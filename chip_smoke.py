@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: builds the codec's
 CUDA kernels, holds each against its plain PyTorch version, serves
-full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap, and trains
-full-width repro-100m with rq4 + error-feedback gradient compression.
+full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap, trains
+full-width repro-100m with rq4 + error-feedback gradient compression,
+and runs the paper's algorithm tier on it: four workers stacked on the
+card exchanging gradients through the partitioned rq4 ring AllReduce.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -30,7 +32,19 @@ Phases (any failure raises and the script exits non-zero):
      twice a step, comm_bytes equal to the fused message's wire bytes;
      step time, tokens/s, peak memory and a breakdown of the step; the
      trained state through save_state / load_state bit for bit; and one
-     reduced step on the card against the CPU.
+     reduced step on the card against the CPU;
+  6. ring: K5 decode_add_encode_bucketed against its plain version and
+     against K3 -> add -> K1 -> K2 on the card, bit for bit, at the
+     full-width repro-100m partition geometry (N = 4) for bits 8/4/2, on
+     a multi-bucket buffer whose last bucket is short, on an unaligned
+     buffer (which takes the composition, as in the JAX package) and on
+     buckets holding Inf and NaN; CUDA-event times at rq4. Then
+     parallel.run_distributed with CSGDRingExchange(rq4) over 4 workers
+     stacked on the card, full-width repro-100m, plain SGD, 5 steps:
+     finite loss at the mean iterate, consensus exactly 0 at every step,
+     24 K5 launches a step, comm bytes from the geometry; step time,
+     tokens/s, peak memory and a breakdown. Then a reduced ring exchange
+     on the card against the CPU, bit for bit.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -67,6 +81,21 @@ TRAIN_BUCKETS = 31
 TRAIN_TAIL = 3_164_928
 TRAIN_STEPS = 30
 
+# the ring phase: 4 workers stacked on the card, each with batch 2 x seq
+# 256 (the 8 x 256 tokens of the train phase), plain SGD
+RING_WORKERS = 4
+RING_STEPS = 5
+RING_BATCH = 2
+RING_SEQ = 256
+RING_LR = 0.1
+RING_SEED = 0
+# partitioned rq4 ring at N = 4: 6 messages of 31,493 payload rows x 512
+# + 8 params rows x 8 B, one partition (32,248,832 elements) each
+RING_PART_ELEMS = 32_248_832
+RING_PART_BUCKETS = 8
+RING_MSG_BYTES = 16_124_480
+RING_COMM_BYTES = 96_746_880
+
 TPU_KERNEL = "src/repro/kernels/quant/kernel.py"
 SOURCE = "src/repro_torch/csrc/quant.cu"
 KERNELS = {  # name -> the TPU kernel it replaces (its bucketed form)
@@ -74,9 +103,11 @@ KERNELS = {  # name -> the TPU kernel it replaces (its bucketed form)
     "encode_packed": f"{TPU_KERNEL}:203",
     "decode_packed": f"{TPU_KERNEL}:394",
     "qdq_bucketed": f"{TPU_KERNEL}:187",
+    "decode_add_encode_bucketed": f"{TPU_KERNEL}:349",
 }
 SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
 TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
+RING_KERNELS = ("decode_add_encode_bucketed",)
 
 
 def log(msg: str) -> None:
@@ -747,6 +778,415 @@ def train_cross_device_check(torch) -> None:
         "qflat and ec_err card == CPU bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# ring phase (the third main path: the algorithm tier's partitioned ring)
+# ---------------------------------------------------------------------------
+
+
+def dae_parts(pay, par, loc, key, *, bits: int, bucket_elems: int):
+    """The (payload, params, x4, u4) of K5's head and tail launches over
+    one granule-aligned flat message, as decode_add_encode_flat cuts
+    them."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import ops
+
+    total = loc.numel()
+    pack, cap, nb, rows_b, rows_kept = ops.flat_geometry(
+        total, bits=bits, bucket_elems=bucket_elems)
+    head_rows, head_elems = (nb - 1) * rows_b, (nb - 1) * cap
+    rt = rows_kept - head_rows
+    parts = []
+    if nb > 1:
+        parts.append((pay[:head_rows].view(nb - 1, rows_b, ops.LANES),
+                      par[:nb - 1],
+                      loc[:head_elems].view(nb - 1, pack, rows_b, ops.LANES),
+                      ops._head_uniforms(key, nb, pack, rows_b, loc.device)))
+    parts.append((pay[head_rows:].view(1, rt, ops.LANES), par[nb - 1:],
+                  loc[head_elems:].view(1, pack, rt, ops.LANES),
+                  prng.uniform(ops.bucket_key(key, nb - 1),
+                               (1, pack, rt, ops.LANES), device=loc.device)))
+    return parts
+
+
+def check_dae(total: int, seed: int, *, bits: int, bucket_elems: int,
+              nonfinite: bool = False, timed: bool = False) -> dict:
+    """K5 (head + tail) against its plain version and against the
+    K3 -> add -> K1 -> K2 kernels, on a random incoming message and
+    addend of ``total`` elements on the card."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(total, generator=g, device="cuda") * 0.01
+    loc = torch.randn(total, generator=g, device="cuda") * 0.01
+    if nonfinite:
+        loc[7] = float("inf")
+        loc[bucket_elems + 9] = float("nan")
+        loc[2 * bucket_elems + 3] = -float("inf")
+    pay, par = ops.encode_flat(x, prng.PRNGKey(seed), bits=bits,
+                               bucket_elems=bucket_elems)
+    key = prng.PRNGKey(seed + 1)
+    parts = dae_parts(pay, par, loc, key, bits=bits,
+                      bucket_elems=bucket_elems)
+
+    def k5():
+        return [kernel.decode_add_encode_bucketed(p, q, x4, u4, bits=bits)
+                for p, q, x4, u4 in parts]
+
+    def k5_plain():
+        return [ref.decode_add_encode_bucketed(p, q, x4, u4, bits=bits)
+                for p, q, x4, u4 in parts]
+
+    def composed():
+        outs = []
+        for p, q, x4, u4 in parts:
+            s = kernel.decode_packed(p, q, bits=bits).add_(x4)
+            mm = kernel.minmax_bucketed(s.view(s.shape[0], -1, ops.LANES))
+            sp = torch.stack([mm[:, 0], ref.scale_of(mm[:, 0], mm[:, 1],
+                                                     bits)], dim=1)
+            outs.append((kernel.encode_packed(s, u4, sp, bits=bits), sp))
+        return outs
+
+    got, want, via = k5(), k5_plain(), composed()
+    for (o, op), (w, wp), (v, vp) in zip(got, want, via):
+        if not (bits_equal(o, w) and same_bits(op, wp)):
+            raise AssertionError(f"K5 != plain (bits={bits}, total={total})")
+        if not (bits_equal(o, v) and same_bits(op, vp)):
+            raise AssertionError(f"K5 != K3 -> add -> K1 -> K2 (bits={bits}, "
+                                 f"total={total})")
+    res = {"max_abs_err": max(max(max_abs(o.float(), w.float()),
+                                  max_abs(op, wp))
+                              for (o, op), (w, wp) in zip(got, want))}
+    # the flat entry point, as the ring calls it, gives the same message
+    fo, fp = ops.decode_add_encode_flat(pay, par, loc, key, bits=bits,
+                                        bucket_elems=bucket_elems)
+    if not (bits_equal(fo, torch.cat([o.reshape(-1, ops.LANES)
+                                      for o, _ in got]))
+            and same_bits(fp, torch.cat([op for _, op in got]))):
+        raise AssertionError("decode_add_encode_flat != its K5 launches")
+    if nonfinite:
+        bad = ~torch.isfinite(fp).all(dim=1)
+        res["nonfinite_buckets"] = bad.tolist()
+    if timed:
+        elems = total
+        res.update(
+            ms=time_ms(k5), plain_ms=time_ms(k5_plain),
+            composed_ms=time_ms(composed), library_ms=None,
+            bound_ms=(elems * (2 * bits / 8 + 8) + 16 * len(par))
+            / HBM_BYTES_PER_S * 1e3,
+            two_pass_ms=(elems * (3 * bits / 8 + 12) + 16 * len(par))
+            / HBM_BYTES_PER_S * 1e3)
+    return res
+
+
+def dae_phase(torch) -> dict:
+    """K5 at the full-width ring partition geometry (bits 8/4/2, timed
+    at rq4), on a multi-bucket buffer with a short last bucket, on an
+    unaligned buffer, and on buckets holding Inf and NaN."""
+    from repro_torch.kernels.quant import kernel, ops
+
+    err, timing = 0.0, {}
+    for bits in (8, 4, 2):
+        pe, nb_p, rows_p = ops.partition_geometry(TRAIN_TOTAL, RING_WORKERS,
+                                                  bits=bits)
+        res = check_dae(pe, 20 + bits, bits=bits,
+                        bucket_elems=ops.DEFAULT_BUCKET_ELEMS,
+                        timed=(bits == 4))
+        err = max(err, res["max_abs_err"])
+        if bits == 4:
+            if (pe, nb_p, rows_p * ops.LANES + nb_p * 8) != (
+                    RING_PART_ELEMS, RING_PART_BUCKETS, RING_MSG_BYTES):
+                raise AssertionError(f"rq4 partition geometry {pe}, {nb_p}, "
+                                     f"{rows_p}")
+            timing = res
+        torch.cuda.empty_cache()
+        log(f"[ring] K5 full-width partition bits={bits} ({pe} elements, "
+            f"{nb_p} buckets): == plain, == K3 -> add -> K1 -> K2")
+    for bits in (8, 4, 2):
+        granule = (8 // bits) * ops.LANES
+        err = max(err, check_dae(5 * 4096 + 3 * granule, 40 + bits,
+                                 bits=bits, bucket_elems=4096)["max_abs_err"])
+    log("[ring] K5 multi-bucket buffer with a short last bucket "
+        "(bucket_elems 4096): bits 8/4/2 == plain, == composition")
+    # an unaligned total is JAX's sequential composition: no K5 launch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    from repro_torch.core import prng
+    for bits in (8, 4, 2):
+        total = 300_001
+        x = torch.randn(total, generator=g, device="cuda")
+        loc = torch.randn(total, generator=g, device="cuda")
+        pay, par = ops.encode_flat(x, prng.PRNGKey(bits), bits=bits,
+                                   bucket_elems=4096)
+        before = kernel.decode_add_encode_bucketed.launches
+        fo, fp = ops.decode_add_encode_flat(pay, par, loc, prng.PRNGKey(9),
+                                            bits=bits, bucket_elems=4096)
+        if kernel.decode_add_encode_bucketed.launches != before:
+            raise AssertionError("an unaligned buffer launched K5")
+        wo, wp = ops.encode_flat(ops.decode_flat(
+            pay, par, total=total, bits=bits, bucket_elems=4096) + loc,
+            prng.PRNGKey(9), bits=bits, bucket_elems=4096)
+        if not (bits_equal(fo, wo) and bits_equal(fp, wp)):
+            raise AssertionError("unaligned decode_add_encode_flat != "
+                                 "composition")
+    log("[ring] unaligned total 300001: decode_add_encode_flat == "
+        "K3 -> add -> K1 -> K2, bits 8/4/2")
+    res = check_dae(3 * 4096, 3, bits=4, bucket_elems=4096, nonfinite=True)
+    if res["nonfinite_buckets"] != [True, True, True]:
+        raise AssertionError(f"non-finite buckets {res['nonfinite_buckets']}")
+    log("[ring] K5 buckets with Inf/NaN: == plain, NaN at the same places "
+        f"(non-finite params rows {res['nonfinite_buckets']})")
+    timing["max_abs_err"] = max(err, res["max_abs_err"])
+    log("[ring] K5 at the rq4 full-width partition (head + tail): "
+        + json.dumps(timing))
+    return timing
+
+
+class CountingExchange:
+    """Wraps an exchange: the kernel launches and the host time of each
+    call (synchronized), for the smoke's per-step checks."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def init(self, params_w):
+        return self.inner.init(params_w)
+
+    def message_bytes(self, tree, **kw):
+        return self.inner.message_bytes(tree, **kw)
+
+    def __call__(self, grad, state, key):
+        import torch
+        from repro_torch.kernels.quant import kernel
+        torch.cuda.synchronize()
+        before = kernel.launch_counts()
+        t0 = time.perf_counter()
+        out = self.inner(grad, state, key)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernel.launch_counts()
+        self.calls.append(({k: after[k] - before[k] for k in after}, ms))
+        return out
+
+
+def ring_phase(torch) -> dict:
+    """Full-width repro-100m, 4 workers stacked on the card, rq4
+    partitioned ring, plain SGD, RING_STEPS steps of run_distributed."""
+    from repro_torch import configs
+    from repro_torch.core import communicators, compression, parallel, prng
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    timing = dae_phase(torch)
+    cfg = configs.get_config(TRAIN_ARCH)
+    params0 = transformer.init(
+        cfg, torch.Generator(device="cuda").manual_seed(RING_SEED))
+    layout = compression.FlatLayout.from_tree(params0)
+    if layout.total != TRAIN_TOTAL:
+        raise AssertionError(f"{TRAIN_ARCH}: {layout.total} parameters")
+    loss_fn = steps.make_loss_fn(cfg)
+
+    def make_batch(key):
+        tok = prng.randint(key, (RING_BATCH, RING_SEQ + 1), 0, cfg.vocab,
+                           device="cuda")
+        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    eval_batch = make_batch(prng.PRNGKey(RING_SEED + 1))
+    marks = []
+
+    def sample_batch(key, worker):
+        if worker == 0:
+            torch.cuda.synchronize()
+            marks.append(["start", time.perf_counter()])
+        return make_batch(key)
+
+    def full_loss(p):
+        torch.cuda.synchronize()
+        marks.append(["end", time.perf_counter()])
+        return loss_fn(p, eval_batch)
+
+    def full_grad(p):
+        return steps.value_and_grad(loss_fn, p, eval_batch)[1]
+
+    ring = communicators.CSGDRingExchange(compressor="rq4")
+    comm = ring.message_bytes(params0, n_workers=RING_WORKERS)
+    if comm != RING_COMM_BYTES or comm != 2 * (RING_WORKERS - 1) * \
+            RING_MSG_BYTES:
+        raise AssertionError(f"comm_bytes_per_step {comm}")
+    ex = CountingExchange(ring)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = parallel.run_distributed(
+        loss_fn, full_loss, full_grad, params0, sample_batch,
+        n_workers=RING_WORKERS, steps=RING_STEPS, lr=RING_LR, exchange=ex,
+        seed=RING_SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernel.launch_counts()
+    losses = [float(v) for v in res.losses]
+    cons = [float(v) for v in res.consensus]
+    gnorms = [float(v) for v in res.grad_norms]
+    step_ms = [(e[1] - s[1]) * 1e3 for s, e in zip(marks[0::2], marks[1::2])]
+    for t, (per, ex_ms) in enumerate(ex.calls):
+        log(f"[ring] step {t} loss(x_bar) {losses[t]:.5f} gnorm "
+            f"{gnorms[t]:.4f} consensus {cons[t]!r} step {step_ms[t]:.1f} "
+            f"ms (exchange {ex_ms:.1f} ms) K5 launches "
+            f"{per['decode_add_encode_bucketed']}")
+        if per["decode_add_encode_bucketed"] != \
+                RING_WORKERS * (RING_WORKERS - 1) * 2:
+            raise AssertionError(f"step {t}: launches {per}")
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"non-finite loss {losses}")
+    if any(c != 0.0 for c in cons):
+        raise AssertionError(f"consensus {cons}: workers differ")
+    if res.comm_bytes_per_step != RING_COMM_BYTES:
+        raise AssertionError(f"comm {res.comm_bytes_per_step}")
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = RING_WORKERS * RING_BATCH * RING_SEQ
+    out = {"steps": RING_STEPS, "workers": RING_WORKERS, "lr": RING_LR,
+           "losses": losses, "consensus": cons, "median_step_ms": med,
+           "first_step_ms": step_ms[0], "tokens_per_s": tokens / (med / 1e3),
+           "exchange_ms": [ms for _, ms in ex.calls],
+           "max_memory_allocated": peak,
+           "comm_bytes_per_step": res.comm_bytes_per_step,
+           "wall_s": wall, "launches": launches}
+    log(f"[ring] median step {med:.1f} ms (first {step_ms[0]:.1f} ms), "
+        f"tokens/s {out['tokens_per_s']:.1f}, max_memory_allocated {peak} B")
+    log("[ring] " + json.dumps(out))
+    log("[ring] breakdown " + json.dumps(ring_breakdown(
+        torch, loss_fn, res.params, make_batch)))
+    del res
+    torch.cuda.empty_cache()
+    ring_cross_device_check(torch)
+    out["dae"] = timing
+    return out
+
+
+def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
+    """Where a full-width ring step's time goes, piece by piece, each
+    timed alone on the host clock around a synchronize."""
+    from repro_torch.core import communicators as C
+    from repro_torch.core import compression, prng, pytree
+    from repro_torch.kernels.quant import kernel, ops
+    from repro_torch.train import steps
+
+    n = RING_WORKERS
+    cdc = compression.codec("rq4")
+    key = prng.PRNGKey(77)
+    batch = make_batch(key)
+    p0 = pytree.tree_map(lambda p: p[0], params_w)
+    g = steps.value_and_grad(loss_fn, p0, batch)[1]
+    grads_w = pytree.tree_map(lambda t: torch.stack([t] * n), g)
+    del g
+    layout = C._layout_w(grads_w)
+    pe, nb, _ = cdc.partition_geometry(layout.total, n)
+    pack, cap, _, rows_b, rows_kept = ops.flat_geometry(pe, bits=4)
+    rt = rows_kept - (nb - 1) * rows_b
+    gparts = C._flatten_w(layout, grads_w, padded_len=n * pe).view(n, n, pe)
+    msgs = [cdc.encode_partition(gparts[i, i], prng.fold_in(key, i))
+            for i in range(n)]
+
+    def draws_one_partition():
+        ops._head_uniforms(key, nb, pack, rows_b, "cuda")
+        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
+                     device="cuda")
+
+    parts = dae_parts(*msgs[0], gparts[1, 0], key, bits=4,
+                      bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
+
+    def k5_hops():
+        for _ in range(n * (n - 1)):
+            for p, q, x4, u4 in parts:
+                kernel.decode_add_encode_bucketed(p, q, x4, u4, bits=4)
+
+    def encode_no_draws():   # K1 + K2 of the N initial partition encodes
+        for i in range(n):
+            ops.bucket_params(ops.edge_pad(gparts[i, i], nb * cap).view(
+                nb, cap), bits=4)
+            for _, q, x4, u4 in parts:
+                kernel.encode_packed(x4, u4, q, bits=4)
+
+    payload_all = torch.empty((n, n) + tuple(msgs[0][0].shape),
+                              dtype=torch.uint8, device="cuda")
+
+    def all_gather():
+        for i in range(n):
+            for j in range(n):
+                payload_all[i, j] = msgs[j][0]
+
+    out = torch.empty((n, n * pe), device="cuda")
+
+    def decode_all():
+        for i in range(n):
+            for j in range(n):
+                cdc.decode_partition(*msgs[j], part_elems=pe,
+                                     out=out[i, j * pe:(j + 1) * pe])
+
+    n_draws = n + n * (n - 1)      # partition encodes per step
+    return {
+        "fwd_bwd_per_worker_ms": host_ms(torch, lambda: steps.value_and_grad(
+            loss_fn, p0, batch), reps=3),
+        "fwd_bwd_workers": n,
+        "draws_per_partition_ms": host_ms(torch, draws_one_partition,
+                                          reps=3),
+        "draws_partitions_per_step": n_draws,
+        "k5_per_step_ms": host_ms(torch, k5_hops, reps=3),
+        "k1_k2_initial_encodes_ms": host_ms(torch, encode_no_draws),
+        "all_gather_copies_ms": host_ms(torch, all_gather),
+        "final_decodes_k3_ms": host_ms(torch, decode_all),
+        "flatten_pad_ms": host_ms(torch, lambda: C._flatten_w(
+            layout, grads_w, padded_len=n * pe)),
+        "sgd_update_ms": host_ms(torch, lambda: pytree.tree_map(
+            lambda p, g: p - RING_LR * g, params_w, grads_w)),
+    }
+
+
+def ring_cross_device_check(torch) -> None:
+    """A reduced rq4 ring exchange (N = 4, partitions of several
+    buckets) on the card equals the CPU plain path bit for bit, given
+    the same stacked gradients."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import communicators, compression, prng, pytree
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.models import transformer
+
+    mc = configs.get_config(TRAIN_ARCH).reduced(n_layers=2, d_model=128,
+                                                vocab=256)
+    params = transformer.init(mc, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(3)
+    grads = pytree.tree_map(lambda p: torch.from_numpy(
+        (rng.normal(size=(RING_WORKERS,) + tuple(p.shape)) * 0.01).astype(
+            np.float32)), params)
+    ring = communicators.CSGDRingExchange(compressor="rq4")
+    default_be = compression.DEFAULT_BUCKET_ELEMS
+    compression.DEFAULT_BUCKET_ELEMS = 16384     # partitions of 16 buckets
+    try:
+        before = kernel.decode_add_encode_bucketed.launches
+        got, _ = ring(pytree.tree_map(lambda t: t.cuda(), grads), (),
+                      prng.PRNGKey(5))
+        k5 = kernel.decode_add_encode_bucketed.launches - before
+        want, _ = ring(grads, (), prng.PRNGKey(5))
+    finally:
+        compression.DEFAULT_BUCKET_ELEMS = default_be
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        if not bits_equal(a.cpu(), b):
+            raise AssertionError("card and CPU ring exchanges differ")
+        if not all(bits_equal(a[i], a[0]) for i in range(1, RING_WORKERS)):
+            raise AssertionError("workers differ after the all-gather")
+    if k5 != RING_WORKERS * (RING_WORKERS - 1) * 2:
+        raise AssertionError(f"reduced ring launched K5 {k5} times")
+    total = sum(t.numel() for t in pytree.tree_leaves(params))
+    log(f"[check] reduced {TRAIN_ARCH} rq4 ring ({total} parameters, "
+        f"N={RING_WORKERS}, bucket_elems 16384): card == CPU bit for bit, "
+        "all workers identical")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -769,6 +1209,8 @@ def main() -> int:
     cross_device_check(torch)
     trained = train_phase(torch)
     timing["qdq_bucketed"] = trained["qdq"]
+    ringed = ring_phase(torch)
+    timing["decode_add_encode_bucketed"] = ringed["dae"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -776,11 +1218,13 @@ def main() -> int:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
     log("[launches] " + json.dumps({"serve": served["launches"],
-                                    "train": trained["launches"]}))
+                                    "train": trained["launches"],
+                                    "ring": ringed["launches"]}))
     rows = []
     for name, replaces in KERNELS.items():
         t = timing[name]
-        path = served if name in SERVE_KERNELS else trained
+        path = (served if name in SERVE_KERNELS else ringed
+                if name in RING_KERNELS else trained)
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],

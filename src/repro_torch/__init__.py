@@ -12,7 +12,10 @@ the ``kernels.quant`` CUDA kernels, ``csrc/quant.cu``), and the training
 path on one card (``launch.train``, ``train.steps.make_train_step`` with
 the fused rq gradient compression and error feedback, ``optim``,
 ``data.pipeline.SyntheticLM``, ``checkpoint.npz``, the full-sequence
-``apply`` / ``loss_fn`` of both parameter trees).
+``apply`` / ``loss_fn`` of both parameter trees), and the paper's
+algorithm tier (``core.parallel``, ``core.communicators``,
+``core.mixing``: workers stacked on one device, the partitioned ring
+AllReduce on its own fused kernel).
 """
 from repro_torch.device import resolve_device
 

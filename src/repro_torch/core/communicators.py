@@ -1,0 +1,724 @@
+"""The paper's system relaxations as composable gradient/model exchanges,
+over a stacked worker dimension.
+
+The port of ``repro.core.communicators``. JAX runs each exchange per
+worker under ``vmap(axis_name=...)`` with collectives over the named
+axis; here that map is written out. An exchange takes the STACKED
+gradient tree (every leaf has a leading worker dim N) and its stacked
+state, and returns the stacked update and state:
+
+  * ``lax.ppermute(x, perm)`` is a gather on dim 0 (``_ppermute``);
+  * ``lax.pmean`` is a mean over dim 0, broadcast back to every row;
+  * ``axis_index`` is the row number, and ``_worker_key(key)`` is
+    ``fold_in(key, i)`` for row i.
+
+Names, keys and argument order are otherwise JAX's, so both packages
+draw the same bits and the ring's chains are bit-identical to JAX's.
+
+  MbSGDExchange      distributed baseline, Eq. (2.2)        pmean
+  CSGDPSExchange     Eq. (3.2)  Q(1/N sum Q(g_n))           multi-server PS form
+  CSGDRingExchange   Eq. (3.3)  per-partition chains        partitioned ring
+                     (reduce-scatter + all-gather, Fig 3.3) AllReduce on K5
+  ECSGDExchange      Eqs. (3.8)-(3.12) DoubleSqueeze        two-sided EC
+  DelayedExchange    Assumption 5 bounded staleness (tau)   wraps any exchange
+  GossipMix          Eq. (5.2)  X <- (X - gamma G) W        gathers over any W
+  DCDGossipExchange  difference-compressed DSGD             compressed gossip
+  ECDGossipExchange  error-compensated DCD variant          + flat residual
+
+Only the fused flat tier is ported (``flat=True``, the JAX default);
+``flat=False`` (the per-leaf reference tier) raises. Every exchange
+reports the wire bytes one worker sends per iteration via
+``message_bytes``. Exchanges return new tensors and leave their inputs
+as they are, except where a docstring says a state buffer is updated in
+place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache, wraps
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import compression, mixing, prng, pytree
+from repro_torch.core.registry import Registry, make_factory
+
+PyTree = Any
+
+
+def _sized(fn):
+    """Metrics tap on every ``message_bytes`` sizing call: the measured
+    per-iteration wire bytes one worker pays under this exchange."""
+    @wraps(fn)
+    def wrapper(self, tree, **kw):
+        b = fn(self, tree, **kw)
+        if obs.enabled("metrics"):
+            obs.gauge("comm.message_bytes", exchange=self.name).set(b)
+            obs.counter("comm.sized_total_bytes",
+                        exchange=self.name).inc(b)
+        return b
+    return wrapper
+
+
+def _n_workers(tree_w) -> int:
+    return int(pytree.tree_leaves(tree_w)[0].shape[0])
+
+
+def _row(tree_w, i: int):
+    """Worker i's tree (views of the stacked leaves)."""
+    return pytree.tree_map(lambda a: a[i], tree_w)
+
+
+def _worker_key(key, i: int):
+    return prng.fold_in(key, i)
+
+
+def _ppermute(x: torch.Tensor, perm) -> torch.Tensor:
+    """``lax.ppermute`` over dim 0: row dst receives row src for each
+    (src, dst) pair of ``perm``."""
+    idx = [0] * x.shape[0]
+    for src, dst in perm:
+        idx[dst] = src
+    return x[idx]
+
+
+def _pmean(x: torch.Tensor) -> torch.Tensor:
+    """``lax.pmean`` over dim 0: every row holds the mean of the rows."""
+    return x.mean(dim=0, keepdim=True).expand_as(x)
+
+
+def _flatten_w(layout: compression.FlatLayout, tree_w, *,
+               padded_len=None) -> torch.Tensor:
+    """Stacked tree -> (N, total) fp32 buffer (each row edge-padded to
+    ``padded_len`` with its last real element when given)."""
+    leaves = pytree.tree_leaves(tree_w)
+    n = leaves[0].shape[0]
+    width = layout.total if padded_len is None else padded_len
+    out = torch.empty((n, width), dtype=torch.float32,
+                      device=leaves[0].device)
+    for leaf, off, size in zip(leaves, layout.offsets, layout.sizes):
+        out[:, off:off + size] = leaf.reshape(n, size)
+    if width > layout.total:
+        out[:, layout.total:] = out[:, layout.total - 1:layout.total]
+    return out
+
+
+def _unflatten_w(layout: compression.FlatLayout, flat_w: torch.Tensor):
+    """(N, >= total) buffer -> stacked tree (fp32 leaves are views)."""
+    n = flat_w.shape[0]
+    leaves = [flat_w[:, o:o + s].reshape((n,) + tuple(shape)).to(dtype)
+              for o, s, shape, dtype in zip(layout.offsets, layout.sizes,
+                                            layout.shapes, layout.dtypes)]
+    return pytree.tree_unflatten(layout.treedef, leaves)
+
+
+def _layout_w(tree_w) -> compression.FlatLayout:
+    """The FlatLayout of one worker's tree."""
+    return compression.FlatLayout.from_tree(_row(tree_w, 0))
+
+
+def _fp32_bytes(tree) -> float:
+    """Uncompressed fp32 wire bytes of one message (the 'none' codec)."""
+    return compression.codec("none").tree_wire_bytes_flat(tree)
+
+
+def _per_leaf(name: str):
+    return NotImplementedError(
+        f"{name}(flat=False): the per-leaf tier is not ported to "
+        "repro_torch yet; use the fused flat tier (flat=True)")
+
+
+# `message_bytes(tree, n_workers=...)` on every exchange reports the wire
+# bytes ONE worker sends per iteration under the exchange's native
+# pattern, for one worker's (unstacked) tree.
+
+
+@dataclasses.dataclass(frozen=True)
+class MbSGDExchange:
+    """Synchronous data-parallel baseline: exact mean of worker gradients."""
+
+    name: str = "mbsgd"
+
+    def init(self, params_w: PyTree) -> PyTree:
+        return ()
+
+    def __call__(self, grad: PyTree, state: PyTree, key):
+        return pytree.tree_map(_pmean, grad), state
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 1) -> float:
+        """Uplink + broadcast share, fp32."""
+        del n_workers
+        return 2.0 * _fp32_bytes(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSGDPSExchange:
+    """CSGD, multi-server parameter-server form, Eq. (3.2).
+
+    Workers quantize independently (per-worker key); the server's
+    outgoing compression uses a key shared by all workers, so the
+    broadcast value is identical everywhere: it is computed once and
+    given to every row. Both directions use the fused qdq (bit-identical
+    to a decode(encode(.)) round trip)."""
+
+    compressor: str = "rq8"
+    name: str = "csgd_ps"
+    flat: bool = True
+
+    def init(self, params_w: PyTree) -> PyTree:
+        return ()
+
+    def __call__(self, grad, state, key):
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        cdc = compression.codec(self.compressor)
+        layout = _layout_w(grad)
+        local_q = _flatten_w(layout, grad)
+        for i in range(local_q.shape[0]):
+            local_q[i] = cdc.flat_qdq(local_q[i], _worker_key(key, i),
+                                      donate=True)
+        out = cdc.flat_qdq(local_q.mean(dim=0), prng.fold_in(key, 0x5E4E4),
+                           donate=True)
+        return _unflatten_w(layout, out.expand_as(local_q)), state
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 1) -> float:
+        """One worker->server message + this worker's share of the
+        broadcast."""
+        del n_workers
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        return 2.0 * compression.codec(self.compressor).tree_wire_bytes_flat(
+            tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSGDRingExchange:
+    """CSGD, ring-AllReduce form, Eq. (3.3) — partitioned by default.
+
+    partitioned=True (needs a packable codec): reduce-scatter +
+    all-gather with the paper's per-partition requantization chains
+    (Figure 3.3). Each worker's flat gradient is edge-padded to
+    N * part_elems and cut into N equal granule-aligned partitions:
+
+      * reduce-scatter, N-1 hops: worker i first encodes its own
+        partition i under its worker key; at hop h it receives the
+        message of worker i-1, and decodes it, adds its own slice of
+        partition (i - h) mod N and re-encodes under fold_in(wkey_i, h)
+        in ONE fused call (K5 on the card) — partition p accumulates
+        Q(..Q(Q(g_p[p]) + g_{p+1}[p]).. + g_{p+N-1}[p]);
+      * all-gather, N-1 hops: finished partitions circulate VERBATIM
+        into one (N, N, rows_p, 512) backing payload (worker i's row of
+        it is its PartitionedFlatPacked), so every worker ends
+        bit-identical.
+
+    Per-worker wire bytes: 2(N-1) partition messages = 2*M*(N-1)/N, vs
+    the monolithic chain's (N-1)*M. partitioned=False keeps the
+    monolithic chain (ONE whole-tree FlatPacked per hop, per-worker
+    nesting orders); non-packable codecs fall back to the qdq chain.
+
+    The bucket cap is ``compression.DEFAULT_BUCKET_ELEMS``, read at call
+    time.
+    """
+
+    compressor: str = "rq8"
+    name: str = "csgd_ring"
+    flat: bool = True
+    partitioned: bool = True
+
+    def init(self, params_w: PyTree) -> PyTree:
+        return ()
+
+    def __call__(self, grad, state, key):
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        cdc = compression.codec(self.compressor)
+        n = _n_workers(grad)
+        if self.partitioned and cdc.packable and n > 1:
+            return self._partitioned_allreduce(grad, state, key, cdc, n)
+        layout = _layout_w(grad)
+        gflat = _flatten_w(layout, grad)
+        wkeys = [_worker_key(key, i) for i in range(n)]
+        be = compression.DEFAULT_BUCKET_ELEMS
+        if cdc.packable and n > 1:
+            acc = [cdc.flat_encode(gflat[i], wkeys[i], layout,
+                                   bucket_elems=be) for i in range(n)]
+            for h in range(1, n):
+                shifted = [acc[(i - 1) % n] for i in range(n)]
+                acc = [cdc.flat_encode(
+                    cdc.flat_decode(shifted[i]) + gflat[i],
+                    prng.fold_in(wkeys[i], h), layout, bucket_elems=be)
+                    for i in range(n)]
+            out = torch.stack([cdc.flat_decode(a) for a in acc])
+        else:
+            out = torch.stack([cdc.flat_qdq(gflat[i], wkeys[i],
+                                            bucket_elems=be)
+                               for i in range(n)])
+            for h in range(1, n):
+                shifted = _ppermute(out, [(i, (i + 1) % n)
+                                          for i in range(n)])
+                out = torch.stack([cdc.flat_qdq(
+                    shifted[i] + gflat[i], prng.fold_in(wkeys[i], h),
+                    bucket_elems=be, donate=True) for i in range(n)])
+        return _unflatten_w(layout, out.div_(n)), state
+
+    def _partitioned_allreduce(self, grad, state, key, cdc, n: int):
+        """Reduce-scatter + all-gather over the N-way partition view."""
+        layout = _layout_w(grad)
+        be = compression.DEFAULT_BUCKET_ELEMS
+        part_elems, _, _ = cdc.partition_geometry(layout.total, n,
+                                                  bucket_elems=be)
+        gparts = _flatten_w(layout, grad, padded_len=n * part_elems).view(
+            n, n, part_elems)                    # [worker, partition]
+        wkeys = [_worker_key(key, i) for i in range(n)]
+
+        # reduce-scatter: worker i starts with its own partition i; hop h
+        # ships the partial sum of partition (i - h) mod N one step right
+        msgs = [cdc.encode_partition(gparts[i, i], wkeys[i],
+                                     bucket_elems=be) for i in range(n)]
+        for h in range(1, n):
+            incoming = [msgs[(i - 1) % n] for i in range(n)]
+            msgs = [cdc.decode_add_encode_partition(
+                *incoming[i], gparts[i, (i - h) % n],
+                prng.fold_in(wkeys[i], h), bucket_elems=be)
+                for i in range(n)]
+        del gparts
+
+        # all-gather: worker i finished partition (i + 1) mod N; N - 1
+        # hops forward finished partitions verbatim into the backing
+        # buffer of every worker
+        pay, prm = msgs[0]
+        payload_all = torch.empty((n, n) + tuple(pay.shape), dtype=pay.dtype,
+                                  device=pay.device)
+        params_all = torch.empty((n, n) + tuple(prm.shape), dtype=prm.dtype,
+                                 device=prm.device)
+        cur = msgs
+        for g in range(n):
+            if g:
+                cur = [cur[(i - 1) % n] for i in range(n)]
+            for i in range(n):
+                idx = (i + 1 - g) % n
+                payload_all[i, idx] = cur[i][0]
+                params_all[i, idx] = cur[i][1]
+
+        out = torch.empty((n, n * part_elems), dtype=torch.float32,
+                          device=pay.device)
+        for i in range(n):
+            packed = compression.PartitionedFlatPacked(
+                payload_all[i], params_all[i], layout, cdc.name, be,
+                part_elems)
+            cdc.flat_decode_partitioned(packed, out=out[i])
+        return _unflatten_w(layout, out.div_(n)), state
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 2) -> float:
+        """Partitioned: 2(n-1) partition messages per iteration;
+        monolithic: n-1 hops of one whole-tree message each."""
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        cdc = compression.codec(self.compressor)
+        hops = max(n_workers - 1, 1)
+        be = compression.DEFAULT_BUCKET_ELEMS
+        if self.partitioned and cdc.packable and n_workers > 1:
+            return 2.0 * hops * cdc.tree_wire_bytes_partitioned(
+                tree, n_workers, bucket_elems=be)
+        return hops * cdc.tree_wire_bytes_flat(tree, bucket_elems=be)
+
+    def n_wire_messages(self, n_workers: int) -> int:
+        """Wire messages one worker sends per iteration: 2(n-1) partition
+        messages on the partitioned path, n-1 on the monolithic chain."""
+        cdc = compression.codec(self.compressor)
+        hops = max(n_workers - 1, 1)
+        if self.flat and self.partitioned and cdc.packable and n_workers > 1:
+            return 2 * hops
+        return hops
+
+
+@dataclasses.dataclass(frozen=True)
+class ECSGDExchange:
+    """Error-compensated SGD / DoubleSqueeze, Eqs. (3.8)-(3.12).
+
+    Worker side:  v_n = g_n + delta_n ; send Q(v_n) ; delta_n = v_n - Q(v_n)
+    Server side:  v = mean_n Q(v_n) + delta ; bcast Q(v) ; delta = v - Q(v)
+
+    Works with ANY codec, biased ones included (Section 3.3). Both error
+    buffers are single flat fp32 residuals per worker, stacked: state
+    ``{"worker_err": (N, total), "server_err": (N, total)}``.
+    """
+
+    compressor: str = "sign1"
+    name: str = "ecsgd"
+    flat: bool = True
+
+    def init(self, params_w: PyTree) -> PyTree:
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        n, total = _n_workers(params_w), _layout_w(params_w).total
+        dev = pytree.tree_leaves(params_w)[0].device
+        return {"worker_err": torch.zeros((n, total), device=dev),
+                "server_err": torch.zeros((n, total), device=dev)}
+
+    def __call__(self, grad, state, key):
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        cdc = compression.codec(self.compressor)
+        skey = prng.fold_in(key, 0x5E4E4)
+        layout = _layout_w(grad)
+        n = _n_workers(grad)
+        # worker side (Eqs. 3.8-3.9) on the flat residual buffers
+        v_n = _flatten_w(layout, grad).add_(state["worker_err"])
+        q_n = torch.stack([cdc.flat_qdq(v_n[i], _worker_key(key, i))
+                           for i in range(n)])
+        # server side (Eqs. 3.10-3.11); shared key -> identical everywhere
+        v = _pmean(q_n) + state["server_err"]
+        out = torch.stack([cdc.flat_qdq(v[i], skey) for i in range(n)])
+        return _unflatten_w(layout, out), {"worker_err": v_n.sub_(q_n),
+                                           "server_err": v.sub_(out)}
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 1) -> float:
+        """As CSGDPSExchange: worker->server + broadcast share."""
+        del n_workers
+        if not self.flat:
+            raise _per_leaf(type(self).__name__)
+        return 2.0 * compression.codec(self.compressor).tree_wire_bytes_flat(
+            tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class DelayedExchange:
+    """Bounded-staleness wrapper (ASGD, Section 4, Assumption 5).
+
+    Default (``schedule=None``): a length-tau FIFO — the update returned
+    at step t is the one computed at step t - tau; the first tau steps
+    return the warm-up buffer's zeros.
+
+    ``schedule``: TRACE-DRIVEN per-step staleness, a 1-D sequence s_t
+    (all workers) or a 2-D (n_workers, T) table of delays, each clipped
+    to [0, tau]; the update returned at step t is the one computed at
+    step t - s_t, zeros before one exists; steps past the end wrap.
+
+    State: ``{"inner", "buffer", "head"}``, stacked like JAX's vmapped
+    state: each buffer leaf is (N, slots, ...), ``head`` an (N,) int32
+    host tensor (the FIFO slot, or the step counter under a schedule).
+    The buffer is written in place.
+    """
+
+    inner: Any = dataclasses.field(default_factory=MbSGDExchange)
+    tau: int = 4
+    name: str = "asgd"
+    schedule: Any = None      # None | 1-D | 2-D ints; tuple-ized below
+
+    def __post_init__(self):
+        if self.schedule is not None:
+            s = np.asarray(self.schedule, dtype=int)
+            if s.ndim == 1:
+                sched = tuple(int(v) for v in s)
+            elif s.ndim == 2:
+                sched = tuple(tuple(int(v) for v in row) for row in s)
+            else:
+                raise ValueError("schedule must be 1-D or 2-D")
+            object.__setattr__(self, "schedule", sched)
+
+    def _cap(self) -> int:
+        # schedule mode needs tau+1 slots: s=0 must read the value written
+        # THIS step, while s=tau still reads step t-tau un-clobbered
+        return self.tau + 1 if self.schedule is not None else max(self.tau, 1)
+
+    def init(self, params_w: PyTree) -> PyTree:
+        n = _n_workers(params_w)
+        buf = pytree.tree_map(
+            lambda p: torch.zeros((n, self._cap()) + tuple(p.shape[1:]),
+                                  dtype=p.dtype, device=p.device), params_w)
+        return {"inner": self.inner.init(params_w), "buffer": buf,
+                "head": torch.zeros((n,), dtype=torch.int32)}
+
+    def __call__(self, grad, state, key):
+        fresh, inner_state = self.inner(grad, state["inner"], key)
+        if self.schedule is not None:
+            return self._delayed_by_schedule(fresh, state, inner_state)
+        if self.tau <= 0:
+            return fresh, {"inner": inner_state, "buffer": state["buffer"],
+                           "head": state["head"]}
+        head = [int(h) for h in state["head"]]
+        rows = range(len(head))
+
+        def swap(b, f):
+            stale = torch.stack([b[i, head[i]] for i in rows])
+            for i in rows:
+                b[i, head[i]] = f[i]
+            return stale
+
+        stale = pytree.tree_map(swap, state["buffer"], fresh)
+        return stale, {"inner": inner_state, "buffer": state["buffer"],
+                       "head": (state["head"] + 1) % self.tau}
+
+    def _delayed_by_schedule(self, fresh, state, inner_state):
+        """Write fresh at slot t mod (tau+1), read slot (t - s_t)."""
+        steps = [int(h) for h in state["head"]]   # the step counters
+        sched = np.asarray(self.schedule, dtype=np.int64)
+        n = len(steps)
+        if sched.ndim == 2 and sched.shape[0] != n:
+            raise ValueError(f"2-D schedule has {sched.shape[0]} rows but "
+                             f"there are {n} workers")
+        cap = self._cap()
+        s_t = [int(np.clip(sched[i, st % sched.shape[1]] if sched.ndim == 2
+                           else sched[st % sched.shape[0]], 0, self.tau))
+               for i, st in enumerate(steps)]
+
+        def write_read(b, f):
+            for i in range(n):
+                b[i, steps[i] % cap] = f[i]
+            return torch.stack([
+                b[i, (steps[i] - s_t[i]) % cap] if steps[i] >= s_t[i]
+                else torch.zeros_like(b[i, 0]) for i in range(n)])
+
+        stale = pytree.tree_map(write_read, state["buffer"], fresh)
+        return stale, {"inner": inner_state, "buffer": state["buffer"],
+                       "head": state["head"] + 1}
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 1) -> float:
+        return self.inner.message_bytes(tree, n_workers=n_workers)
+
+
+def _freeze_w(obj) -> None:
+    """Store a frozen dataclass's ``w`` matrix as a nested tuple (keeps
+    the exchange hashable — shared by GossipMix and DCD/ECD)."""
+    if obj.w is not None:
+        w = np.asarray(obj.w, dtype=float)
+        object.__setattr__(obj, "w",
+                           tuple(tuple(row) for row in w.tolist()))
+
+
+def _resolve_matrix(w, topology: str, n: int):
+    """Explicit (n, n) gossip matrix for a (w, topology) spec: an
+    explicit ``w`` wins; otherwise the named ``mixing`` constructor."""
+    if w is not None:
+        w = np.asarray(w)
+        if w.shape != (n, n):
+            raise ValueError(f"W is {w.shape}, there are {n} workers")
+        return w
+    if topology == "ring":
+        return mixing.ring(n)
+    if topology == "torus":
+        return mixing.torus_2d(*mixing.near_square_factors(n))
+    if topology == "full":
+        return mixing.fully_connected(n)
+    raise ValueError(f"unknown topology {topology}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipMix:
+    """Decentralized model mixing, Eq. (5.2): X_{t+1} = (X_t - gamma G_t) W.
+
+    ``topology='ring'`` is the paper's W2 (self + both neighbors, all
+    1/3), two gathers; ``'full'`` is W1 = 11^T/N (a mean over workers).
+    ``'torus'`` and an explicit doubly stochastic ``w`` are lowered via
+    ``mixing.birkhoff_decomposition``: W = sum_k c_k P_k, one gather per
+    non-identity permutation, scaled by c_k — deg(W) is the number of
+    wire messages each worker sends per mix. Takes and returns the
+    stacked parameter tree.
+    """
+
+    topology: str = "ring"
+    name: str = "gossip"
+    w: Any = None
+
+    def __post_init__(self):
+        _freeze_w(self)
+
+    def _matrix(self, n: int):
+        """The explicit W for this worker count, or None for the
+        ring/full fast paths."""
+        if self.w is None and self.topology in ("ring", "full"):
+            return None
+        return _resolve_matrix(self.w, self.topology, n)
+
+    def __call__(self, params: PyTree) -> PyTree:
+        n = _n_workers(params)
+        w = self._matrix(n)
+        if w is not None:
+            if n == 1:
+                return params
+            terms = mixing.birkhoff_decomposition(w)
+
+            def mix(x):
+                acc = torch.zeros_like(x)
+                for c, perm in terms:
+                    acc = acc + c * (x if not perm else _ppermute(x, perm))
+                return acc
+
+            return pytree.tree_map(mix, params)
+        if self.topology == "full":
+            return pytree.tree_map(_pmean, params)
+        right = [(i, (i + 1) % n) for i in range(n)]
+        left = [(i, (i - 1) % n) for i in range(n)]
+
+        def mix(x):
+            if n == 1:
+                return x
+            xr = _ppermute(x, right)
+            xl = _ppermute(x, left)
+            if n == 2:  # both neighbors are the same worker: 1/3 self + 2/3 nbr
+                return x / 3.0 + 2.0 * xr / 3.0
+            return (x + xr + xl) / 3.0
+
+        return pytree.tree_map(mix, params)
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 3) -> float:
+        """Full fp32 model to each neighbor: deg(W) sends per mix."""
+        w = self._matrix(n_workers)
+        if w is not None:
+            degree = mixing.degree(w)
+        else:
+            degree = 2 if self.topology == "ring" else max(n_workers - 1, 1)
+            if self.topology == "ring" and n_workers == 2:
+                degree = 1   # both neighbors are the same worker
+        return degree * _fp32_bytes(tree)
+
+
+@lru_cache(maxsize=64)
+def _birkhoff_terms_cached(w_rows: tuple):
+    """(c_identity, ((c_k, perm_k), ...)) of W's Birkhoff-von Neumann
+    decomposition, cached on the nested-tuple matrix."""
+    terms = mixing.birkhoff_decomposition(np.asarray(w_rows))
+    c_id = sum(c for c, perm in terms if not perm)
+    nonid = tuple((c, perm) for c, perm in terms if perm)
+    return float(c_id), nonid
+
+
+@dataclasses.dataclass(frozen=True)
+class DCDGossipExchange:
+    """Difference-compressed decentralized mixing: DCD-PSGD over any W
+    (Section 5 + Tang et al. 2018). Every worker keeps its public copy
+    ``x̂_i``; per iteration
+
+      1. ``x_i^{t+1/2} = sum_j W_ij x̂_j^t - gamma g_i``   (mix on replicas)
+      2. ``delta_i = x_i^{t+1/2} - x̂_i^t``
+      3. ``Q(delta_i)`` through the fused flat codec, ONE message per
+         neighbor;
+      4. every holder applies the decoded delta, so a worker's model and
+         all replicas of it stay bit-identical.
+
+    The replica a receiver adds is the decode of the sender's message,
+    which is bit for bit the sender's own decode, so it is gathered from
+    the senders' rows rather than decoded again.
+
+    State (stacked flat fp32 buffers): ``xhat`` (N, total), ``nbr``
+    (N, K, total), one replica per non-identity Birkhoff term, and for
+    ECD ``err`` (N, total). ``init_stacked(params_w)`` builds it;
+    ``__call__(params_w, state, key)`` mixes.
+    """
+
+    compressor: str = "rq4"
+    topology: str = "ring"
+    w: Any = None
+    name: str = "dcd"
+    error_compensated = False        # class attr (ECD subclass flips it)
+
+    def __post_init__(self):
+        _freeze_w(self)
+
+    def _matrix(self, n: int):
+        return _resolve_matrix(self.w, self.topology, n)
+
+    def birkhoff_terms(self, n: int):
+        """(c_identity, ((c_k, perm_k), ...)) — the gather lowering."""
+        w = self._matrix(n)
+        return _birkhoff_terms_cached(tuple(tuple(row) for row in
+                                            w.tolist()))
+
+    def degree(self, n: int) -> int:
+        return mixing.degree(self._matrix(n))
+
+    def init_stacked(self, params_w: PyTree) -> PyTree:
+        """Replica state from the (n_workers, ...) stacked params:
+        nbr[w, k] starts at the term-k source's flattened params."""
+        n = _n_workers(params_w)
+        layout = _layout_w(params_w)
+        xhat = _flatten_w(layout, params_w)                 # (n, total)
+        _, terms = self.birkhoff_terms(n)
+        if terms:
+            idx = np.zeros((len(terms), n), dtype=np.int64)  # idx[k, dst]=src
+            for k, (_, perm) in enumerate(terms):
+                for src, dst in perm:
+                    idx[k, dst] = src
+            nbr = xhat[torch.from_numpy(idx.T.copy())]      # (n, K, total)
+        else:
+            nbr = torch.zeros((n, 0, layout.total), device=xhat.device)
+        state = {"xhat": xhat, "nbr": nbr}
+        if self.error_compensated:
+            state["err"] = torch.zeros_like(xhat)
+        return state
+
+    def __call__(self, params: PyTree, state: PyTree, key):
+        cdc = compression.codec(self.compressor)
+        n = _n_workers(params)
+        layout = _layout_w(params)
+        c_id, terms = self.birkhoff_terms(n)
+        xhat = state["xhat"]
+        # the call site hands us x̂_i - gamma g_i (model == public copy)
+        y = _flatten_w(layout, params)
+        z = c_id * xhat                      # sum_j W_ij x̂_j from replicas
+        for k, (c, _) in enumerate(terms):
+            z = z + c * state["nbr"][:, k]
+        x_half = (y - xhat) + z              # = sum_j W_ij x̂_j - gamma g_i
+        v = x_half - xhat                    # the broadcast delta
+        if self.error_compensated:
+            v = v + state["err"]
+        q = torch.empty_like(v)
+        for i in range(n):
+            wkey = _worker_key(key, i)
+            if cdc.packable:
+                q[i] = cdc.flat_decode(cdc.flat_encode(v[i], wkey, layout))
+            else:
+                q[i] = cdc.flat_qdq(v[i], wkey)
+        new_xhat = xhat + q
+        nbr = state["nbr"].clone()
+        for k, (_, perm) in enumerate(terms):
+            nbr[:, k] += _ppermute(q, perm)
+        new_state = {"xhat": new_xhat, "nbr": nbr}
+        if self.error_compensated:
+            new_state["err"] = v - q
+        return _unflatten_w(layout, new_xhat), new_state
+
+    @_sized
+    def message_bytes(self, tree, *, n_workers: int = 3) -> float:
+        """deg(W) compressed-delta messages per mix."""
+        cdc = compression.codec(self.compressor)
+        return self.degree(n_workers) * cdc.tree_wire_bytes_flat(tree)
+
+    def n_wire_messages(self, n_workers: int) -> int:
+        """One fused message per neighbor per mix."""
+        return self.degree(n_workers)
+
+
+@dataclasses.dataclass(frozen=True)
+class ECDGossipExchange(DCDGossipExchange):
+    """Error-compensated compressed decentralized mixing: DCD with a
+    residual-corrected delta ``v_i = (x_i^{t+1/2} - x̂_i) + e_i``, ship
+    ``Q(v_i)``, ``e_i <- v_i - Q(v_i)``; a single flat fp32 residual per
+    worker. Default codec: the biased 1-bit ``sign1``."""
+
+    compressor: str = "sign1"
+    name: str = "ecd"
+    error_compensated = True
+
+
+EXCHANGES: Registry = Registry("exchange", {
+    "mbsgd": MbSGDExchange,
+    "csgd_ps": CSGDPSExchange,
+    "csgd_ring": CSGDRingExchange,
+    "ecsgd": ECSGDExchange,
+    "asgd": DelayedExchange,
+    "gossip": GossipMix,
+    "dcd": DCDGossipExchange,
+    "ecd": ECDGossipExchange,
+})
+
+make_exchange = make_factory(EXCHANGES)

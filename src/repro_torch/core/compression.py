@@ -1,15 +1,17 @@
-"""Compression codecs of the checkpoint wire: the rq8/rq4/rq2 quantizers
-of Section 3 of the paper, their fused flat-buffer wire object and its
-CRC32 framing.
+"""Compression codecs Q(.) of Section 3 of the paper: the rq8/rq4/rq2
+quantizers with their fused flat-buffer and partitioned wire objects,
+the qdq-only operators, and CRC32 framing.
 
-The port of the parts of ``repro.core.compression`` the serving path
-and the training paths run: ``CompressionSpec``, ``FlatLayout``,
-``FlatPacked``, ``QuantCodec``'s fused flat tier (``flat_encode`` /
-``flat_decode`` / ``flat_qdq`` and their tree forms,
-``tree_wire_bytes_flat``), the identity codec ``none``, the ``codec()``
-registry and the wire-integrity helpers. The per-leaf ``Packed`` tier,
-the partitioned ring view and the other qdq-only operators (sparsifiers,
-sign, clipping) come with later slices.
+The port of ``repro.core.compression`` without its per-leaf tier:
+``CompressionSpec``, ``FlatLayout``, ``FlatPacked``,
+``PartitionedFlatPacked``, ``QuantCodec``'s fused flat tier
+(``flat_encode`` / ``flat_decode`` / ``flat_qdq`` and their tree forms)
+and partitioned tier (the ring AllReduce's partitions and its fused hop,
+K5), the qdq-only ``QdqCodec`` operators (``none``, ``sign1``,
+``clip16``, ``topk_1``, ``rand_sparse_10``, plus the reference
+``randomized_quantize``), the ``codec()`` registry and the
+wire-integrity helpers. The per-leaf ``Packed`` tier (one message per
+leaf) is not ported: ``QuantCodec.qdq`` says so.
 
 A ``FlatLayout`` flattens a parameter tree onto ONE contiguous fp32
 buffer in JAX's leaf order (dict keys sorted, ``core.pytree``), so the
@@ -21,14 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from functools import lru_cache
-from typing import Any, Optional
+from functools import lru_cache, partial
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core import pytree
+from repro_torch.core import prng, pytree
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.quant import ops
 from repro_torch.kernels.quant.ops import DEFAULT_BUCKET_ELEMS  # noqa: F401
@@ -125,7 +127,7 @@ def _cached_layout(treedef, shapes: tuple, dtypes: tuple) -> FlatLayout:
 
 
 # ---------------------------------------------------------------------------
-# The wire object
+# The wire objects
 # ---------------------------------------------------------------------------
 
 
@@ -152,15 +154,149 @@ class FlatPacked:
                    + self.params.numel() * self.params.element_size())
 
 
+@dataclasses.dataclass
+class PartitionedFlatPacked:
+    """A whole-tree compressed message as N per-partition views over ONE
+    backing buffer (the partitioned ring AllReduce's wire object).
+
+    payload: (n_parts, rows_p, 512) uint8 — partition p's packed codes
+             are the slab ``payload[p]``.
+    params:  (n_parts, nb_p, 2) fp32 — partition p's own bucket rows.
+    layout / codec / bucket_elems / part_elems: decode metadata;
+             part_elems is the granule-aligned elements per partition
+             (the flat buffer is edge-padded to n_parts * part_elems).
+
+    A reduce-scatter hop ships ONE partition (``part(p)``); the
+    all-gather copies finished partitions into this buffer verbatim.
+    """
+
+    payload: torch.Tensor
+    params: torch.Tensor
+    layout: FlatLayout
+    codec: str
+    bucket_elems: int
+    part_elems: int
+
+    @property
+    def n_parts(self) -> int:
+        return self.payload.shape[0]
+
+    def part(self, p) -> tuple:
+        """Partition p's (payload, params) — views, never a copy."""
+        return self.payload[p], self.params[p]
+
+    @property
+    def part_wire_bytes(self) -> int:
+        """Measured bytes of ONE partition message (what a ring hop
+        ships): its payload slab + its own params rows."""
+        return int((self.payload.numel() * self.payload.element_size()
+                    + self.params.numel() * self.params.element_size())
+                   // self.n_parts)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Measured size of all partitions: payload + params bytes."""
+        return int(self.payload.numel() * self.payload.element_size()
+                   + self.params.numel() * self.params.element_size())
+
+
 # ---------------------------------------------------------------------------
-# The quantizer codec
+# Codecs
 # ---------------------------------------------------------------------------
 
 
-class QuantCodec:
+class Codec:
+    """One compression operator: the fused qdq over a flat buffer, and
+    the wire bytes of a message. Subclasses set ``spec`` and implement
+    ``qdq``; the packable ``QuantCodec`` adds the packed wire format.
+    The per-leaf tier of the JAX package (``encode`` / ``decode`` /
+    ``tree_qdq`` on each leaf) is not ported."""
+
+    spec: CompressionSpec
+    packable: bool = False
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    def qdq(self, x: torch.Tensor, key) -> torch.Tensor:
+        raise NotImplementedError
+
+    def flat_qdq(self, flat: torch.Tensor, key, *,
+                 bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                 donate: bool = False) -> torch.Tensor:
+        """Fused qdq over one flat fp32 buffer: here one application of
+        the operator to the whole buffer (QuantCodec buckets it)."""
+        del bucket_elems, donate
+        return self.qdq(flat, key)
+
+    def tree_qdq_flat(self, tree, key, *,
+                      bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+        """Whole-tree fused qdq through one flat buffer; the buffer is
+        this call's own, so it may be written over."""
+        layout = FlatLayout.from_tree(tree)
+        return layout.unflatten(self.flat_qdq(
+            layout.flatten(tree), key, bucket_elems=bucket_elems,
+            donate=True))
+
+    def tree_wire_bytes_flat(self, tree, *,
+                             bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                             ) -> float:
+        """Wire bytes of the ONE fused message for ``tree``: the static
+        spec's bytes (one header per message) for a qdq-only codec."""
+        del bucket_elems
+        total = FlatLayout.from_tree(tree).total
+        b = self.spec.compressed_bytes(total)
+        self._observe_wire(b, total, tier="flat")
+        return b
+
+    def tree_wire_bytes_partitioned(self, tree, n_parts: int, *,
+                                    bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                                    ) -> float:
+        """Wire bytes of ONE partition message: the static-spec bytes of
+        a 1/n_parts slice (QuantCodec measures its packed format)."""
+        del bucket_elems
+        total = FlatLayout.from_tree(tree).total
+        return self.spec.compressed_bytes(-(-total // n_parts))
+
+    def _observe_wire(self, wire_b: float, n_elements: int, *,
+                      tier: str) -> None:
+        """Metrics tap on every host-side wire sizing."""
+        if not obs.enabled("metrics"):
+            return
+        obs.counter("compression.wire_bytes", codec=self.name,
+                    tier=tier).inc(wire_b)
+        obs.counter("compression.sized_msgs", codec=self.name,
+                    tier=tier).inc()
+        if wire_b > 0:
+            obs.histogram("compression.ratio", codec=self.name).observe(
+                4.0 * n_elements / wire_b)
+
+
+def _encode_partitions(flat: torch.Tensor, key, *, n_parts: int,
+                       part_elems: int, bits: int, bucket_elems: int):
+    """THE partition-encode pipeline: edge-pad the flat buffer to
+    n_parts * part_elems, view it as equal partitions, and encode
+    partition p under fold_in(key, p) -> (payload (n_parts, rows_p, 512),
+    params (n_parts, nb_p, 2)). The ring exchange's own encodes key
+    per (worker, hop) instead."""
+    padded = ops.edge_pad(flat.reshape(-1).float(), n_parts * part_elems)
+    pays, pars = [], []
+    for p in range(n_parts):
+        pay, par = ops.encode_flat(
+            padded[p * part_elems:(p + 1) * part_elems],
+            prng.fold_in(key, p), bits=bits, bucket_elems=bucket_elems)
+        pays.append(pay)
+        pars.append(par)
+    return torch.stack(pays), torch.stack(pars)
+
+
+class QuantCodec(Codec):
     """Randomized uniform quantization, Eq. (3.1) + Figure 3.1, with the
     packed sub-byte wire format of ``kernels.quant``: the CUDA kernels
     for tensors on the card, their plain versions on the CPU."""
+
+    packable = True
 
     def __init__(self, bits: int):
         if bits not in (8, 4, 2):
@@ -168,9 +304,11 @@ class QuantCodec:
         self.bits = bits
         self.spec = CompressionSpec(f"rq{bits}", True, float(bits))
 
-    @property
-    def name(self) -> str:
-        return self.spec.name
+    def qdq(self, x, key):
+        raise NotImplementedError(
+            f"codec '{self.name}': the per-leaf tier (qdq / encode / "
+            "decode of one leaf) is not ported to repro_torch yet; use the "
+            "flat tier (flat_qdq, flat_encode, flat_decode)")
 
     def flat_encode(self, flat: torch.Tensor, key, layout: FlatLayout, *,
                     bucket_elems: int = DEFAULT_BUCKET_ELEMS) -> FlatPacked:
@@ -212,15 +350,6 @@ class QuantCodec:
         return ops.qdq_flat(flat, key, bits=self.bits,
                             bucket_elems=bucket_elems, donate=donate)
 
-    def tree_qdq_flat(self, tree, key, *,
-                      bucket_elems: int = DEFAULT_BUCKET_ELEMS):
-        """Whole-tree fused qdq through one flat buffer; the buffer is
-        this call's own, so K4 writes over it."""
-        layout = FlatLayout.from_tree(tree)
-        return layout.unflatten(self.flat_qdq(
-            layout.flatten(tree), key, bucket_elems=bucket_elems,
-            donate=True))
-
     def tree_wire_bytes_flat(self, tree, *,
                              bucket_elems: int = DEFAULT_BUCKET_ELEMS
                              ) -> float:
@@ -230,13 +359,7 @@ class QuantCodec:
         _, _, nb, _, rows_kept = ops.flat_geometry(
             layout.total, bits=self.bits, bucket_elems=bucket_elems)
         b = float(rows_kept * ops.LANES + nb * 8)
-        if obs.enabled("metrics"):
-            obs.counter("compression.wire_bytes", codec=self.name,
-                        tier="flat").inc(b)
-            obs.counter("compression.sized_msgs", codec=self.name,
-                        tier="flat").inc()
-            obs.histogram("compression.ratio", codec=self.name).observe(
-                4.0 * layout.total / b)
+        self._observe_wire(b, layout.total, tier="flat")
         return b
 
     def _observe_buckets(self, params: torch.Tensor) -> None:
@@ -246,42 +369,198 @@ class QuantCodec:
                               (params[:, 1] * levels).cpu(),
                               codec=self.name)
 
+    # partitioned tier: the flat buffer as n_parts equal, granule-aligned
+    # slices, each bucketed and packed on its own — the unit of the ring
+    # AllReduce's reduce-scatter / all-gather hops.
 
-class IdentityCodec:
-    """The ``none`` codec: no compression. The train step resolves it
-    like any codec and skips the exchange; its fused qdq is the input
-    itself and its wire cost the fp32 message."""
+    def partition_geometry(self, total: int, n_parts: int, *,
+                           bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+        """(part_elems, nb_p, rows_p) of the N-way partition view."""
+        return ops.partition_geometry(total, n_parts, bits=self.bits,
+                                      bucket_elems=bucket_elems)
 
-    spec = CompressionSpec("none", True, 32.0, overhead_bytes=0)
-    name = "none"
+    def encode_partition(self, part: torch.Tensor, key, *,
+                         bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+        """ONE partition (a granule-aligned (part_elems,) slice) ->
+        (payload (rows_p, 512) uint8, params (nb_p, 2)): the ring hop's
+        wire message."""
+        return ops.encode_flat(part, key, bits=self.bits,
+                               bucket_elems=bucket_elems)
 
-    def flat_qdq(self, flat: torch.Tensor, key=None, *,
-                 bucket_elems: int = DEFAULT_BUCKET_ELEMS,
-                 donate: bool = False) -> torch.Tensor:
-        return flat
+    def decode_partition(self, payload, params, *, part_elems: int,
+                         bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                         out: Optional[torch.Tensor] = None):
+        """Inverse of encode_partition: -> (part_elems,) fp32 (into
+        ``out`` when given)."""
+        return ops.decode_flat(payload, params, total=part_elems,
+                               bits=self.bits, bucket_elems=bucket_elems,
+                               out=out)
 
-    def tree_wire_bytes_flat(self, tree, *,
-                             bucket_elems: int = DEFAULT_BUCKET_ELEMS
-                             ) -> float:
-        return self.spec.compressed_bytes(FlatLayout.from_tree(tree).total)
+    def decode_add_encode_partition(self, payload, params, local, key, *,
+                                    bucket_elems=DEFAULT_BUCKET_ELEMS):
+        """THE fused ring hop (K5): decode the incoming partition
+        message, add the local fp32 slice and re-encode under ``key`` —
+        bit-identical to ``encode_partition(decode_partition(...) +
+        local, key)``. Returns the outgoing (payload, params)."""
+        return ops.decode_add_encode_flat(payload, params, local, key,
+                                          bits=self.bits,
+                                          bucket_elems=bucket_elems)
+
+    def flat_encode_partitioned(self, flat, key, layout: FlatLayout, *,
+                                n_parts: int,
+                                bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                                ) -> PartitionedFlatPacked:
+        """Encode every partition of a flat buffer into ONE backing
+        (n_parts, rows_p, 512) payload + (n_parts, nb_p, 2) params pair
+        (partition p under fold_in(key, p))."""
+        part_elems, _, _ = self.partition_geometry(
+            layout.total, n_parts, bucket_elems=bucket_elems)
+        payload, params = _encode_partitions(
+            flat, key, n_parts=n_parts, part_elems=part_elems,
+            bits=self.bits, bucket_elems=bucket_elems)
+        return PartitionedFlatPacked(payload, params, layout, self.name,
+                                     bucket_elems, part_elems)
+
+    def flat_decode_partitioned(self, packed: PartitionedFlatPacked,
+                                out: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+        """All partitions -> the (total,) fp32 flat buffer, pad trimmed
+        (a view of ``out``, an (n_parts * part_elems,) buffer, when
+        given)."""
+        pe = packed.part_elems
+        if out is None:
+            out = torch.empty((packed.n_parts * pe,), dtype=torch.float32,
+                              device=packed.payload.device)
+        for p in range(packed.n_parts):
+            self.decode_partition(*packed.part(p), part_elems=pe,
+                                  bucket_elems=packed.bucket_elems,
+                                  out=out[p * pe:(p + 1) * pe])
+        return out[:packed.layout.total]
+
+    def tree_encode_partitioned(self, tree, key, n_parts: int, *,
+                                bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                                ) -> PartitionedFlatPacked:
+        """Whole tree -> n_parts partition messages over one buffer."""
+        layout = FlatLayout.from_tree(tree)
+        return self.flat_encode_partitioned(
+            layout.flatten(tree), key, layout, n_parts=n_parts,
+            bucket_elems=bucket_elems)
+
+    def tree_decode_partitioned(self, packed: PartitionedFlatPacked):
+        """Inverse of tree_encode_partitioned."""
+        return packed.layout.unflatten(self.flat_decode_partitioned(packed))
+
+    def tree_wire_bytes_partitioned(self, tree, n_parts: int, *,
+                                    bucket_elems: int = DEFAULT_BUCKET_ELEMS
+                                    ) -> float:
+        """Wire bytes of ONE partition message, from the geometry."""
+        layout = FlatLayout.from_tree(tree)
+        _, nb_p, rows_p = self.partition_geometry(
+            layout.total, n_parts, bucket_elems=bucket_elems)
+        return float(rows_p * ops.LANES + nb_p * 8)
+
+
+class QdqCodec(Codec):
+    """Adapter for operators without a packed wire format: the
+    algorithmic effect of Q is ``fn``; the wire cost comes from the
+    static spec."""
+
+    packable = False
+
+    def __init__(self, fn: Callable, spec: CompressionSpec):
+        self._fn = fn
+        self.spec = spec
+
+    def qdq(self, x, key=None):
+        return self._fn(x, key)
+
+
+# ---------------------------------------------------------------------------
+# Operators. Each returns the dequantized tensor (same shape and dtype as
+# the input), in plain torch on the input's device.
+# ---------------------------------------------------------------------------
+
+
+def randomized_quantize(x: torch.Tensor, key, *, bits: int = 8
+                        ) -> torch.Tensor:
+    """Unbiased randomized uniform quantization, Eq. (3.1) + Figure 3.1,
+    on the original layout: the reference formulation (QuantCodec runs
+    the packed kernels instead). Written as the JAX package's function
+    runs op by op: a true division by ``levels`` and an unfused
+    ``q * scale + lo``."""
+    x32 = x.float()
+    lo, hi = x32.min(), x32.max()
+    levels = (1 << bits) - 1
+    scale = torch.where(hi > lo, (hi - lo) / levels, torch.ones_like(lo))
+    norm = (x32 - lo) / scale
+    floor = torch.floor(norm)
+    u = prng.uniform(key, x.shape, device=x.device)
+    q = floor + (u < (norm - floor)).float()
+    q = torch.clamp(q, 0.0, float(levels))
+    return (q * scale + lo).to(x.dtype)
+
+
+def randomized_sparsify(x: torch.Tensor, key, *, p: float = 0.1
+                        ) -> torch.Tensor:
+    """Unbiased randomized sparsification (Wangni et al., 2018): keep
+    each coordinate with probability p, rescale kept ones by 1/p."""
+    mask = prng.bernoulli(key, p, x.shape, device=x.device)
+    return torch.where(mask, x / p, torch.zeros_like(x)).to(x.dtype)
+
+
+def topk_sparsify(x: torch.Tensor, key=None, *, frac: float = 0.01
+                  ) -> torch.Tensor:
+    """Biased top-k (by magnitude) sparsification (Section 3.1.1
+    caveat 3): keep the coordinates at or above the k-th magnitude."""
+    del key
+    flat = x.reshape(-1)
+    k = max(1, int(flat.shape[0] * frac))
+    thresh = torch.topk(flat.abs().float(), k).values[-1]
+    kept = torch.where(flat.abs() >= thresh, flat, torch.zeros_like(flat))
+    return kept.reshape(x.shape)
+
+
+def onebit_sign(x: torch.Tensor, key=None) -> torch.Tensor:
+    """Biased 1-bit quantization ||x||_1/d * sign(x) (Bernstein et al.,
+    2018)."""
+    del key
+    x32 = x.float()
+    return (x32.abs().mean() * torch.sign(x32)).to(x.dtype)
+
+
+def clip_lowbits(x: torch.Tensor, key=None, *, keep_bits: int = 16
+                 ) -> torch.Tensor:
+    """Biased deterministic clipping: zero the low mantissa bits
+    (Section 3.2); keep_bits=16 is fp32 -> bf16 truncation."""
+    del key
+    mask = (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF
+    mask = mask - (1 << 32) if mask >= 1 << 31 else mask   # as int32
+    raw = x.float().contiguous().view(torch.int32)
+    return (raw & mask).view(torch.float32).to(x.dtype)
+
+
+def identity(x: torch.Tensor, key=None) -> torch.Tensor:
+    del key
+    return x
 
 
 CODECS: Registry = Registry("compression", {
-    "none": IdentityCodec(),
+    "none": QdqCodec(identity,
+                     CompressionSpec("none", True, 32.0, overhead_bytes=0)),
     "rq8": QuantCodec(8),
     "rq4": QuantCodec(4),
     "rq2": QuantCodec(2),
+    "rand_sparse_10": QdqCodec(
+        partial(randomized_sparsify, p=0.1),
+        CompressionSpec("rand_sparse_10", True, 32.0, density=0.1)),
+    "topk_1": QdqCodec(partial(topk_sparsify, frac=0.01),
+                       CompressionSpec("topk_1", False, 32.0, density=0.01)),
+    "sign1": QdqCodec(onebit_sign, CompressionSpec("sign1", False, 1.0)),
+    "clip16": QdqCodec(clip_lowbits, CompressionSpec("clip16", False, 16.0)),
 })
 
-# codecs of the JAX package that the port does not run yet (qdq-only
-# operators without a packed wire format)
-NOT_PORTED = ("clip16", "rand_sparse_10", "sign1", "topk_1")
 
-
-def codec(name: str):
-    if name in NOT_PORTED:
-        raise KeyError(f"compression '{name}' is not ported to repro_torch "
-                       f"yet; have {CODECS.names()}")
+def codec(name: str) -> Codec:
     return CODECS.get(name)
 
 

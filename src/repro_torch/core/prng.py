@@ -163,6 +163,43 @@ def bernoulli(key, p: float, shape: Sequence[int], *,
     return uniform(key, shape, device=device) < float(np.float32(p))
 
 
+# XLA's float32 inverse error function (Giles' polynomials in
+# w = -log1p(-x^2), split at w = 5)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of a float32 tensor in |x| < 1, as XLA computes it: the
+    same polynomial, each Horner step one rounding (XLA contracts it
+    into an FMA; here a float64 multiply-add, exact before the round)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.where(lt, float(np.float32(a)), float(np.float32(b)))
+            for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = (p.double() * w + c.double()).float()
+    return p * x
+
+
+def normal(key, shape: Sequence[int], *,
+           device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` for float32: ``sqrt(2) *
+    erfinv(u)`` with u uniform on [nextafter(-1, 0), 1). The uniforms
+    are JAX's bits and the polynomial XLA's, but ``log1p`` is PyTorch's:
+    about 1 % of the draws differ from JAX's by an ulp or two, so the
+    draw is allclose to JAX's, not bit-equal."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, device=device, minval=lo, maxval=1.0)
+    return _erfinv32(u) * float(np.float32(np.sqrt(2)))
+
+
 def gumbel(key, shape: Sequence[int], *,
            device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """``jax.random.gumbel`` (mode "low"): -log(-log(u)), u on

@@ -1,7 +1,8 @@
 """THE registry idiom: one name -> entry table for every pluggable tier.
 
 A stdlib copy of ``repro.core.registry``; in the port it holds the codec
-table of ``core.compression`` so far.
+table of ``core.compression`` and the exchanges of
+``core.communicators``.
 
 Four registries grew up independently — ``EXCHANGES``/``make_exchange``
 (core.communicators), ``PROTOCOLS``/``make_protocol``

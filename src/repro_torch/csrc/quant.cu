@@ -1,23 +1,24 @@
 // Hand-written Hopper (sm_90a) kernels for the rq8/rq4/rq2 codec of the
-// checkpoint wire and the training step's gradient compression: per-bucket
-// min/max (K1), quantize + bit-pack (K2), unpack + dequantize (K3) and the
-// fused stochastic quantize -> dequantize (K4). Plain C interface, loaded with ctypes by
+// checkpoint wire, the training step's gradient compression and the ring
+// AllReduce: per-bucket min/max (K1), quantize + bit-pack (K2), unpack +
+// dequantize (K3), the fused stochastic quantize -> dequantize (K4) and the
+// fused ring hop decode + add + re-encode (K5). Plain C interface, loaded with ctypes by
 // repro_torch/kernels/quant/kernel.py, which allocates every buffer,
 // checks shapes and passes PyTorch's current stream.
 //
 // Build (done at first use by kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
 //        -Xcompiler -fPIC -o build/repro_torch/libquant.so quant.cu
-// No --use_fast_math: the divisions in K2/K4 and the multiply-adds in
-// K3/K4 must round exactly as the JAX reference does (see each kernel).
+// No --use_fast_math: the divisions in K2/K4/K5 and the multiply-adds in
+// K3/K4/K5 must round exactly as the JAX reference does (see each kernel).
 //
 // Layout (the JAX package's wire format): a bucket of pack * R * 512 fp32
 // elements is pack contiguous segments of R x 512; payload byte (r, c) of
 // the bucket holds the b-bit code of segment k at bits [k*b, (k+1)*b).
-// params is (B, 2) fp32: [lo, scale] per bucket for K2/K3/K4, K1 writes
+// params is (B, 2) fp32: [lo, scale] per bucket for K2-K5, K1 writes
 // [lo, hi].
 //
-// All four are bound by device memory, not arithmetic: each element is
+// All five are bound by device memory, not arithmetic: each element is
 // read once and written once, with coalesced accesses (neighbouring
 // threads touch neighbouring addresses in every segment). A bucket is
 // spread over many blocks (grid.y = bucket, grid.x strides over it), so
@@ -211,6 +212,139 @@ __global__ void qdq_kernel(const float* x, const float* __restrict__ u,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 decode_add_encode_bucketed. Replaces repro/kernels/quant/kernel.py
+// decode_add_encode_bucketed (:349, pallas_call at :366): the partitioned
+// ring AllReduce's reduce-scatter hop, for the full buckets of a partition
+// and for its tail (as B = 1). Per bucket it computes
+//   s     = code_k * scale_in + lo_in + x   ONE rounding for the multiply-add
+//                                          (__fmaf_rn, as K3), then the add
+//   lo,hi = exact, NaN-propagating min / max of s over the bucket
+//   scale = (hi - lo) * f32(1/levels), or 1 where hi > lo fails
+//   code  = the stochastic rounding of (s - lo) / scale against u, as K2,
+//           with K4's NaN-keeping clip (a NaN code packs as 0, as XLA's and
+//           PyTorch's float -> uint8 casts give)
+// and packs segment k at bits [k*b, (k+1)*b) of the outgoing payload.
+//
+// The TPU kernel carried each bucket's [lo, hi] in VMEM scratch across a
+// sequential grid: a stats phase, then an encode phase that recomputes the
+// sum. Blocks here run in no order, so the carry becomes three launches on
+// one stream: (1) grid-stride blocks per bucket decode + add and write
+// per-block (min, max) partials; (2) one small block per bucket folds its
+// partials and writes params_out = [lo, scale]; (3) the encode launch
+// recomputes decode + add from payload and x and quantizes and packs with
+// params_out. The fp32 sum never reaches device memory; min and max are
+// exact, so the order of blocks cannot change the result.
+// Bound: bytes — payload in (1/pack B), x and u (8 B) and payload out
+// (1/pack B) per element: 9 B at rq4, 10 B at rq8. This two-pass design
+// reads payload and x twice (13.5 B per element at rq4).
+// ---------------------------------------------------------------------------
+template <int BITS>
+__device__ __forceinline__ float dae_sum(unsigned p, int k, float scale,
+                                         float lo, float x) {
+  constexpr unsigned kMask = (1u << BITS) - 1u;
+  const float code = (float)((p >> (k * BITS)) & kMask);
+  return __fadd_rn(__fmaf_rn(code, scale, lo), x);
+}
+
+template <int BITS>
+__global__ void dae_stats_kernel(const uint8_t* __restrict__ payload,
+                                 const float* __restrict__ params,
+                                 const float* __restrict__ x,
+                                 float2* __restrict__ partial,
+                                 long long row_elems) {
+  constexpr int kPack = 8 / BITS;
+  const long long b = blockIdx.y;
+  const float lo_in = params[2 * b];
+  const float scale_in = params[2 * b + 1];
+  float lo = INFINITY, hi = -INFINITY;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < row_elems; i += (long long)gridDim.x * kThreads) {
+    const unsigned p = payload[b * row_elems + i];
+#pragma unroll
+    for (int k = 0; k < kPack; ++k) {
+      const float s = dae_sum<BITS>(p, k, scale_in, lo_in,
+                                    x[(b * kPack + k) * row_elems + i]);
+      lo = nan_min(lo, s);
+      hi = nan_max(hi, s);
+    }
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) partial[b * gridDim.x + blockIdx.x] = make_float2(lo, hi);
+}
+
+template <int BITS>
+__global__ void dae_finalize_kernel(const float2* __restrict__ partial,
+                                    float* __restrict__ params_out, int nblk) {
+  // the jitted reference's scale: a multiply by the fp32 reciprocal
+  constexpr float kInv = (float)(1.0 / (double)((1 << BITS) - 1));
+  const long long b = blockIdx.x;
+  float lo = INFINITY, hi = -INFINITY;
+  for (int i = threadIdx.x; i < nblk; i += kThreads) {
+    const float2 p = partial[b * nblk + i];
+    lo = nan_min(lo, p.x);
+    hi = nan_max(hi, p.y);
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) {
+    params_out[2 * b] = lo;
+    params_out[2 * b + 1] = hi > lo ? __fmul_rn(__fsub_rn(hi, lo), kInv) : 1.0f;
+  }
+}
+
+template <int BITS>
+__global__ void dae_encode_kernel(const uint8_t* __restrict__ payload,
+                                  const float* __restrict__ params,
+                                  const float* __restrict__ x,
+                                  const float* __restrict__ u,
+                                  const float* __restrict__ params_out,
+                                  uint8_t* __restrict__ out,
+                                  long long row_elems) {
+  constexpr int kPack = 8 / BITS;
+  constexpr float kLevels = (float)((1 << BITS) - 1);
+  const long long b = blockIdx.y;
+  const float lo_in = params[2 * b];
+  const float scale_in = params[2 * b + 1];
+  const float lo = params_out[2 * b];
+  const float scale = params_out[2 * b + 1];
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < row_elems; i += (long long)gridDim.x * kThreads) {
+    const unsigned p = payload[b * row_elems + i];
+    unsigned acc = 0;
+#pragma unroll
+    for (int k = 0; k < kPack; ++k) {
+      const long long j = (b * kPack + k) * row_elems + i;
+      const float s = dae_sum<BITS>(p, k, scale_in, lo_in, x[j]);
+      const float norm = __fdiv_rn(__fsub_rn(s, lo), scale);
+      const float fl = floorf(norm);
+      float q = __fadd_rn(fl, u[j] < __fsub_rn(norm, fl) ? 1.0f : 0.0f);
+      q = nan_min(nan_max(q, 0.0f), kLevels);
+      const unsigned code = q != q ? 0u : (unsigned)q;
+      acc |= code << (k * BITS);
+    }
+    out[b * row_elems + i] = (uint8_t)acc;
+  }
+}
+
+template <int BITS>
+cudaError_t dae_launch(const uint8_t* payload, const float* params,
+                       const float* x, const float* u, float2* partial,
+                       uint8_t* out, float* params_out, long long n_buckets,
+                       long long row_elems, int nblk, cudaStream_t s) {
+  const dim3 grid((unsigned)nblk, (unsigned)n_buckets);
+  dae_stats_kernel<BITS><<<grid, kThreads, 0, s>>>(payload, params, x,
+                                                   partial, row_elems);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dae_finalize_kernel<BITS><<<(unsigned)n_buckets, kThreads, 0, s>>>(
+      partial, params_out, nblk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dae_encode_kernel<BITS><<<grid, kThreads, 0, s>>>(
+      payload, params, x, u, params_out, out, row_elems);
+  return cudaGetLastError();
+}
+
 // Blocks along one bucket: enough to cover it once, but no more than
 // keeps ~64 resident blocks per SM across all buckets.
 unsigned blocks_per_bucket(long long elems, long long n_buckets) {
@@ -310,6 +444,35 @@ int quant_qdq_bucketed(const void* x, const void* u, const void* params,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// payload, out: (B, R, 512) uint8; params, params_out: (B, 2) fp32;
+// x, u: (B, pack, R, 512) fp32; partial: (B, nblk) float2 scratch with
+// nblk = quant_minmax_blocks(B, R * 512). out must not alias payload (the
+// encode launch reads payload again).
+int quant_decode_add_encode(const void* payload, const void* params,
+                            const void* x, const void* u, void* partial,
+                            void* out, void* params_out, long long n_buckets,
+                            long long rows, int nblk, int bits, void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || rows < 1 || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long row_elems = rows * 512;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* p = (const uint8_t*)payload;
+  const float* pf = (const float*)params;
+  const float* xf = (const float*)x;
+  const float* uf = (const float*)u;
+  float2* part = (float2*)partial;
+  uint8_t* o = (uint8_t*)out;
+  float* po = (float*)params_out;
+  cudaError_t err;
+  switch (bits) {
+    case 8: err = dae_launch<8>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
+    case 4: err = dae_launch<4>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
+    case 2: err = dae_launch<2>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

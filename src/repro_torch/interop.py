@@ -13,13 +13,19 @@ this module needs neither jax nor ``repro``:
   * ``wire_from_jax``: the two arrays of a JAX ``FlatPacked`` (payload,
     params) -> the port's ``FlatPacked``, whose bytes, CRC and decode
     are the JAX package's.
+  * ``quadratic_from_jax``: a JAX ``parallel.Quadratic`` -> the port's,
+    on the same (a, b) arrays.
+  * ``exchange_state_from_jax``: the stacked (vmapped) state of a JAX
+    exchange or gossip operator — ECSGD residuals, DCD/ECD replicas and
+    residuals, ``DelayedExchange`` buffers and heads — -> the port's
+    stacked state, so both packages can start from identical state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core import compression, pytree
+from repro_torch.core import compression, parallel, pytree
 from repro_torch.kernels.quant.ops import DEFAULT_BUCKET_ELEMS
 from repro_torch.train.steps import state_to
 
@@ -53,3 +59,26 @@ def wire_from_jax(payload, params, *, tree, codec: str = "rq8",
         _tensor(np.asarray(payload, np.uint8)),
         _tensor(np.asarray(params, np.float32)),
         compression.FlatLayout.from_tree(tree), codec, bucket_elems)
+
+
+def quadratic_from_jax(prob, device=None) -> parallel.Quadratic:
+    """A JAX ``Quadratic`` (a, b, worker_slices) -> the port's, with
+    (a, b) on ``device`` (the CPU unless given)."""
+    dev = device or "cpu"
+    return parallel.Quadratic(_tensor(np.asarray(prob.a)).to(dev),
+                              _tensor(np.asarray(prob.b)).to(dev),
+                              int(prob.worker_slices))
+
+
+def exchange_state_from_jax(state, device=None):
+    """A JAX exchange state as ``vmap`` stacks it (leading worker dim on
+    every leaf) -> the port's: float buffers on ``device`` (the CPU
+    unless given), integer counters (``DelayedExchange``'s ``head``) on
+    the host, where the port keeps them."""
+    dev = device or "cpu"
+
+    def place(a):
+        t = _tensor(np.asarray(a))
+        return t.to(dev) if t.is_floating_point() else t
+
+    return pytree.tree_map(place, state)

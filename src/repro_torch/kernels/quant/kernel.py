@@ -5,9 +5,11 @@
   K2 ``encode_packed``    quantize + bit-pack       (B, pack, R, 512) -> (B, R, 512) u8
   K3 ``decode_packed``    unpack + dequantize       (B, R, 512) u8 -> (B, pack, R, 512)
   K4 ``qdq_bucketed``     quantize -> dequantize    (B, pack, R, 512) -> same shape
+  K5 ``decode_add_encode_bucketed``  the ring hop   (B, R, 512) u8 + (B, pack, R, 512) -> (B, R, 512) u8
 
-Each replaces a pair of the JAX package's Pallas kernels: the bucketed
-form on the full buckets, and the per-leaf form as B = 1 on the tail.
+K1-K4 each replace a pair of the JAX package's Pallas kernels: the
+bucketed form on the full buckets, and the per-leaf form as B = 1 on the
+tail. K5 replaces the fused ring hop, bucketed, with its tail as B = 1.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version in
 ``ref.py``; a CUDA tensor launches the kernel on PyTorch's current
@@ -86,9 +88,11 @@ def _load() -> ctypes.CDLL:
                                                 vp]
             lib.quant_decode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp]
             lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i, vp]
+            lib.quant_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp,
+                                                    vp, ll, ll, i, i, vp]
             for fn in (lib.quant_minmax_bucketed, lib.quant_minmax_blocks,
                        lib.quant_encode_packed, lib.quant_decode_packed,
-                       lib.quant_qdq_bucketed):
+                       lib.quant_qdq_bucketed, lib.quant_decode_add_encode):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -119,6 +123,22 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{what}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
+
+
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The byte range [start, end) that t's elements occupy."""
+    start = t.data_ptr()
+    if t.numel() == 0:
+        return start, start
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return start, start + (last + 1) * t.element_size()
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.device != b.device:
+        return False
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1
 
 
 def _bits_ok(bits: int) -> int:
@@ -251,7 +271,76 @@ def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
     return out
 
 
-KERNELS = (minmax_bucketed, encode_packed, decode_packed, qdq_bucketed)
+def decode_add_encode_bucketed(payload: torch.Tensor, params: torch.Tensor,
+                               x4: torch.Tensor, u4: torch.Tensor, *,
+                               bits: int, out: Optional[torch.Tensor] = None,
+                               params_out: Optional[torch.Tensor] = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5, the fused ring hop: the incoming payload (B, R, 512) uint8 with
+    its params (B, 2) [lo, scale], decoded, plus the local addend x4
+    (B, pack, R, 512) fp32, re-encoded per bucket against the uniforms u4
+    -> (payload_out (B, R, 512) uint8, params_out (B, 2) [lo, scale]),
+    into ``out`` / ``params_out`` when given. Bit-identical to
+    ``encode(decode(payload) + x4)``; the sum never reaches memory.
+    ``out`` and ``params_out`` must share no memory with an input or with
+    each other (on the card the finalize launch writes ``params_out``
+    before the encode launch reads the inputs again); on either device
+    an overlap raises."""
+    pack = _bits_ok(bits)
+    if payload.dim() != 3 or payload.shape[2] != LANES:
+        raise ValueError(f"decode_add_encode_bucketed: need (B, R, {LANES}), "
+                         f"got {tuple(payload.shape)}")
+    b, r, _ = payload.shape
+    if tuple(x4.shape) != (b, pack, r, LANES):
+        raise ValueError(f"decode_add_encode_bucketed: x4 {tuple(x4.shape)}, "
+                         f"need {(b, pack, r, LANES)} for bits={bits}")
+    given = [(n, t) for n, t in (("out", out), ("params_out", params_out))
+             if t is not None]
+    for i, (name, t) in enumerate(given):
+        others = [("payload", payload), ("params", params), ("x4", x4),
+                  ("u4", u4)] + given[i + 1:]
+        for other, o in others:
+            if _overlaps(t, o):
+                raise ValueError(f"decode_add_encode_bucketed: {name} "
+                                 f"overlaps {other}")
+    if not _on_cuda(payload, "decode_add_encode_bucketed"):
+        res, res_p = ref.decode_add_encode_bucketed(payload, params, x4, u4,
+                                                    bits=bits)
+        if out is not None:
+            res = out.copy_(res)
+        if params_out is not None:
+            res_p = params_out.copy_(res_p)
+        return res, res_p
+    dev = payload.device
+    _require(payload, "decode_add_encode_bucketed payload", torch.uint8,
+             (b, r, LANES), dev)
+    _require(params, "decode_add_encode_bucketed params", torch.float32,
+             (b, 2), dev)
+    _require(x4, "decode_add_encode_bucketed x", torch.float32,
+             (b, pack, r, LANES), dev)
+    _require(u4, "decode_add_encode_bucketed u", torch.float32,
+             (b, pack, r, LANES), dev)
+    if out is None:
+        out = torch.empty((b, r, LANES), dtype=torch.uint8, device=dev)
+    if params_out is None:
+        params_out = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    _require(out, "decode_add_encode_bucketed out", torch.uint8,
+             (b, r, LANES), dev)
+    _require(params_out, "decode_add_encode_bucketed params_out",
+             torch.float32, (b, 2), dev)
+    lib = _load()
+    nblk = lib.quant_minmax_blocks(b, r * LANES)
+    partial = torch.empty((b, nblk, 2), dtype=torch.float32, device=dev)
+    _check(lib.quant_decode_add_encode(
+        payload.data_ptr(), params.data_ptr(), x4.data_ptr(), u4.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), params_out.data_ptr(), b, r, nblk,
+        bits, _stream()), "decode_add_encode_bucketed")
+    decode_add_encode_bucketed.launches += 1
+    return out, params_out
+
+
+KERNELS = (minmax_bucketed, encode_packed, decode_packed, qdq_bucketed,
+           decode_add_encode_bucketed)
 
 
 def reset_launches() -> None:

@@ -1,9 +1,10 @@
 """Bucketed flat-buffer codec: geometry, uniform draws and kernel dispatch.
 
 The port of the parts of ``repro.kernels.quant.ops`` on the checkpoint
-wire's path (``encode_flat`` / ``decode_flat`` and their geometry) and
-on the training step's (``qdq_flat``). The wire layout is the JAX
-package's, byte for byte:
+wire's path (``encode_flat`` / ``decode_flat`` and their geometry), on
+the training step's (``qdq_flat``) and on the ring AllReduce's
+(``partition_geometry``, the fused hop ``decode_add_encode_flat``). The
+wire layout is the JAX package's, byte for byte:
 
   * the flat fp32 buffer is cut into buckets of ``cap`` elements (a
     granule-aligned cap on ``bucket_elems``); bucket b owns elements
@@ -23,6 +24,8 @@ Dispatch follows the tensor's device (see ``kernel.py``): the CUDA
 kernels for a CUDA buffer, the plain versions for a CPU one.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -62,6 +65,26 @@ def flat_geometry(total: int, *, bits: int,
     tail = total - (n_buckets - 1) * cap
     rows_kept = (n_buckets - 1) * rows_b + -(-tail // granule)
     return pack, cap, n_buckets, rows_b, rows_kept
+
+
+def partition_geometry(total: int, n_parts: int, *, bits: int,
+                       bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+    """Equal, granule-aligned N-way partition view of a flat buffer (the
+    ring AllReduce's reduce-scatter / all-gather unit).
+
+    Returns (part_elems, nb_p, rows_p): each of the n_parts partitions
+    owns part_elems contiguous elements of the (edge-padded to
+    n_parts * part_elems) flat buffer and has its own bucket rows: nb_p
+    [lo, scale] params rows and rows_p payload rows. Per-partition wire
+    bytes = rows_p * LANES + nb_p * 8.
+    """
+    if n_parts <= 0:
+        raise ValueError(f"need n_parts >= 1, got {n_parts}")
+    granule = (8 // bits) * LANES
+    part_elems = _align_up(max(1, -(-total // n_parts)), granule)
+    _, _, nb_p, _, rows_p = flat_geometry(part_elems, bits=bits,
+                                          bucket_elems=bucket_elems)
+    return part_elems, nb_p, rows_p
 
 
 def edge_pad(flat: torch.Tensor, padded_len: int) -> torch.Tensor:
@@ -108,10 +131,7 @@ def _bucket_views(padded: torch.Tensor, total: int, key, *, bits: int,
     x4 = u4 = None
     if nb > 1:
         x4 = padded[:head_elems].view(nb - 1, pack, rows_b, LANES)
-        u4 = torch.empty_like(x4)
-        for b in range(nb - 1):
-            u4[b] = prng.uniform(bucket_key(key, b), (pack, rows_b, LANES),
-                                 device=dev)
+        u4 = _head_uniforms(key, nb, pack, rows_b, dev)
     x3 = padded[head_elems:head_elems + rt * granule].view(1, pack, rt,
                                                            LANES)
     u3 = prng.uniform(bucket_key(key, nb - 1), (1, pack, rt, LANES),
@@ -152,11 +172,12 @@ def encode_flat(flat: torch.Tensor, key, *, bits: int = 8,
 
 
 def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
-                bits: int = 8, bucket_elems: int = DEFAULT_BUCKET_ELEMS
-                ) -> torch.Tensor:
-    """Unpack + dequantize a bucketed wire payload to (total,) fp32: the
-    full buckets decode straight into the output, the tail through a
-    Rt-row temporary trimmed to its t real elements."""
+                bits: int = 8, bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unpack + dequantize a bucketed wire payload to (total,) fp32 (into
+    ``out`` when given): the full buckets decode straight into the
+    output, the tail through a Rt-row temporary trimmed to its t real
+    elements."""
     pack, cap, nb, rows_b, rows_kept = flat_geometry(
         total, bits=bits, bucket_elems=bucket_elems)
     if tuple(payload.shape) != (rows_kept, LANES) or \
@@ -168,7 +189,12 @@ def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
     head_rows = (nb - 1) * rows_b
     head_elems = (nb - 1) * cap
     rt = rows_kept - head_rows
-    out = torch.empty((total,), dtype=torch.float32, device=payload.device)
+    if out is None:
+        out = torch.empty((total,), dtype=torch.float32,
+                          device=payload.device)
+    if tuple(out.shape) != (total,) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous ({total},) buffer, got "
+                         f"{tuple(out.shape)}")
     if nb > 1:
         kernel.decode_packed(
             payload[:head_rows].view(nb - 1, rows_b, LANES), params[:nb - 1],
@@ -208,3 +234,60 @@ def qdq_flat(flat: torch.Tensor, key, *, bits: int = 8,
     tail = kernel.qdq_bucketed(x3, u3, params[nb - 1:], bits=bits)
     out[head_elems:total] = tail.reshape(-1)[:total - head_elems]
     return out[:total]
+
+
+def _head_uniforms(key, nb: int, pack: int, rows_b: int, device):
+    """The (nb - 1, pack, Rb, 512) uniforms of the full buckets, bucket b
+    drawn under ``bucket_key(key, b)``."""
+    u4 = torch.empty((nb - 1, pack, rows_b, LANES), dtype=torch.float32,
+                     device=device)
+    for b in range(nb - 1):
+        u4[b] = prng.uniform(bucket_key(key, b), (pack, rows_b, LANES),
+                             device=device)
+    return u4
+
+
+def decode_add_encode_flat(payload: torch.Tensor, params: torch.Tensor,
+                           local: torch.Tensor, key, *, bits: int = 8,
+                           bucket_elems: int = DEFAULT_BUCKET_ELEMS):
+    """ONE fused ring hop over a flat message: decode the packed payload,
+    add the ``local`` fp32 buffer and re-encode under ``key`` -> (payload
+    (rows_kept, 512) uint8, params (n_buckets, 2)). Bit-identical to
+
+        encode_flat(decode_flat(payload, params, total=local.numel())
+                    + local, key)
+
+    A granule-aligned buffer (every ring partition, by
+    ``partition_geometry``) goes to K5: one launch over the full buckets,
+    one B = 1 launch over the tail, with the uniforms of ``encode_flat``.
+    Other sizes take that sequential composition itself, as the JAX
+    package does: K5 does not reproduce the edge pad of a short tail."""
+    total = local.numel()
+    pack, cap, nb, rows_b, rows_kept = flat_geometry(
+        total, bits=bits, bucket_elems=bucket_elems)
+    flat = local.reshape(-1).float()
+    if total % (pack * LANES):
+        dec = decode_flat(payload, params, total=total, bits=bits,
+                          bucket_elems=bucket_elems)
+        return encode_flat(dec.add_(flat), key, bits=bits,
+                           bucket_elems=bucket_elems)
+    head_rows = (nb - 1) * rows_b
+    head_elems = (nb - 1) * cap
+    rt = rows_kept - head_rows
+    dev = flat.device
+    out = torch.empty((rows_kept, LANES), dtype=torch.uint8, device=dev)
+    out_params = torch.empty((nb, 2), dtype=torch.float32, device=dev)
+    if nb > 1:
+        kernel.decode_add_encode_bucketed(
+            payload[:head_rows].view(nb - 1, rows_b, LANES), params[:nb - 1],
+            flat[:head_elems].view(nb - 1, pack, rows_b, LANES),
+            _head_uniforms(key, nb, pack, rows_b, dev), bits=bits,
+            out=out[:head_rows].view(nb - 1, rows_b, LANES),
+            params_out=out_params[:nb - 1])
+    kernel.decode_add_encode_bucketed(
+        payload[head_rows:].view(1, rt, LANES), params[nb - 1:],
+        flat[head_elems:].view(1, pack, rt, LANES),
+        prng.uniform(bucket_key(key, nb - 1), (1, pack, rt, LANES),
+                     device=dev), bits=bits,
+        out=out[head_rows:].view(1, rt, LANES), params_out=out_params[nb - 1:])
+    return out, out_params

@@ -47,10 +47,12 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
 
 def encode(x: torch.Tensor, u: torch.Tensor, lo, scale, *,
            bits: int) -> torch.Tensor:
-    """Stochastic round to b-bit codes (uint8)."""
+    """Stochastic round to b-bit codes (uint8). A NaN code becomes 0, as
+    XLA's float -> uint8 cast makes it (the kernels do the same)."""
     norm = (x.float() - lo) / scale
     floor = torch.floor(norm)
     q = floor + (u < (norm - floor)).float()
+    q = torch.nan_to_num(q, nan=0.0)
     return torch.clamp(q, 0.0, float(levels_of(bits))).to(torch.uint8)
 
 
@@ -106,3 +108,19 @@ def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
     """(B, R, C) payload + per-bucket (B,) params -> (B, pack, R, C)."""
     return decode(unpack_codes(payload, bits=bits), _bcast(lo),
                   _bcast(scale))
+
+
+def decode_add_encode_bucketed(payload: torch.Tensor, params: torch.Tensor,
+                               x4: torch.Tensor, u4: torch.Tensor, *,
+                               bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused ring hop, plainly: decode the (B, R, C) payload with its
+    (B, 2) params, add the (B, pack, R, C) addend, take each bucket's
+    range and scale, and re-encode against u4 -> ((B, R, C) uint8,
+    (B, 2) [lo, scale]). The literal composition of the JAX package's
+    ``ops._dae_ref``."""
+    summed = decode_packed_bucketed(payload, params[:, 0], params[:, 1],
+                                    bits=bits) + x4
+    lo, hi = minmax_bucketed(summed)
+    scale = scale_of(lo, hi, bits)
+    out = encode_packed_bucketed(summed, u4, lo, scale, bits=bits)
+    return out, torch.stack([lo, scale], dim=1)

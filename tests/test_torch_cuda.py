@@ -177,3 +177,72 @@ def test_serving_on_the_card_swaps_and_matches_a_cold_start(card):
     cid = cold.submit(prompt, 4)
     cold.run()
     assert eng.result(rid).tokens == cold.result(cid).tokens
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_k5_bit_equal_to_cpu_plain(card, bits):
+    """decode_add_encode_flat through K5 on the card (a multi-bucket head
+    and a short tail) gives the CPU plain version's payload and params,
+    bit for bit, with one head and one tail launch."""
+    granule = (8 // bits) * 512
+    n = 5 * 4096 + 3 * granule
+    x, loc = _data(n, seed=bits), _data(n, seed=bits + 10)
+    pay, par = ops.encode_flat(x, prng.PRNGKey(1), bits=bits,
+                               bucket_elems=4096)
+    kernel.reset_launches()
+    got, got_p = ops.decode_add_encode_flat(pay.to(card), par.to(card),
+                                            loc.to(card), prng.PRNGKey(2),
+                                            bits=bits, bucket_elems=4096)
+    assert kernel.decode_add_encode_bucketed.launches == 2
+    want, want_p = ops.decode_add_encode_flat(pay, par, loc, prng.PRNGKey(2),
+                                              bits=bits, bucket_elems=4096)
+    assert torch.equal(got.cpu(), want)
+    assert _same_bits(got_p, want_p)
+
+
+def test_reduced_ring_exchange_on_the_card_matches_the_cpu(card,
+                                                          monkeypatch):
+    """The partitioned rq4 ring over 4 stacked workers, partitions of
+    several buckets: the card's result equals the CPU's bit for bit, and
+    every worker holds the same bits."""
+    from repro_torch.core import communicators, compression
+    rng = np.random.default_rng(0)
+    g = {"a": torch.from_numpy(rng.normal(size=(4, 30000)).astype(
+        np.float32)), "b": [torch.from_numpy(rng.normal(size=(4, 7, 3))
+                                             .astype(np.float32))]}
+    monkeypatch.setattr(compression, "DEFAULT_BUCKET_ELEMS", 2048)
+    ring = communicators.CSGDRingExchange(compressor="rq4")
+    kernel.reset_launches()
+    got, _ = ring(pytree.tree_map(lambda t: t.to(card), g), (),
+                  prng.PRNGKey(3))
+    assert kernel.decode_add_encode_bucketed.launches == 4 * 3 * 2
+    want, _ = ring(g, (), prng.PRNGKey(3))
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+        assert all(torch.equal(a[i], a[0]) for i in range(4))
+
+
+def test_k5_wrapper_refuses_bad_cuda_inputs(card):
+    pay = torch.zeros((2, 1, 512), dtype=torch.uint8, device=card)
+    par = torch.ones((2, 2), device=card)
+    x4 = torch.zeros((2, 2, 1, 512), device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        kernel.decode_add_encode_bucketed(pay.float(), par, x4, x4, bits=4)
+    with pytest.raises(ValueError, match="x4"):
+        kernel.decode_add_encode_bucketed(pay, par, x4[:, :1], x4, bits=4)
+    with pytest.raises(ValueError, match="expected"):
+        kernel.decode_add_encode_bucketed(pay, par.cpu(), x4, x4, bits=4)
+    with pytest.raises(ValueError, match="out overlaps payload"):
+        kernel.decode_add_encode_bucketed(pay, par, x4, x4, bits=4, out=pay)
+    with pytest.raises(ValueError, match="params_out overlaps params"):
+        kernel.decode_add_encode_bucketed(pay, par, x4, x4, bits=4,
+                                          params_out=par)
+    # partial overlaps: windows of one larger buffer
+    big = torch.zeros((3, 1, 512), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="out overlaps payload"):
+        kernel.decode_add_encode_bucketed(big[:2], par, x4, x4, bits=4,
+                                          out=big[1:])
+    prm = torch.ones((3, 2), device=card)
+    with pytest.raises(ValueError, match="params_out overlaps params"):
+        kernel.decode_add_encode_bucketed(pay, prm[:2], x4, x4, bits=4,
+                                          params_out=prm[1:])

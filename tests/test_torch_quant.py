@@ -175,16 +175,22 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     kernel.decode_packed(pay, params, bits=8)
     kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
                         bits=8)
+    kernel.decode_add_encode_bucketed(pay, params, x.view(2, 1, 1, 512),
+                                      x.view(2, 1, 1, 512), bits=8)
     assert kernel.launch_counts() == {"minmax_bucketed": 0,
                                       "encode_packed": 0,
                                       "decode_packed": 0,
-                                      "qdq_bucketed": 0}
+                                      "qdq_bucketed": 0,
+                                      "decode_add_encode_bucketed": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.minmax_bucketed(torch.zeros((1, 1, 512), device="meta"))
     with pytest.raises(ValueError, match="bits"):
         kernel.decode_packed(pay, params, bits=3)
     with pytest.raises(ValueError, match="need"):
         kernel.minmax_bucketed(torch.zeros((2, 100)))
+    with pytest.raises(ValueError, match="x4"):
+        kernel.decode_add_encode_bucketed(pay, params, x.view(2, 1, 1, 512),
+                                          x.view(2, 1, 1, 512), bits=4)
 
 
 QDQ_CASES = [(n, bits, be) for n in (77, 4099, 300000) for bits in (8, 4, 2)
