@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA card: builds the codec's
+"""Smoke run of the PyTorch port on one NVIDIA card: builds the port's
 CUDA kernels, holds each against its plain PyTorch version, serves
 full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap, trains
 full-width repro-100m with rq4 + error-feedback gradient compression,
-and runs the paper's algorithm tier on it: four workers stacked on the
-card exchanging gradients through the partitioned rq4 ring AllReduce.
+runs the paper's algorithm tier on it (four workers stacked on the card
+exchanging gradients through the partitioned rq4 ring AllReduce), and
+prefills full-width qwen1.5-0.5b, repro-100m and granite-8b on the
+flash-attention kernel.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -44,7 +46,20 @@ Phases (any failure raises and the script exits non-zero):
      finite loss at the mean iterate, consensus exactly 0 at every step,
      24 K5 launches a step, comm bytes from the geometry; step time,
      tokens/s, peak memory and a breakdown. Then a reduced ring exchange
-     on the card against the CPU, bit for bit.
+     on the card against the CPU, bit for bit;
+  7. prefill: K6 flash_attention_bhsd against its plain version on the
+     card at S = 8192 (rtol = atol = 2e-5; bf16 0.05) at the attention
+     geometries of qwen1.5-0.5b, granite-8b, grok-1 (softcap 30),
+     recurrentgemma-9b's local attention (D = 256, window 2048), a
+     non-causal tail (S = 8191) and bf16, skip == full grid bit for bit;
+     K6, plain and SDPA (memory-efficient kernel, a yardstick only)
+     times beside the fp32 flop bound. Then make_prefill_step(
+     use_flash=True, scan_layers=True, logits_positions="last") at full
+     width and depth: qwen1.5-0.5b 1 x 32768, repro-100m 4 x 8192,
+     granite-8b 1 x 8192 (fp32, TF32 off): one warm-up and 3 timed
+     prefills, K6 once per layer, its share of the prefill, peak memory,
+     and the last-position logits against the same prefill without
+     flash. Then a reduced flash prefill on the card against the CPU.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -52,6 +67,7 @@ JSON summary of the kernels.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -96,18 +112,56 @@ RING_PART_BUCKETS = 8
 RING_MSG_BYTES = 16_124_480
 RING_COMM_BYTES = 96_746_880
 
-TPU_KERNEL = "src/repro/kernels/quant/kernel.py"
-SOURCE = "src/repro_torch/csrc/quant.cu"
-KERNELS = {  # name -> the TPU kernel it replaces (its bucketed form)
-    "minmax_bucketed": f"{TPU_KERNEL}:246",
-    "encode_packed": f"{TPU_KERNEL}:203",
-    "decode_packed": f"{TPU_KERNEL}:394",
-    "qdq_bucketed": f"{TPU_KERNEL}:187",
-    "decode_add_encode_bucketed": f"{TPU_KERNEL}:349",
+# the prefill phase: make_prefill_step(use_flash=True, scan_layers=True,
+# logits_positions="last") at full width and depth, fp32; (arch, input
+# shape it is cut from, batch, seq, K6 launches per prefill = layers)
+PREFILL_RUNS = (("qwen1.5-0.5b", "prefill_32k", 1, 32_768, 24),
+                ("repro-100m", None, 4, 8_192, 12),
+                ("granite-8b", None, 1, 8_192, 36))
+PREFILL_REPS = 3
+FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+# K6 against its plain version at full length (B = 1, unit normals):
+# (name, Hq, Hkv, D, S, causal, window, softcap, dtype, tolerance)
+FLASH_GEOMETRIES = (
+    ("qwen1.5-0.5b", 16, 16, 64, 8192, True, 0, 0.0, "float32", 2e-5),
+    ("granite-8b", 32, 8, 128, 8192, True, 0, 0.0, "float32", 2e-5),
+    ("grok-1 (softcap 30)", 48, 8, 128, 8192, True, 0, 30.0, "float32",
+     2e-5),
+    ("recurrentgemma-9b local (window 2048)", 16, 1, 256, 8192, True, 2048,
+     0.0, "float32", 2e-5),
+    ("tail S=8191, non-causal", 16, 16, 64, 8191, False, 0, 0.0,
+     "float32", 2e-5),
+    ("qwen1.5-0.5b bf16", 16, 16, 64, 8192, True, 0, 0.0, "bfloat16",
+     0.05),
+)
+# flash prefill logits against the same prefill without flash (the
+# chunked exact path at S >= 4096): both are fp32, but they sum the
+# attention in another order (online softmax over 64-key tiles against
+# an exact softmax over all keys) and the difference passes through
+# 12-36 full-width layers; a wrong attention moves random-weight logits
+# by O(0.1)
+PREFILL_TOL = 1e-3
+# a reduced prefill on the card against the CPU: the model tests' 1e-5
+REDUCED_TOL = 1e-5
+
+QUANT_TPU = "src/repro/kernels/quant/kernel.py"
+QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
+# name -> (the TPU kernel it replaces (its bucketed form), source, bound)
+KERNELS = {
+    "minmax_bucketed": (f"{QUANT_TPU}:246", QUANT_SOURCE, "bytes"),
+    "encode_packed": (f"{QUANT_TPU}:203", QUANT_SOURCE, "bytes"),
+    "decode_packed": (f"{QUANT_TPU}:394", QUANT_SOURCE, "bytes"),
+    "qdq_bucketed": (f"{QUANT_TPU}:187", QUANT_SOURCE, "bytes"),
+    "decode_add_encode_bucketed": (f"{QUANT_TPU}:349", QUANT_SOURCE,
+                                   "bytes"),
+    "flash_attention_bhsd": ("src/repro/kernels/flash_attn/kernel.py:143",
+                             "src/repro_torch/csrc/flash_attn.cu",
+                             "operations"),
 }
 SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
 TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
 RING_KERNELS = ("decode_add_encode_bucketed",)
+PREFILL_KERNELS = ("flash_attention_bhsd",)
 
 
 def log(msg: str) -> None:
@@ -1187,12 +1241,256 @@ def ring_cross_device_check(torch) -> None:
         "all workers identical")
 
 
+# ---------------------------------------------------------------------------
+# prefill phase (the fourth main path: full-sequence prefill on flash)
+# ---------------------------------------------------------------------------
+
+
+def attended_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the causal and window masks leave over ``s``
+    real queries and keys."""
+    import numpy as np
+    qp = np.arange(s, dtype=np.int64)
+    hi = qp + 1 if causal else np.full(s, s, np.int64)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
+    return int((hi - lo).sum())
+
+
+def flash_bound(b: int, hq: int, hkv: int, d: int, s: int, causal: bool,
+                window: int, elt: int) -> dict:
+    """The least time for the work: 4 * D flops per attended (q-head,
+    query, key) triple at the fp32 rate, against q, k, v read and out
+    written once at the memory rate."""
+    flops = 4 * d * hq * b * attended_pairs(s, causal, window)
+    nbytes = (2 * hq + 2 * hkv) * b * s * d * elt
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(flops / FP32_FLOPS_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3}
+
+
+def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
+                causal: bool, window: int, cap: float, dtype: str,
+                tol: float, *, seed: int) -> dict:
+    """K6 on unit-normal (B, H, S, D) card tensors (S padded to the
+    block as ops pads it) against its plain version on the same card
+    tensors, at ``tol``; skip == full grid bit for bit; CUDA-event times
+    of K6, the plain version and, for causal attention without window or
+    softcap, SDPA's memory-efficient kernel on the same inputs (K and V
+    repeated to the q heads beforehand) as the library yardstick."""
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn import ops as fo
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    bq = min(fo.DEFAULT_BLOCK_Q, max(8, 1 << (s - 1).bit_length()))
+    bk = min(fo.DEFAULT_BLOCK_K, bq)
+    s_pad = -(-s // bq) * bq
+
+    def draw(h):
+        x = torch.from_numpy(rng.standard_normal(
+            (b, h, s, d), dtype=np.float32)).to("cuda", dt)
+        return torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
+
+    q, k, v = draw(hq), draw(hkv), draw(hkv)
+    kw = dict(causal=causal, window=window, softcap=cap, block_q=bq,
+              block_k=bk, s_valid=s)
+    out = fk.flash_attention_bhsd(q, k, v, **kw)
+    full = fk.flash_attention_bhsd(q, k, v, skip=False, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, full):
+        raise AssertionError(f"K6 skip != full grid at {(b, hq, hkv, d, s)}")
+    del full
+    want = fk.flash_attention_plain(q, k, v, **kw)[:, :, :s].float()
+    got = out[:, :, :s].float()
+    err = max_abs(got, want)
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"K6 != plain at {(b, hq, hkv, d, s)}: max abs "
+                             f"err {err} (tolerance {tol})")
+    del out, want, got
+    res = {"shape": [b, hq, hkv, s, d], "dtype": dtype, "causal": causal,
+           "window": window, "softcap": cap, "max_abs_err": err,
+           "tolerance": tol,
+           "ms": time_ms(lambda: fk.flash_attention_bhsd(q, k, v, **kw),
+                         reps=5),
+           "plain_ms": time_ms(lambda: fk.flash_attention_plain(
+               q, k, v, **kw), reps=3), "library_ms": None}
+    res.update(flash_bound(b, hq, hkv, d, s, causal, window,
+                           q.element_size()))
+    if causal and not window and not cap:
+        g = hq // hkv
+        qs = q[:, :, :s]
+        ks, vs = (t[:, :, :s].repeat_interleave(g, dim=1) for t in (k, v))
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            res["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True), reps=5)
+    res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def flash_geometries(torch) -> list:
+    """K6 against its plain version at full length at the attention
+    geometries of the repo's models (FLASH_GEOMETRIES)."""
+    out = []
+    for i, (name, hq, hkv, d, s, causal, window, cap, dtype, tol) in \
+            enumerate(FLASH_GEOMETRIES):
+        res = check_flash(torch, 1, hq, hkv, d, s, causal, window, cap,
+                          dtype, tol, seed=100 + i)
+        res["name"] = name
+        log(f"[prefill] K6 {name}: == plain within {tol} (max abs err "
+            f"{res['max_abs_err']:.3g}), skip == full bit for bit; "
+            + json.dumps(res))
+        out.append(res)
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_model(torch, arch: str, shape_name, b: int, s: int,
+                  n_layers: int, seed: int) -> dict:
+    """One model at full width and depth: a warm-up and PREFILL_REPS
+    timed flash prefills (the main path, K6 launches counted), K6 alone
+    at the prefill's attention shape, and the same prefill without
+    flash as the reference for the last-position logits."""
+    from repro_torch import configs
+    from repro_torch.core import prng, pytree
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.models.common import INPUT_SHAPES, InputShape
+    from repro_torch.train import steps
+
+    cfg = configs.get_config(arch)
+    if cfg.n_layers != n_layers:
+        raise AssertionError(f"{arch}: {cfg.n_layers} layers")
+    gc.collect()                 # earlier phases' cycles hold card memory
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = transformer_scan.init(cfg, transformer_scan.generator(seed,
+                                                                  "cuda"))
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    shape = (INPUT_SHAPES[shape_name] if shape_name else
+             InputShape(f"prefill_{s // 1024}k", s, b, "prefill"))
+    batch = {k: v[:b] for k, v in pipeline.synthetic_batch(
+        cfg, shape, prng.PRNGKey(seed), device="cuda").items()}
+    if tuple(batch["tokens"].shape) != (b, s):
+        raise AssertionError(f"batch {tuple(batch['tokens'].shape)}")
+    step = steps.make_prefill_step(cfg, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fk.reset_launches()
+    logits = step(params, batch)
+    times = []
+    for _ in range(PREFILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = fk.flash_attention_bhsd.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != (1 + PREFILL_REPS) * n_layers:
+        raise AssertionError(f"{arch}: K6 launched {launches} times in "
+                             f"{1 + PREFILL_REPS} prefills of {n_layers} "
+                             "layers")
+    if tuple(logits.shape) != (b, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    med = sorted(times)[len(times) // 2]
+
+    k6 = check_flash(torch, b, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     s, True, 0, cfg.logit_softcap, "float32", 2e-5,
+                     seed=seed + 1)
+    ref = steps.make_prefill_step(cfg, use_flash=False, scan_layers=True,
+                                  logits_positions="last")(params, batch)
+    err = max_abs(logits, ref)
+    if not torch.allclose(logits, ref, rtol=PREFILL_TOL, atol=PREFILL_TOL):
+        raise AssertionError(f"{arch}: flash prefill logits != non-flash "
+                             f"(max abs err {err}, tolerance {PREFILL_TOL})")
+    out = {"arch": arch, "batch": b, "seq": s, "params": n_params,
+           "layers": n_layers, "prefill_ms": times, "median_ms": med,
+           "tokens_per_s": b * s / (med / 1e3),
+           "k6_launches_per_prefill": launches // (1 + PREFILL_REPS),
+           "k6_ms": k6["ms"], "k6_share": k6["ms"] * n_layers / med,
+           "max_memory_allocated": peak,
+           "allocated_before_init": held,
+           "logits_max_abs_err_vs_no_flash": err,
+           "logits_abs_max": float(ref.abs().max()), "k6": k6,
+           "launches": launches}
+    log(f"[prefill] {arch} {b} x {s}: median {med:.1f} ms of "
+        f"{[round(t, 1) for t in times]}, {out['tokens_per_s']:.1f} "
+        f"tokens/s, K6 {k6['ms']:.3f} ms x {n_layers} = "
+        f"{100 * out['k6_share']:.1f} % of the prefill, peak "
+        f"{peak} B, flash vs no-flash logits max abs err {err:.3g}")
+    log("[prefill] " + json.dumps(out))
+    del params, batch, logits, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_cross_device_check(torch) -> None:
+    """A reduced flash prefill (the smoke's form, S = 300: padded to the
+    block) on the card against the CPU, within REDUCED_TOL."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    for arch, _, _, _, _ in PREFILL_RUNS:
+        mc = configs.get_config(arch).reduced()
+        params = transformer_scan.init(mc, transformer_scan.generator(5))
+        tok = torch.from_numpy(np.random.default_rng(6).integers(
+            0, mc.vocab, size=(2, 300)).astype(np.int32))
+        step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                       logits_positions="last")
+        want = step(params, {"tokens": tok})
+        before = fk.flash_attention_bhsd.launches
+        got = step(pytree.tree_map(lambda t: t.cuda(), params),
+                   {"tokens": tok.cuda()}).cpu()
+        if fk.flash_attention_bhsd.launches - before != mc.n_layers:
+            raise AssertionError("reduced card prefill did not run on K6")
+        if not torch.allclose(got, want, rtol=REDUCED_TOL,
+                              atol=REDUCED_TOL):
+            raise AssertionError(f"reduced {arch} prefill: card != CPU "
+                                 f"(max abs err {max_abs(got, want)})")
+        log(f"[check] reduced {arch} flash prefill (2 x 300): card == CPU "
+            f"within {REDUCED_TOL} (max abs err {max_abs(got, want):.3g})")
+
+
+def prefill_phase(torch) -> dict:
+    """K6 at the models' attention geometries, then the three full-width
+    prefills, then a reduced card-vs-CPU prefill. The K6 row of the
+    kernels line is K6 at the first prefill's attention shape."""
+    geoms = flash_geometries(torch)
+    runs = [prefill_model(torch, arch, shape, b, s, n, seed=30 + i)
+            for i, (arch, shape, b, s, n) in enumerate(PREFILL_RUNS)]
+    prefill_cross_device_check(torch)
+    k6 = dict(runs[0]["k6"])
+    k6["max_abs_err"] = max(r["max_abs_err"] for r in
+                            geoms + [r["k6"] for r in runs]
+                            if r["dtype"] == "float32")
+    return {"geometries": geoms, "runs": runs, "k6": k6,
+            "launches": {"flash_attention_bhsd": sum(r["launches"]
+                                                     for r in runs)}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attn import kernel as flash
     from repro_torch.kernels.quant import kernel
 
     card = smi_line()
@@ -1200,9 +1498,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    kernel.build(force=True)
-    log(f"[build] {kernel.LIBRARY.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    libs = nvcc.build_many([(kernel.SOURCE, kernel.LIBRARY),
+                            (flash.SOURCE, flash.LIBRARY)], force=True)
+    log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+        "parallel)")
 
     timing = kernels_phase(torch)
     served = serve_phase(torch)
@@ -1211,6 +1511,8 @@ def main() -> int:
     timing["qdq_bucketed"] = trained["qdq"]
     ringed = ring_phase(torch)
     timing["decode_add_encode_bucketed"] = ringed["dae"]
+    prefilled = prefill_phase(torch)
+    timing["flash_attention_bhsd"] = prefilled["k6"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -1219,17 +1521,19 @@ def main() -> int:
 
     log("[launches] " + json.dumps({"serve": served["launches"],
                                     "train": trained["launches"],
-                                    "ring": ringed["launches"]}))
+                                    "ring": ringed["launches"],
+                                    "prefill": prefilled["launches"]}))
     rows = []
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
         path = (served if name in SERVE_KERNELS else ringed
-                if name in RING_KERNELS else trained)
-        row = {"name": name, "route": "cuda", "source": SOURCE,
+                if name in RING_KERNELS else prefilled
+                if name in PREFILL_KERNELS else trained)
+        row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": "bytes", "library_ms": t["library_ms"]}
+               "bound_by": bound_by, "library_ms": t["library_ms"]}
         log(json.dumps({"kernel": name, "kernel_ms": t["ms"],
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"],

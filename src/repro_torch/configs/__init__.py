@@ -12,13 +12,14 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "granite-8b": "granite_8b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "repro-100m": "repro_100m",
 }
 
 # architectures of the JAX package that the port does not run yet
 NOT_PORTED = (
-    "command-r-35b", "deepseek-v2-lite-16b", "granite-8b", "grok-1-314b",
+    "command-r-35b", "deepseek-v2-lite-16b", "grok-1-314b",
     "qwen2-vl-72b", "qwen2.5-14b", "recurrentgemma-9b", "rwkv6-3b",
     "seamless-m4t-large-v2",
 )

@@ -16,64 +16,35 @@ Dispatch follows the tensor: a CPU tensor takes the plain version in
 stream or raises — there is no fallback. Each wrapper counts its CUDA
 launches in ``<wrapper>.launches`` (``reset_launches`` zeroes them).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch/libquant.so`` under the checkout (rebuilt when the
-source is newer), never at import: importing this module needs no
-compiler and no card.
+The library is compiled by the port's builder (``kernels.nvcc``) for
+``sm_90a`` at first use into ``build/repro_torch/libquant.so`` under the
+checkout (rebuilt when the source is newer), never at import: importing
+this module needs no compiler and no card.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.quant import ref
 
 LANES = 512
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-SOURCE = _PKG / "csrc" / "quant.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-LIBRARY = BUILD_DIR / "libquant.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = nvcc.CSRC / "quant.cu"
+LIBRARY = nvcc.BUILD_DIR / "libquant.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH): the "
-                           "codec's CUDA kernels cannot be built")
-    return found
-
-
 def build(*, force: bool = False) -> Path:
     """Compile ``quant.cu`` into ``libquant.so`` unless an up-to-date
     build exists. Raises with the compiler's output on failure."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f".{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    return nvcc.build(SOURCE, LIBRARY, force=force)
 
 
 def _load() -> ctypes.CDLL:

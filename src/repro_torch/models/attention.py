@@ -5,9 +5,12 @@ The port of ``repro.models.attention``'s parameter init, RoPE, the
 reference grouped-query SDPA (fp32 softmax), the q-chunked exact path
 for long sequences, the full-sequence ``attention`` of training, and the
 KV cache (full, or a ring buffer of ``window`` slots), in fp32 or bf16.
-All of it is plain torch, safe under autograd. The flash-attention
-kernel (``use_flash``), the int8 KV cache, M-RoPE and cross attention
-come with later slices.
+All of it is plain torch, safe under autograd. ``use_flash=True``
+routes prefill through the flash-attention kernel
+(``kernels.flash_attn``: K6 on the card, its plain version on the CPU),
+which is forward-only: a backward through it raises, as the JAX
+package's has no gradient. The int8 KV cache, M-RoPE and cross
+attention come with later slices.
 
 The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
 with ``jax.vmap``. Here the slot axis is a batch dimension written out:
@@ -22,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
 
@@ -120,19 +124,20 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
               window: int = 0, use_flash: bool = False) -> torch.Tensor:
     """Train/prefill path. x: (B, S, d); positions: (B, S).
 
-    The q-chunked exact path for S >= 4096 (a multiple of 1024), the
-    full-S^2 reference below it — the JAX package's selection."""
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash: the flash-attention kernel is not ported to "
-            "repro_torch yet (prefill slice)")
+    The JAX package's selection: the flash-attention kernel when
+    ``use_flash``, else the q-chunked exact path for S >= 4096 (a
+    multiple of 1024), else the full-S^2 reference."""
     b, s, _ = x.shape
     q = layers.dense(p["q"], x).view(b, s, cfg.n_heads, cfg.head_dim)
     k = layers.dense(p["k"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = layers.dense(p["v"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
-    if s >= CHUNKED_THRESHOLD and s % Q_CHUNK == 0:
+    if use_flash:
+        out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        window=window,
+                                        softcap=cfg.logit_softcap)
+    elif s >= CHUNKED_THRESHOLD and s % Q_CHUNK == 0:
         group = cfg.n_heads // cfg.n_kv_heads
         out = chunked_sdpa(q, k.repeat_interleave(group, dim=2),
                            v.repeat_interleave(group, dim=2), causal=causal,

@@ -137,3 +137,25 @@ def _reduced_sections(cfg: ModelConfig, head_dim: int) -> Sequence[int]:
     half = head_dim // 2
     a = half // 4
     return (half - 2 * a, a, a)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

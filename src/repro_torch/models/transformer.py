@@ -7,9 +7,11 @@ the full-sequence forward ``apply`` over the unrolled parameter tree
 (``{"embed", "final_norm", "lm_head"?, "layers": [block, ...]}`` — the
 JAX package's default training tree, whose flat layout the trainer
 quantizes), ``sharded_cross_entropy`` and ``loss_fn``. ``remat=True``
-checkpoints each block (``torch.utils.checkpoint``). MoE FFNs, the MLA /
-RWKV / RG-LRU mixers, enc-dec stacks and the unrolled ``decode_step``
-come with later slices (serving runs the scanned layout).
+checkpoints each block (``torch.utils.checkpoint``); ``use_flash=True``
+runs every attention block on the flash-attention kernel (forward only:
+the unrolled prefill). MoE FFNs, the MLA / RWKV / RG-LRU mixers, enc-dec
+stacks and the unrolled ``decode_step`` come with later slices (serving
+runs the scanned layout).
 """
 from __future__ import annotations
 

@@ -107,10 +107,17 @@ def _remat_context(remat_policy: str):
 
 def apply(params: dict, cfg: ModelConfig, batch: dict, *,
           use_flash: bool = False, remat: bool = False,
+          logits_positions: str = "all",
           remat_policy: str = "full") -> torch.Tensor:
-    """Full-sequence forward over the stacked tree -> logits (B, S, V).
-    (The JAX function also returns the MoE aux loss, 0.0 here; its
-    ``logits_positions`` comes with the prefill slice.)"""
+    """Full-sequence forward over the stacked tree -> logits (B, S, V),
+    or (B, 1, V) with ``logits_positions="last"``: only the final
+    position goes through the final norm and the LM head (the serving
+    prefill's path: a 32k-token prefill otherwise computes a
+    (B, 32768, V) logits tensor to keep one row). (The JAX function also
+    returns the MoE aux loss, 0.0 here.)"""
+    if logits_positions not in ("all", "last"):
+        raise ValueError(f"logits_positions must be 'all' or 'last', got "
+                         f"'{logits_positions}'")
     if cfg.is_encdec:
         raise not_ported("the encoder-decoder stack")
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
@@ -135,6 +142,8 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
         x = _block_apply(p, cfg, kind, off + i, x, positions,
                          use_flash=use_flash)
+    if logits_positions == "last":
+        x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
     return _lm_head(params, cfg, x)
 

@@ -14,13 +14,15 @@ The port of ``repro.train.steps`` on one card, with no mesh:
     ``comm_bytes`` (the measured wire bytes of the one fused message).
   * ``make_serve_step`` / ``make_bulk_prefill``: the scanned layout's
     decode step and prompt loop (``transformer_scan``).
+  * ``make_prefill_step``: the full-sequence forward returning the
+    last position's logits, on the flash-attention kernel when
+    ``use_flash`` (forward only).
 
 The train state mirrors JAX's ``{"params", "opt", "step", "rng",
 "ec_err"?}``. ``step`` and ``rng`` are host tensors (0-d int32, and the
 (2,) threefry key), so deriving the step's key reads nothing back from
 the card. The step updates the state IN PLACE (parameters, moments,
 residual) and returns it; JAX returns new arrays with the same values.
-The full-sequence ``make_prefill_step`` comes with the flash slice.
 """
 from __future__ import annotations
 
@@ -208,3 +210,24 @@ def make_bulk_prefill(cfg: ModelConfig):
         return logits[:, -1], decode_state
 
     return bulk_prefill
+
+
+def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False,
+                      scan_layers: bool = False,
+                      logits_positions: str = "all"):
+    """prefill: ``prefill_step(params, batch) -> logits (B, V)`` of the
+    last position, from the full-sequence forward (``remat`` when
+    ``scan_layers``, as the JAX package sets it; ``logits_positions``
+    applies to the scanned layout only). Cache population for decode
+    goes through ``make_bulk_prefill``."""
+    impl = _impl(scan_layers)
+
+    def prefill_step(params, batch):
+        kw = {}
+        if scan_layers:
+            kw["logits_positions"] = logits_positions
+        logits = impl.apply(params, cfg, batch, use_flash=use_flash,
+                            remat=scan_layers, **kw)
+        return logits[:, -1]
+
+    return prefill_step

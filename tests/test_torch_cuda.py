@@ -246,3 +246,88 @@ def test_k5_wrapper_refuses_bad_cuda_inputs(card):
     with pytest.raises(ValueError, match="params_out overlaps params"):
         kernel.decode_add_encode_bucketed(pay, prm[:2], x4, x4, bits=4,
                                           params_out=prm[1:])
+
+
+# ----------------------------------------------------------- K6 flash ----
+
+def _qkv(b, s, hq, hkv, d, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(
+        np.float32)).to(dtype) for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,cap,s", [
+    (True, 0, 0.0, 256),        # causal
+    (True, 96, 0.0, 320),       # sliding window
+    (False, 0, 0.0, 192),       # non-causal, padded tail (s_valid 182)
+    (True, 0, 30.0, 256),       # softcap
+])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (12, 4), (6, 1)])
+def test_k6_matches_plain_and_skip_equals_full(card, d, causal, window, cap,
+                                               s, hq, hkv):
+    """K6 against its plain version (the CPU tensors' path) at rtol =
+    atol = 2e-5 (fp32 sums in another order), and skip == full grid bit
+    for bit on the card."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    q, k, v = _qkv(2, s, hq, hkv, d, seed=d + s + hq)
+    s_valid = s - 10 if not causal else s
+    kw = dict(causal=causal, window=window, softcap=cap, block_q=64,
+              block_k=64, s_valid=s_valid)
+    fk.reset_launches()
+    got = fk.flash_attention_bhsd(q.to(card), k.to(card), v.to(card), **kw)
+    full = fk.flash_attention_bhsd(q.to(card), k.to(card), v.to(card),
+                                   skip=False, **kw)
+    assert fk.flash_attention_bhsd.launches == 2
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, full)
+
+
+def test_k6_bf16_and_entry_point(card):
+    """bf16 in and out (tolerance 0.05, as the JAX package's bf16 test);
+    the public (B, S, H, D) entry point with an odd length launches K6
+    once and matches the plain path."""
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fo
+    q, k, v = _qkv(1, 128, 4, 2, 64, seed=3, dtype=torch.bfloat16)
+    kw = dict(causal=True, window=0, softcap=0.0, block_q=64, block_k=64,
+              s_valid=128)
+    got = fk.flash_attention_bhsd(q.to(card), k.to(card), v.to(card), **kw)
+    assert got.dtype == torch.bfloat16
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0.05,
+                               atol=0.05)
+    q, k, v = (t.float().transpose(1, 2)[:, :97].contiguous()
+               for t in (q, k, v))
+    fk.reset_launches()
+    got = fo.flash_attention(q.to(card), k.to(card), v.to(card))
+    assert fk.flash_attention_bhsd.launches == 1
+    torch.testing.assert_close(got.cpu(), fo.flash_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_k6_refuses_bad_inputs_and_a_refused_launch_raises(card):
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fo
+    kw = dict(causal=True, window=0, softcap=0.0, block_q=64, block_k=64,
+              s_valid=8)
+    q, k, v = (t.to(card) for t in _qkv(1, 8, 4, 2, 48, seed=1))
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_bhsd(q, k, v, **kw)
+    q, k, v = (t.to(card) for t in _qkv(1, 8, 4, 2, 64, seed=1))
+    with pytest.raises(TypeError, match="dtype"):
+        fk.flash_attention_bhsd(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_bhsd(q.transpose(2, 3).contiguous().transpose(
+            2, 3), k, v, **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        fk.flash_attention_bhsd(q[:, :3].contiguous(), k, v, **kw)
+    # gridDim.z = B above 65,535: the launch is refused and raises
+    q, k, v = (torch.zeros((70_000, h, 1, 32), device=card)
+               for h in (1, 1, 1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.flash_attention_bhsd(q, k, v, **dict(kw, s_valid=1))
+    # no backward on the card either
+    q, k, v = (t.to(card).transpose(1, 2).requires_grad_(True)
+               for t in _qkv(1, 16, 2, 2, 32, seed=2))
+    with pytest.raises(NotImplementedError, match="flash"):
+        fo.flash_attention(q, k, v).sum().backward()

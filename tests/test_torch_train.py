@@ -170,6 +170,10 @@ def test_chunked_attention_matches_jax():
 
 
 def test_use_flash_is_not_ported(model, cfgs):
+    """Training on flash attention is not ported because the reference
+    has none: the flash kernel is forward-only, and a gradient through
+    it raises NotImplementedError naming flash attention, as jax.grad
+    through the Pallas kernel does."""
     scan, _, tp, _, _ = model
     _, tb = _batch(cfgs[0])
     with pytest.raises(NotImplementedError, match="flash"):
