@@ -4,9 +4,10 @@ CUDA kernels, holds each against its plain PyTorch version, serves
 full-width qwen1.5-0.5b with a live rq8 checkpoint hot-swap, trains
 full-width repro-100m with rq4 + error-feedback gradient compression,
 runs the paper's algorithm tier on it (four workers stacked on the card
-exchanging gradients through the partitioned rq4 ring AllReduce), and
+exchanging gradients through the partitioned rq4 ring AllReduce),
 prefills full-width qwen1.5-0.5b, repro-100m and granite-8b on the
-flash-attention kernel.
+flash-attention kernel, and prefills and serves full-width rwkv6-3b on
+the WKV6 scan kernel.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -59,7 +60,20 @@ Phases (any failure raises and the script exits non-zero):
      granite-8b 1 x 8192 (fp32, TF32 off): one warm-up and 3 timed
      prefills, K6 once per layer, its share of the prefill, peak memory,
      and the last-position logits against the same prefill without
-     flash. Then a reduced flash prefill on the card against the CPU.
+     flash. Then a reduced flash prefill on the card against the CPU;
+  8. rwkv: K7 wkv6_bhsk against its plain version on the card (rtol =
+     atol = 1e-4, out and state) at the prefill's shape of one layer
+     (B 1, H 40, S 32768, K 64) and at the JAX tests' shapes through
+     ops.wkv6 with a state0, in rwkv6-3b's own decay regime and the JAX
+     tests'; K7 and plain times beside the fp32 flop bound. Then
+     rwkv6-3b at full width and depth (3,089,290,240 parameters, fp32,
+     TF32 off): make_prefill_step(scan_layers=True,
+     logits_positions="last") on 1 x 32768 tokens, a warm-up and 3
+     timed prefills, K7 once a layer, its share, peak memory, finite
+     logits; the prefill's last-position logits against the bulk
+     prefill (the recurrent decode loop) on 1 x 320 tokens within 1e-3;
+     the Engine serving 8 requests on 4 slots with 0 dropped. Then a
+     reduced prefill and decode on the card against the CPU.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -144,9 +158,38 @@ PREFILL_TOL = 1e-3
 # a reduced prefill on the card against the CPU: the model tests' 1e-5
 REDUCED_TOL = 1e-5
 
+# the rwkv phase: rwkv6-3b at full width and depth (JAX's
+# jax.eval_shape(transformer_scan.init): 3,089,290,240 parameters in 24
+# leaves), fp32, TF32 off
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PARAMS = 3_089_290_240
+RWKV_LEAVES = 24
+RWKV_LAYERS = 32
+RWKV_PREFILL = ("prefill_32k", 1, 32_768)
+# K7 against its plain version: the JAX package's kernel-vs-recurrence
+# tolerance
+WKV_TOL = 1e-4
+# (B, H, S, K): the prefill's shape of one layer, then the JAX tests'
+# shapes (through ops.wkv6 with a state0; S = 100 is padded)
+WKV_PREFILL_SHAPE = (1, 40, 32_768, 64)
+WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 192, 64))
+WKV_CHUNK = 64
+# the prefill's last-position logits (K7's chunked scan) against the
+# serving path's bulk prefill (the token-by-token recurrence) at full
+# width on 1 x 320 tokens (five chunks and a padded tail). Both are
+# fp32: they differ by the order of the sums (the chunked form against
+# the recurrence, batched GEMMs against per-token products), rounding
+# of ~1e-7 relative per operation carried through 32 layers of the
+# residual stream, ~1e-5 to 1e-4 on random-weight logits of magnitude
+# O(1-5); a dropped chunk, a wrong state carry or a wrong decay moves
+# them by O(0.1) or more
+RWKV_CHECK_LEN = 320
+RWKV_LOGITS_TOL = 1e-3
+
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
 QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
-# name -> (the TPU kernel it replaces (its bucketed form), source, bound)
+# name -> (the TPU kernel it replaces (its bucketed form), source, bound;
+# None: the larger term of this run's bound)
 KERNELS = {
     "minmax_bucketed": (f"{QUANT_TPU}:246", QUANT_SOURCE, "bytes"),
     "encode_packed": (f"{QUANT_TPU}:203", QUANT_SOURCE, "bytes"),
@@ -157,11 +200,14 @@ KERNELS = {
     "flash_attention_bhsd": ("src/repro/kernels/flash_attn/kernel.py:143",
                              "src/repro_torch/csrc/flash_attn.cu",
                              "operations"),
+    "wkv6_bhsk": ("src/repro/kernels/wkv6/kernel.py:77",
+                  "src/repro_torch/csrc/wkv6.cu", None),
 }
 SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
 TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
 RING_KERNELS = ("decode_add_encode_bucketed",)
 PREFILL_KERNELS = ("flash_attention_bhsd",)
+RWKV_KERNELS = ("wkv6_bhsk",)
 
 
 def log(msg: str) -> None:
@@ -1483,6 +1529,354 @@ def prefill_phase(torch) -> dict:
                                                      for r in runs)}}
 
 
+# ---------------------------------------------------------------------------
+# rwkv phase (the fifth main path: rwkv6-3b prefill on K7, and serving)
+# ---------------------------------------------------------------------------
+
+
+def wkv_draw(torch, rng, b: int, h: int, s: int, k: int, regime: str):
+    """r, k, v, log_w (B, S, H, K), u (H, K) and a state0 (B, H, K, K),
+    fp32 on the card, from a numpy generator: r, k, v normal * 0.5, u
+    normal * 0.1, state0 normal * 0.1. ``regime`` picks the decays:
+    "model" is rwkv6-3b's own at init (w0 = -6 plus a small LoRA term:
+    log_w = -exp(-6 + 0.3 tanh(N(0, 1)))), "tests" the JAX tests'
+    (log_w = -exp(N(0, 0.5) - 2))."""
+    import numpy as np
+
+    def n(*shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    r, kk, v = (n(b, s, h, k, scale=0.5) for _ in range(3))
+    if regime == "model":
+        lw = -np.exp(np.float32(-6.0) + np.float32(0.3)
+                     * np.tanh(n(b, s, h, k)))
+    else:
+        lw = -np.exp(n(b, s, h, k, scale=0.5) - np.float32(2.0))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+            for a in (r, kk, v, lw, n(h, k, scale=0.1),
+                      n(b, h, k, k, scale=0.1))]
+
+
+def wkv_bound(b: int, h: int, s: int, k: int) -> dict:
+    """The least time for K7's work on (B, H, S, K): per (b, h, chunk)
+    the needed 4·C·K² flops (q_in @ S, the state update) + 2·C·(C-1)·K
+    (att and att @ v on the strict lower triangle) at the fp32 rate,
+    against r, k, v, log_w, u read and out and the final state written
+    once at the memory rate."""
+    c = WKV_CHUNK
+    flops = (4 * c * k * k + 2 * c * (c - 1) * k) * b * h * (s // c)
+    nbytes = (5 * b * h * s * k + h * k + b * h * k * k) * 4
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(flops / FP32_FLOPS_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": ("operations" if flops / FP32_FLOPS_PER_S >=
+                         nbytes / HBM_BYTES_PER_S else "bytes")}
+
+
+def wkv_close(torch, got, want, what: str) -> float:
+    err = max_abs(got, want)
+    if not torch.allclose(got, want, rtol=WKV_TOL, atol=WKV_TOL):
+        raise AssertionError(f"K7 {what} != plain: max abs err {err} "
+                             f"(tolerance {WKV_TOL})")
+    return err
+
+
+def check_wkv(torch, shape, regime: str, *, seed: int, timed: bool
+              ) -> dict:
+    """K7 on one (B, H, S, K) draw: ``wkv6_bhsk`` against its plain
+    version on the same card tensors (S a chunk multiple), and the
+    public ``ops.wkv6`` with a state0 (padding, fold-in) against the
+    plain chunked scan (``ref.wkv6``) on the card, out and state each
+    within WKV_TOL. ``timed``: CUDA-event times of K7 and of the plain
+    version beside the bound."""
+    import numpy as np
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import ops as wo
+    from repro_torch.kernels.wkv6 import ref as wr
+
+    b, h, s, k = shape
+    r, kk, v, lw, u, s0 = wkv_draw(torch, np.random.default_rng(seed), b,
+                                   h, s, k, regime)
+    res = {"shape": [b, h, s, k], "regime": regime, "tolerance": WKV_TOL}
+    errs = []
+    if s % WKV_CHUNK == 0:
+        x = [t.transpose(1, 2).contiguous() for t in (r, kk, v, lw)]
+        out, st = wk.wkv6_bhsk(*x, u)
+        torch.cuda.synchronize()
+        want_o, want_s = wk.wkv6_plain(*x, u, chunk=WKV_CHUNK)
+        errs += [wkv_close(torch, out, want_o, f"out at {shape}"),
+                 wkv_close(torch, st, want_s, f"state at {shape}")]
+        res["out_abs_max"] = float(want_o.abs().max())
+        if timed:
+            res.update(
+                ms=time_ms(lambda: wk.wkv6_bhsk(*x, u), reps=5),
+                plain_ms=time_ms(lambda: wk.wkv6_plain(
+                    *x, u, chunk=WKV_CHUNK), reps=3),
+                library_ms=None)
+            res.update(wkv_bound(b, h, s, k))
+            res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
+        del x, out, st, want_o, want_s
+    got_o, got_s = wo.wkv6(r, kk, v, lw, u, state0=s0)
+    torch.cuda.synchronize()
+    ref_o, ref_s = wr.wkv6(r, kk, v, lw, u, state0=s0)
+    errs += [wkv_close(torch, got_o, ref_o, f"ops out at {shape}"),
+             wkv_close(torch, got_s, ref_s, f"ops state at {shape}")]
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def wkv_geometries(torch) -> list:
+    """K7 against its plain version at the prefill's shape of one layer
+    (timed) and the JAX tests' shapes, in both decay regimes."""
+    out = []
+    for i, regime in enumerate(("model", "tests")):
+        for j, shape in enumerate((WKV_PREFILL_SHAPE,) + WKV_TEST_SHAPES):
+            res = check_wkv(torch, shape, regime, seed=200 + 10 * i + j,
+                            timed=shape == WKV_PREFILL_SHAPE)
+            log(f"[rwkv] K7 {shape} {regime} decays: == plain within "
+                f"{WKV_TOL} (max abs err {res['max_abs_err']:.3g}); "
+                + json.dumps(res))
+            out.append(res)
+        torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_prefill(torch, params, cfg, seed: int) -> dict:
+    """The main path: make_prefill_step(scan_layers=True,
+    logits_positions="last") on full-width rwkv6-3b, 1 x 32,768 tokens
+    from synthetic_batch cut from prefill_32k: a warm-up and
+    PREFILL_REPS timed prefills, K7 once a layer in each."""
+    from repro_torch.core import prng
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models.common import INPUT_SHAPES
+    from repro_torch.train import steps
+
+    shape_name, b, s = RWKV_PREFILL
+    batch = {k: v[:b] for k, v in pipeline.synthetic_batch(
+        cfg, INPUT_SHAPES[shape_name], prng.PRNGKey(seed),
+        device="cuda").items()}
+    if tuple(batch["tokens"].shape) != (b, s):
+        raise AssertionError(f"batch {tuple(batch['tokens'].shape)}")
+    step = steps.make_prefill_step(cfg, scan_layers=True,
+                                   logits_positions="last")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    wk.reset_launches()
+    logits = step(params, batch)
+    times = []
+    for _ in range(PREFILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = wk.wkv6_bhsk.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != (1 + PREFILL_REPS) * RWKV_LAYERS:
+        raise AssertionError(f"K7 launched {launches} times in "
+                             f"{1 + PREFILL_REPS} prefills of "
+                             f"{RWKV_LAYERS} layers")
+    if tuple(logits.shape) != (b, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"rwkv prefill logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    med = sorted(times)[len(times) // 2]
+    return {"arch": RWKV_ARCH, "batch": b, "seq": s, "prefill_ms": times,
+            "median_ms": med, "tokens_per_s": b * s / (med / 1e3),
+            "k7_launches_per_prefill": launches // (1 + PREFILL_REPS),
+            "max_memory_allocated": peak,
+            "logits_abs_max": float(logits.abs().max()),
+            "launches": launches}
+
+
+def rwkv_vs_decode(torch, params, cfg, seed: int) -> dict:
+    """The prefill's last-position logits (K7) against the serving
+    path's bulk prefill (the recurrent decode loop) on 1 x
+    RWKV_CHECK_LEN tokens, within RWKV_LOGITS_TOL."""
+    import numpy as np
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(1, RWKV_CHECK_LEN)).astype(np.int32)).cuda()
+    before = wk.wkv6_bhsk.launches
+    pre = steps.make_prefill_step(cfg, scan_layers=True,
+                                  logits_positions="last")(
+        params, {"tokens": tok})
+    if wk.wkv6_bhsk.launches - before != RWKV_LAYERS:
+        raise AssertionError("the 320-token prefill did not run on K7")
+    state = transformer_scan.init_decode_state(params, cfg, 1,
+                                               RWKV_CHECK_LEN,
+                                               device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bulk, _ = steps.make_bulk_prefill(cfg)(params, state, tok)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    err = max_abs(pre, bulk)
+    if not torch.allclose(pre, bulk, rtol=RWKV_LOGITS_TOL,
+                          atol=RWKV_LOGITS_TOL):
+        raise AssertionError(f"rwkv prefill != bulk prefill (decode) "
+                             f"logits: max abs err {err} (tolerance "
+                             f"{RWKV_LOGITS_TOL})")
+    return {"tokens": RWKV_CHECK_LEN, "logits_max_abs_err": err,
+            "tolerance": RWKV_LOGITS_TOL,
+            "logits_abs_max": float(bulk.abs().max()),
+            "bulk_prefill_s": bulk_s,
+            "bulk_ms_per_token": bulk_s / RWKV_CHECK_LEN * 1e3}
+
+
+def rwkv_serve(torch, params) -> dict:
+    """Engine on full-width rwkv6-3b: 4 slots, 8 requests of prompt 32
+    generating 8 and 16 tokens, greedy, to completion with 0 dropped."""
+    from repro_torch import serve
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = serve.ServeConfig(arch=RWKV_ARCH, reduced=False, slots=4,
+                            n_requests=8, prompt_len=32, mixed_gen=(8, 16),
+                            max_len=49, temperature=0)
+    eng = serve.Engine(cfg, params=params, device="cuda")
+    reqs = serve.synthetic_requests(cfg)
+    eng.warmup([cfg.prompt_len])
+    torch.cuda.synchronize()
+    before = wk.wkv6_bhsk.launches
+    eng._t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r.tokens, r.max_new_tokens, rid=r.rid)
+    eng.run()
+    torch.cuda.synchronize()
+    stats = eng.stats()
+    c = eng.counters
+    if (c["completed"], c["dropped"]) != (8, 0):
+        raise AssertionError(f"rwkv serve run: {c}")
+    for comp in eng.completions.values():
+        if len(comp.tokens) != reqs[comp.rid].max_new_tokens or not all(
+                0 <= t < eng.model_cfg.vocab for t in comp.tokens):
+            raise AssertionError(f"rwkv request {comp.rid}: bad stream")
+    state = engine_mod._clone(eng._state)
+    out = {"completed": c["completed"], "dropped": c["dropped"],
+           "tokens_per_s": stats["tokens_per_s"], "p50_ms": stats["p50_ms"],
+           "p99_ms": stats["p99_ms"], "decode_steps": stats["decode_steps"],
+           "generated_tokens": stats["generated_tokens"],
+           "wall_s": stats["wall_s"],
+           "decode_step_ms": host_ms(torch, lambda: eng._serve_step(
+               eng.params, state, {"tokens": eng._tokens})),
+           "k7_launches": wk.wkv6_bhsk.launches - before}
+    return out
+
+
+def rwkv_cross_device_check(torch) -> None:
+    """Reduced rwkv6-3b on the card against the CPU: the prefill (K7
+    against the plain chunked scan, 2 x 300 tokens, padded) and a
+    12-token bulk prefill (logits and every state leaf)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    mc = configs.get_config(RWKV_ARCH).reduced()
+    params = transformer_scan.init(mc, transformer_scan.generator(5))
+    gparams = pytree.tree_map(lambda t: t.cuda(), params)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mc.vocab, size=(2, 300)).astype(np.int32))
+    step = steps.make_prefill_step(mc, scan_layers=True,
+                                   logits_positions="last")
+    want = step(params, {"tokens": tok})
+    before = wk.wkv6_bhsk.launches
+    got = step(gparams, {"tokens": tok.cuda()}).cpu()
+    if wk.wkv6_bhsk.launches - before != mc.n_layers:
+        raise AssertionError("reduced card prefill did not run on K7")
+    errs = {"prefill": max_abs(got, want)}
+    if not torch.allclose(got, want, rtol=REDUCED_TOL, atol=REDUCED_TOL):
+        raise AssertionError(f"reduced rwkv prefill: card != CPU (max abs "
+                             f"err {errs['prefill']})")
+    bulk = steps.make_bulk_prefill(mc)
+    lc, sc = bulk(params, transformer_scan.init_decode_state(
+        params, mc, 2, 16), tok[:, :12])
+    lg, sg = bulk(gparams, transformer_scan.init_decode_state(
+        gparams, mc, 2, 16), tok[:, :12].cuda())
+    # the logits within REDUCED_TOL; the wkv state within WKV_TOL, the
+    # JAX package's own state tolerance: a sum of outer products, its
+    # rounding follows the terms' magnitude, not the element's (the two
+    # devices differ by ~2.3e-5 there)
+    pairs = [("logits", lc, lg.cpu(), REDUCED_TOL)]
+    for part in ("prefix", "scan", "suffix"):
+        for i, (dc, dg) in enumerate(zip(sc[part], sg[part])):
+            pairs += [(f"{part}[{i}].{name}", t, dg[name].cpu(),
+                       WKV_TOL if name == "wkv" else REDUCED_TOL)
+                      for name, t in dc.items()]
+    for name, a, b, tol in pairs:
+        errs[name] = max_abs(b, a)
+        if not torch.allclose(b, a, rtol=tol, atol=tol):
+            raise AssertionError(f"reduced rwkv decode {name}: card != CPU "
+                                 f"(max abs err {errs[name]}, tolerance "
+                                 f"{tol})")
+    log(f"[check] reduced {RWKV_ARCH} prefill (2 x 300) and 12-token "
+        f"decode, every state leaf: card == CPU within {REDUCED_TOL} "
+        f"(wkv state {WKV_TOL}); max abs errs " + json.dumps(errs))
+
+
+def rwkv_phase(torch) -> dict:
+    """K7 at the prefill's and the JAX tests' shapes, then full-width
+    rwkv6-3b: the prefill (the main path), the prefill against the
+    decode path, serving; then a reduced card-vs-CPU check. The K7 row
+    of the kernels line is K7 at the prefill's shape, model decays."""
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer_scan
+
+    t0 = time.perf_counter()
+    geoms = wkv_geometries(torch)
+    cfg = configs.get_config(RWKV_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = transformer_scan.init(cfg, transformer_scan.generator(40,
+                                                                  "cuda"))
+    leaves = pytree.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    if (n_params, len(leaves)) != (RWKV_PARAMS, RWKV_LEAVES):
+        raise AssertionError(f"rwkv6-3b: {n_params} parameters in "
+                             f"{len(leaves)} leaves")
+    pre = rwkv_prefill(torch, params, cfg, seed=41)
+    k7 = dict(next(g for g in geoms if g["shape"] == list(WKV_PREFILL_SHAPE)
+                   and g["regime"] == "model"))
+    k7["max_abs_err"] = max(g["max_abs_err"] for g in geoms)
+    pre.update(params=n_params, allocated_before_init=held,
+               k7_ms=k7["ms"],
+               k7_share=k7["ms"] * RWKV_LAYERS / pre["median_ms"])
+    log(f"[rwkv] prefill {pre['batch']} x {pre['seq']}: median "
+        f"{pre['median_ms']:.1f} ms of {[round(t, 1) for t in pre['prefill_ms']]}"
+        f", {pre['tokens_per_s']:.1f} tokens/s, K7 {k7['ms']:.3f} ms x "
+        f"{RWKV_LAYERS} = {100 * pre['k7_share']:.1f} % of the prefill, "
+        f"peak {pre['max_memory_allocated']} B; " + json.dumps(pre))
+    check = rwkv_vs_decode(torch, params, cfg, seed=42)
+    log(f"[rwkv] prefill vs bulk prefill (decode) logits on 1 x "
+        f"{RWKV_CHECK_LEN}: max abs err {check['logits_max_abs_err']:.3g} "
+        f"(tolerance {RWKV_LOGITS_TOL}); " + json.dumps(check))
+    served = rwkv_serve(torch, params)
+    log("[rwkv] serve " + json.dumps(served))
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_cross_device_check(torch)
+    wall = time.perf_counter() - t0
+    log(f"[rwkv] phase wall time {wall:.1f} s")
+    return {"geometries": geoms, "prefill": pre, "check": check,
+            "serve": served, "k7": k7, "wall_s": wall,
+            "launches": {"wkv6_bhsk": pre["launches"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1492,6 +1886,7 @@ def main() -> int:
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attn import kernel as flash
     from repro_torch.kernels.quant import kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv
 
     card = smi_line()
     log(f"[card] {card}")
@@ -1499,7 +1894,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     libs = nvcc.build_many([(kernel.SOURCE, kernel.LIBRARY),
-                            (flash.SOURCE, flash.LIBRARY)], force=True)
+                            (flash.SOURCE, flash.LIBRARY),
+                            (wkv.SOURCE, wkv.LIBRARY)], force=True)
     log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
         "parallel)")
@@ -1513,6 +1909,8 @@ def main() -> int:
     timing["decode_add_encode_bucketed"] = ringed["dae"]
     prefilled = prefill_phase(torch)
     timing["flash_attention_bhsd"] = prefilled["k6"]
+    rwkv = rwkv_phase(torch)
+    timing["wkv6_bhsk"] = rwkv["k7"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -1522,18 +1920,21 @@ def main() -> int:
     log("[launches] " + json.dumps({"serve": served["launches"],
                                     "train": trained["launches"],
                                     "ring": ringed["launches"],
-                                    "prefill": prefilled["launches"]}))
+                                    "prefill": prefilled["launches"],
+                                    "rwkv": rwkv["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
         path = (served if name in SERVE_KERNELS else ringed
                 if name in RING_KERNELS else prefilled
-                if name in PREFILL_KERNELS else trained)
+                if name in PREFILL_KERNELS else rwkv
+                if name in RWKV_KERNELS else trained)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": bound_by, "library_ms": t["library_ms"]}
+               "bound_by": bound_by or t["bound_by"],
+               "library_ms": t["library_ms"]}
         log(json.dumps({"kernel": name, "kernel_ms": t["ms"],
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"],

@@ -2,8 +2,8 @@
 
 Only the architectures the port can run are registered; the JAX
 package's other ids raise a ``KeyError`` that says they are not ported
-yet (their block kinds — MoE, MLA, RWKV, RG-LRU, enc-dec — come with
-later slices).
+yet (their block kinds — MoE, MLA, RG-LRU, enc-dec — come with later
+slices).
 """
 from __future__ import annotations
 
@@ -15,12 +15,13 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "repro-100m": "repro_100m",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # architectures of the JAX package that the port does not run yet
 NOT_PORTED = (
     "command-r-35b", "deepseek-v2-lite-16b", "grok-1-314b",
-    "qwen2-vl-72b", "qwen2.5-14b", "recurrentgemma-9b", "rwkv6-3b",
+    "qwen2-vl-72b", "qwen2.5-14b", "recurrentgemma-9b",
     "seamless-m4t-large-v2",
 )
 

@@ -1,7 +1,7 @@
 """Shared layer primitives (plain functions over parameter dicts).
 
-The port of ``repro.models.layers``' dense / RMSNorm / RoPE / SiLU-MLP
-pieces (LayerNorm, GELU and M-RoPE come with the models slice). Parameters are nested dicts of tensors with the JAX package's
+The port of ``repro.models.layers``' dense / RMSNorm / LayerNorm / RoPE /
+SiLU-MLP pieces (GELU and M-RoPE come with the models slice). Parameters are nested dicts of tensors with the JAX package's
 keys and shapes (a dense weight is (d_in, d_out), applied as ``x @ w``),
 so a JAX parameter tree converts leaf for leaf (``interop``). Random
 init draws from an explicit ``torch.Generator``; it gives other numbers
@@ -43,23 +43,37 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _rmsnorm_only(kind: str) -> None:
-    if kind != "rmsnorm":
+NORMS = ("rmsnorm", "layernorm")
+
+
+def _check_norm(kind: str) -> None:
+    if kind not in NORMS:
         raise NotImplementedError(f"norm '{kind}' is not ported yet")
 
 
 def norm_init(d: int, kind: str, *, lead: tuple = (), dtype=torch.float32,
               device=None) -> dict:
-    _rmsnorm_only(kind)
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    """RMSNorm: {"scale"}; LayerNorm: {"scale", "bias"}."""
+    _check_norm(kind)
+    p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(p: dict, x: torch.Tensor, *, kind: str, eps: float
                ) -> torch.Tensor:
-    _rmsnorm_only(kind)
+    """In fp32, as JAX's: LayerNorm's variance is the mean of squared
+    deviations from the mean (``jnp.var``'s two passes)."""
+    _check_norm(kind)
     x32 = x.float()
-    x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
-    return (x32 * p["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+        return (x32 * p["scale"].float()).to(x.dtype)
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    x32 = (x32 - mu) * torch.rsqrt(var + eps)
+    return (x32 * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,17 +1,20 @@
 """Model assembly (unrolled ``layers`` list) and the blocks shared with
 ``transformer_scan``.
 
-The port of ``repro.models.transformer`` for attention-only stacks:
-block init, norm, dense FFN, token embedding, (tied or untied) LM head,
-the full-sequence forward ``apply`` over the unrolled parameter tree
+The port of ``repro.models.transformer`` for attention and RWKV6
+stacks: block init, norm, dense FFN, token embedding, (tied or untied)
+LM head, the full-sequence forward ``apply`` over the unrolled tree
 (``{"embed", "final_norm", "lm_head"?, "layers": [block, ...]}`` — the
 JAX package's default training tree, whose flat layout the trainer
 quantizes), ``sharded_cross_entropy`` and ``loss_fn``. ``remat=True``
 checkpoints each block (``torch.utils.checkpoint``); ``use_flash=True``
 runs every attention block on the flash-attention kernel (forward only:
-the unrolled prefill). MoE FFNs, the MLA / RWKV / RG-LRU mixers, enc-dec
-stacks and the unrolled ``decode_step`` come with later slices (serving
-runs the scanned layout).
+the unrolled prefill). An ``rwkv`` block (layernorm, time-mix, its own
+channel-mix FFN) runs its WKV6 scan on the kernel K7 when its input is
+on the card and on the plain chunked scan on the CPU (``rwkv``). MoE
+FFNs, the MLA / RG-LRU mixers, enc-dec stacks and the unrolled
+``decode_step`` come with later slices (serving runs the scanned
+layout).
 """
 from __future__ import annotations
 
@@ -20,16 +23,17 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.common import ModelConfig
 
 ATTN_KINDS = ("attn", "local_attn")
+BLOCK_KINDS = ATTN_KINDS + ("rwkv",)
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (models slice: MoE, MLA, "
-        "RWKV, RG-LRU and enc-dec stacks)")
+        "RG-LRU and enc-dec stacks)")
 
 
 def _moe_skipped(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -39,14 +43,22 @@ def _moe_skipped(cfg: ModelConfig, layer_idx: int) -> bool:
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 layer_idx: int, *, lead: tuple = (), dtype=torch.float32
                 ) -> dict:
-    """One attention block's params; ``lead`` stacks n_rep copies."""
-    if kind not in ATTN_KINDS:
+    """One block's params; ``lead`` stacks n_rep copies."""
+    if kind not in BLOCK_KINDS:
         raise not_ported(f"block kind '{kind}'")
+    dev = gen.device
+    if kind == "rwkv":
+        ln = lambda: layers.norm_init(cfg.d_model, "layernorm",  # noqa: E731
+                                      lead=lead, dtype=dtype, device=dev)
+        return {"ln1": ln(),
+                "mixer": rwkv.time_mix_init(gen, cfg, lead=lead, dtype=dtype),
+                "ln2": ln(),
+                "ffn": rwkv.channel_mix_init(gen, cfg, lead=lead,
+                                             dtype=dtype)}
     if cfg.moe is not None and not _moe_skipped(cfg, layer_idx):
         raise not_ported("the MoE FFN")
     if cfg.is_encdec:
         raise not_ported("cross attention")
-    dev = gen.device
     p: dict = {
         "ln1": layers.norm_init(cfg.d_model, cfg.norm, lead=lead,
                                 dtype=dtype, device=dev),
@@ -116,11 +128,15 @@ def _positions(cfg: ModelConfig, b: int, s: int, batch: dict,
 def _block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
                  x: torch.Tensor, positions: torch.Tensor, *,
                  use_flash: bool = False) -> torch.Tensor:
-    """One pre-norm attention block over the full sequence (the JAX
-    function's ``aux`` is 0.0 for every ported block kind, so only x
-    is returned)."""
-    if kind not in ATTN_KINDS:
+    """One pre-norm block over the full sequence (the JAX function's
+    ``aux`` is 0.0 for every ported block kind, so only x is returned)."""
+    if kind not in BLOCK_KINDS:
         raise not_ported(f"block kind '{kind}'")
+    if kind == "rwkv":
+        mix, _ = rwkv.time_mix(p["mixer"], cfg, _norm(cfg, p["ln1"], x))
+        x = x + mix
+        ffn_out, _ = rwkv.channel_mix(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+        return x + ffn_out
     h = _norm(cfg, p["ln1"], x)
     window = cfg.local_window if kind == "local_attn" else 0
     mixer_out = attention.attention(p["mixer"], cfg, h, positions,

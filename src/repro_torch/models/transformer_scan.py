@@ -1,8 +1,8 @@
 """Scan-over-layers model assembly: init, the full-sequence forward and
 loss (training with ``--scan-layers``), and the cached decode step.
 
-The port of ``repro.models.transformer_scan`` for attention-only stacks.
-It keeps the JAX package's parameter tree exactly — ``embed``,
+The port of ``repro.models.transformer_scan`` for attention and RWKV6
+stacks. It keeps the JAX package's parameter tree exactly — ``embed``,
 ``final_norm``, ``lm_head`` (untied only), ``prefix_layers``,
 ``scan_blocks`` (one block per position of the repeating unit, every
 leaf with a leading ``n_rep`` dim) and ``suffix_layers`` — so the flat
@@ -15,9 +15,12 @@ over layers becomes a loop over the layer index of the stacked leaves;
 selective activation checkpointing.
 
 The decode state mirrors JAX's ``{prefix, scan, suffix}`` with the batch
-axis written out and a per-row cursor (see ``attention``);
-``decode_step`` updates it in place and returns it. Non-attention block
-kinds raise ``NotImplementedError`` naming the models slice.
+axis written out: an attention block's KV cache with a per-row cursor
+(see ``attention``), an rwkv block's fp32 ``prev_x``, ``wkv`` (B, H, K, K)
+and ``prev_x_ffn``. ``decode_step`` updates it in place — a block writes
+its new state into the views ``_at`` hands it — and returns it. The
+other block kinds raise ``NotImplementedError`` naming the models
+slice.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (ATTN_KINDS, _block_apply,
                                             _block_init, _ffn_apply,
@@ -159,6 +162,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                  window: int, dtype, device, lead: tuple = ()) -> dict:
+    if kind == "rwkv":
+        st = rwkv.init_state(cfg, batch, lead=lead, device=device)
+        st["prev_x_ffn"] = torch.zeros_like(st["prev_x"])
+        return st
     if kind not in ATTN_KINDS:
         raise not_ported(f"block kind '{kind}'")
     w = cfg.local_window if kind == "local_attn" else window
@@ -189,8 +196,20 @@ def _at(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
-def _block_decode(p: dict, cfg: ModelConfig, layer_idx: int,
+def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
                   x: torch.Tensor, st: dict) -> torch.Tensor:
+    if kind == "rwkv":
+        h = _norm(cfg, p["ln1"], x)
+        mix, tm = rwkv.time_mix_decode(p["mixer"], cfg, h, st)
+        x = x + mix
+        h2 = _norm(cfg, p["ln2"], x)
+        ffn_out, prev_ffn = rwkv.channel_mix_decode(p["ffn"], cfg, h2,
+                                                    st["prev_x_ffn"])
+        # into the state's own tensors (views of the stacked leaves)
+        st["prev_x"].copy_(tm["prev_x"])
+        st["wkv"].copy_(tm["wkv"])
+        st["prev_x_ffn"].copy_(prev_ffn)
+        return x + ffn_out
     h = _norm(cfg, p["ln1"], x)
     mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
     if cfg.parallel_block:
@@ -206,15 +225,15 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
     Returns (logits (B, 1, V), state) — ``state`` updated in place."""
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     x = embed_inputs(params, cfg, inputs)
-    for i, p in enumerate(params["prefix_layers"]):
-        x = _block_decode(p, cfg, i, x, state["prefix"][i])
+    for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
+        x = _block_decode(p, cfg, kind, i, x, state["prefix"][i])
     for r in range(n_rep):
-        for j in range(len(unit)):
-            x = _block_decode(_at(params["scan_blocks"][j], r), cfg,
+        for j, kind in enumerate(unit):
+            x = _block_decode(_at(params["scan_blocks"][j], r), cfg, kind,
                               len(prefix) + j, x,
                               _at(state["scan"][j], r))
     off = len(prefix) + n_rep * len(unit)
-    for i, p in enumerate(params["suffix_layers"]):
-        x = _block_decode(p, cfg, off + i, x, state["suffix"][i])
+    for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
+        x = _block_decode(p, cfg, kind, off + i, x, state["suffix"][i])
     x = _norm(cfg, params["final_norm"], x)
     return _lm_head(params, cfg, x), state

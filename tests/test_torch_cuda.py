@@ -1,6 +1,7 @@
-"""The port on the card: the four CUDA codec kernels against their plain
-versions, and the serving and training paths on ``cuda``. Every test needs an NVIDIA
-card (``cuda`` marker) and skips without one.
+"""The port on the card: the CUDA kernels (the codec's K1-K5, flash
+attention K6, the WKV6 scan K7) against their plain versions, and the
+serving, training and prefill paths on ``cuda``. Every test needs an
+NVIDIA card (``cuda`` marker) and skips without one.
 
 This file imports neither jax nor ``repro``, so it runs on a CUDA host
 without JAX, skipping the suite's conftest (which imports jax):
@@ -331,3 +332,102 @@ def test_k6_refuses_bad_inputs_and_a_refused_launch_raises(card):
                for t in _qkv(1, 16, 2, 2, 32, seed=2))
     with pytest.raises(NotImplementedError, match="flash"):
         fo.flash_attention(q, k, v).sum().backward()
+
+
+# ------------------------------------------------------------- K7 wkv6 ----
+
+def _wkv(b, h, s, dk, seed, regime="tests"):
+    """r, k, v, log_w (B, H, S, K), u (H, K), state0 (B, H, K, K) on the
+    CPU: the JAX tests' decays, or rwkv6-3b's own at init ("model")."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, h, s, dk)) * 0.5 for _ in range(3))
+    if regime == "model":
+        lw = -np.exp(-6.0 + 0.3 * np.tanh(rng.normal(size=(b, h, s, dk))))
+    else:
+        lw = -np.exp(rng.normal(size=(b, h, s, dk)) * 0.5 - 2.0)
+    u = rng.normal(size=(h, dk)) * 0.1
+    s0 = rng.normal(size=(b, h, dk, dk)) * 0.1
+    return [torch.from_numpy(np.asarray(a, np.float32))
+            for a in (r, k, v, lw, u, s0)]
+
+
+@pytest.mark.parametrize("regime", ["tests", "model"])
+@pytest.mark.parametrize("b,h,s,dk", [(2, 2, 128, 64), (1, 4, 128, 32),
+                                      (2, 1, 192, 64), (1, 3, 64, 32)])
+def test_k7_matches_the_cpu_plain_version(card, b, h, s, dk, regime):
+    """K7 against its plain version on the CPU (rtol = atol = 1e-4, the
+    JAX package's kernel tolerance), out and final state."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    r, k, v, lw, u, _ = _wkv(b, h, s, dk, seed=s + h + dk)
+    wk.reset_launches()
+    got_o, got_s = wk.wkv6_bhsk(*(t.to(card) for t in (r, k, v, lw, u)))
+    assert wk.wkv6_bhsk.launches == 1
+    want_o, want_s = wk.wkv6_bhsk(r, k, v, lw, u)
+    torch.testing.assert_close(got_o.cpu(), want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_k7_entry_point_with_padding_and_state0(card):
+    """The public (B, S, H, K) entry point at S = 100 (padded to 128)
+    with a state0 folded in: one K7 launch, equal to the CPU path."""
+    from repro_torch.kernels.wkv6 import kernel as wk, ops as wo
+    r, k, v, lw, u, s0 = _wkv(1, 4, 100, 32, seed=9)
+    args = [t.transpose(1, 2) for t in (r, k, v, lw)] + [u]
+    wk.reset_launches()
+    got_o, got_s = wo.wkv6(*(t.to(card) for t in args), state0=s0.to(card))
+    assert wk.wkv6_bhsk.launches == 1
+    want_o, want_s = wo.wkv6(*args, state0=s0)
+    torch.testing.assert_close(got_o.cpu(), want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_k7_refuses_bad_inputs_and_a_refused_launch_raises(card):
+    from repro_torch.kernels.wkv6 import kernel as wk, ops as wo
+    r, k, v, lw, u, _ = (t.to(card) for t in _wkv(1, 2, 64, 32, seed=1))
+    with pytest.raises(ValueError, match="different devices"):
+        wk.wkv6_bhsk(r, k.cpu(), v, lw, u)
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv6_bhsk(r.half(), k.half(), v.half(), lw.half(), u.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = [torch.zeros((1, 1, 64, 128), device=card) for _ in range(4)]
+        wk.wkv6_bhsk(*big, torch.zeros((1, 128), device=card))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        wk.wkv6_bhsk(*(t[:, :, :48] for t in (r, k, v, lw)), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6_bhsk(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                     lw, u)
+    # gridDim.y = B above 65,535: the launch is refused and raises
+    z = [torch.zeros((70_000, 1, 64, 32), device=card) for _ in range(4)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wk.wkv6_bhsk(*z, torch.zeros((1, 32), device=card))
+    del z
+    # no backward on the card either
+    ts = [t.transpose(1, 2).detach().requires_grad_(True)
+          for t in (r, k, v, lw)]
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        wo.wkv6(*ts, u)[0].sum().backward()
+
+
+def test_rwkv_prefill_on_the_card_runs_k7_and_matches_the_cpu(card):
+    """Reduced rwkv6-3b: the prefill launches K7 once a layer and equals
+    the CPU's plain chunked scan within 1e-5 (the model tests'
+    tolerance); a reduced rwkv block's backward on the card raises."""
+    from repro_torch import configs
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.train import steps
+    mc = configs.get_config("rwkv6-3b").reduced()
+    params = tts.init(mc, tts.generator(5))
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mc.vocab, size=(2, 300)).astype(np.int32))
+    step = steps.make_prefill_step(mc, scan_layers=True,
+                                   logits_positions="last")
+    want = step(params, {"tokens": tok})
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    wk.reset_launches()
+    got = step(gparams, {"tokens": tok.to(card)})
+    assert wk.wkv6_bhsk.launches == mc.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+    batch = {"tokens": tok[:, :32].to(card), "labels": tok[:, 1:33].to(card)}
+    with pytest.raises(NotImplementedError, match="later slice"):
+        steps.value_and_grad(loss, gparams, batch)

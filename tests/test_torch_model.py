@@ -51,7 +51,7 @@ def test_config_copy_matches_jax():
 
 def test_other_architectures_are_not_ported_yet():
     with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("rwkv6-3b")
+        configs.get_config("qwen2.5-14b")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
     mc = jconfigs.get_config("recurrentgemma-9b").reduced()
@@ -139,11 +139,13 @@ def test_rows_keep_their_own_cursor(model):
 
 
 def test_unported_norm_and_activation_raise(model):
-    """LayerNorm and GELU stacks come with the models slice; the port
-    refuses them instead of computing something else."""
+    """GELU stacks come with the models slice, and a norm kind outside
+    rmsnorm / layernorm (LayerNorm came with the rwkv slice) has no JAX
+    counterpart; the port refuses both instead of computing something
+    else."""
     import dataclasses
     _, tmc, _, _ = model
-    for change in ({"norm": "layernorm"}, {"act": "gelu"}):
+    for change in ({"norm": "groupnorm"}, {"act": "gelu"}):
         mc = dataclasses.replace(tmc, **change)
         with pytest.raises(NotImplementedError, match="not ported"):
             p = tts.init(mc, tts.generator(0))
