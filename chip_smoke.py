@@ -54,7 +54,9 @@ Phases (any failure raises and the script exits non-zero):
      recurrentgemma-9b's local attention (D = 256, window 2048), a
      non-causal tail (S = 8191) and bf16, skip == full grid bit for bit;
      K6, plain and SDPA (memory-efficient kernel, a yardstick only)
-     times beside the fp32 flop bound. Then make_prefill_step(
+     times and SDPA's error beside K6's, against the bound of K6's own
+     arithmetic (3xTF32 or bf16 tensor-core products). Then
+     make_prefill_step(
      use_flash=True, scan_layers=True, logits_positions="last") at full
      width and depth: qwen1.5-0.5b 1 x 32768, repro-100m 4 x 8192,
      granite-8b 1 x 8192 (fp32, TF32 off): one warm-up and 3 timed
@@ -73,7 +75,8 @@ Phases (any failure raises and the script exits non-zero):
      logits; the prefill's last-position logits against the bulk
      prefill (the recurrent decode loop) on 1 x 320 tokens within 1e-3;
      the Engine serving 8 requests on 4 slots with 0 dropped. Then a
-     reduced prefill and decode on the card against the CPU.
+     reduced prefill, train step (loss and gradients, on the chunked
+     scan) and decode on the card against the CPU.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -134,6 +137,10 @@ PREFILL_RUNS = (("qwen1.5-0.5b", "prefill_32k", 1, 32_768, 24),
                 ("granite-8b", None, 1, 8_192, 36))
 PREFILL_REPS = 3
 FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
+# K6 computes an fp32 product as three TF32 products (3xTF32)
+FLASH_FP32_PRODUCTS = 3
 # K6 against its plain version at full length (B = 1, unit normals):
 # (name, Hq, Hkv, D, S, causal, window, softcap, dtype, tolerance)
 FLASH_GEOMETRIES = (
@@ -1304,14 +1311,18 @@ def attended_pairs(s: int, causal: bool, window: int) -> int:
 
 def flash_bound(b: int, hq: int, hkv: int, d: int, s: int, causal: bool,
                 window: int, elt: int) -> dict:
-    """The least time for the work: 4 * D flops per attended (q-head,
-    query, key) triple at the fp32 rate, against q, k, v read and out
-    written once at the memory rate."""
-    flops = 4 * d * hq * b * attended_pairs(s, causal, window)
+    """The least time for K6's work in the arithmetic it uses: fp32 as
+    3xTF32, 3 x 4 * D flops per attended (q-head, query, key) triple at
+    the dense TF32 rate; bf16 4 * D flops at the bf16 rate; against q,
+    k, v read and out written once at the memory rate."""
+    per, rate = ((FLASH_FP32_PRODUCTS * 4 * d, TF32_FLOPS_PER_S)
+                 if elt == 4 else (4 * d, BF16_FLOPS_PER_S))
+    flops = per * hq * b * attended_pairs(s, causal, window)
     nbytes = (2 * hq + 2 * hkv) * b * s * d * elt
     return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(flops / FP32_FLOPS_PER_S,
-                            nbytes / HBM_BYTES_PER_S) * 1e3}
+            "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": ("operations" if flops / rate >=
+                         nbytes / HBM_BYTES_PER_S else "bytes")}
 
 
 def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
@@ -1322,7 +1333,8 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
     tensors, at ``tol``; skip == full grid bit for bit; CUDA-event times
     of K6, the plain version and, for causal attention without window or
     softcap, SDPA's memory-efficient kernel on the same inputs (K and V
-    repeated to the q heads beforehand) as the library yardstick."""
+    repeated to the q heads beforehand) as the library yardstick, with
+    its max abs error against the plain version beside K6's."""
     import numpy as np
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -1354,10 +1366,10 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
     if not torch.allclose(got, want, rtol=tol, atol=tol):
         raise AssertionError(f"K6 != plain at {(b, hq, hkv, d, s)}: max abs "
                              f"err {err} (tolerance {tol})")
-    del out, want, got
+    del out, got
     res = {"shape": [b, hq, hkv, s, d], "dtype": dtype, "causal": causal,
            "window": window, "softcap": cap, "max_abs_err": err,
-           "tolerance": tol,
+           "tolerance": tol, "library_max_abs_err": None,
            "ms": time_ms(lambda: fk.flash_attention_bhsd(q, k, v, **kw),
                          reps=5),
            "plain_ms": time_ms(lambda: fk.flash_attention_plain(
@@ -1369,9 +1381,14 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
         qs = q[:, :, :s]
         ks, vs = (t[:, :, :s].repeat_interleave(g, dim=1) for t in (k, v))
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib = torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)
+            res["library_max_abs_err"] = max_abs(lib.float(), want)
+            del lib
             res["library_ms"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=True), reps=5)
+    del want
     res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
     return res
 
@@ -1714,6 +1731,7 @@ def rwkv_vs_decode(torch, params, cfg, seed: int) -> dict:
         raise AssertionError("the 320-token prefill did not run on K7")
     state = transformer_scan.init_decode_state(params, cfg, 1,
                                                RWKV_CHECK_LEN,
+                                               dtype=torch.float32,
                                                device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1775,8 +1793,9 @@ def rwkv_serve(torch, params) -> dict:
 
 def rwkv_cross_device_check(torch) -> None:
     """Reduced rwkv6-3b on the card against the CPU: the prefill (K7
-    against the plain chunked scan, 2 x 300 tokens, padded) and a
-    12-token bulk prefill (logits and every state leaf)."""
+    against the plain chunked scan, 2 x 300 tokens, padded), a train
+    step's loss and gradients (the chunked scan on both, no K7 launch)
+    and a 12-token bulk prefill (logits and every state leaf)."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.core import pytree
@@ -1800,11 +1819,27 @@ def rwkv_cross_device_check(torch) -> None:
     if not torch.allclose(got, want, rtol=REDUCED_TOL, atol=REDUCED_TOL):
         raise AssertionError(f"reduced rwkv prefill: card != CPU (max abs "
                              f"err {errs['prefill']})")
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+    batch = {"tokens": tok[:, :32], "labels": tok[:, 1:33]}
+    want_l, want_g = steps.value_and_grad(loss, params, batch)
+    before = wk.wkv6_bhsk.launches
+    got_l, got_g = steps.value_and_grad(
+        loss, gparams, {k: t.cuda() for k, t in batch.items()})
+    if wk.wkv6_bhsk.launches != before:
+        raise AssertionError("the rwkv train step launched K7 (forward-only)")
+    grads = [("train loss", want_l, got_l.cpu())] + [
+        ("train grads", w, g.cpu()) for w, g in
+        zip(pytree.tree_leaves(want_g), pytree.tree_leaves(got_g))]
+    for name, a, b in grads:
+        errs[name] = max(errs.get(name, 0.0), max_abs(b, a))
+        if not torch.allclose(b, a, rtol=REDUCED_TOL, atol=REDUCED_TOL):
+            raise AssertionError(f"reduced rwkv {name}: card != CPU (max "
+                                 f"abs err {max_abs(b, a)})")
     bulk = steps.make_bulk_prefill(mc)
     lc, sc = bulk(params, transformer_scan.init_decode_state(
-        params, mc, 2, 16), tok[:, :12])
+        params, mc, 2, 16, dtype=torch.float32), tok[:, :12])
     lg, sg = bulk(gparams, transformer_scan.init_decode_state(
-        gparams, mc, 2, 16), tok[:, :12].cuda())
+        gparams, mc, 2, 16, dtype=torch.float32), tok[:, :12].cuda())
     # the logits within REDUCED_TOL; the wkv state within WKV_TOL, the
     # JAX package's own state tolerance: a sum of outer products, its
     # rounding follows the terms' magnitude, not the element's (the two
@@ -1821,8 +1856,9 @@ def rwkv_cross_device_check(torch) -> None:
             raise AssertionError(f"reduced rwkv decode {name}: card != CPU "
                                  f"(max abs err {errs[name]}, tolerance "
                                  f"{tol})")
-    log(f"[check] reduced {RWKV_ARCH} prefill (2 x 300) and 12-token "
-        f"decode, every state leaf: card == CPU within {REDUCED_TOL} "
+    log(f"[check] reduced {RWKV_ARCH} prefill (2 x 300), train step (loss "
+        f"and every gradient, 2 x 32) and 12-token decode, every state "
+        f"leaf: card == CPU within {REDUCED_TOL} "
         f"(wkv state {WKV_TOL}); max abs errs " + json.dumps(errs))
 
 

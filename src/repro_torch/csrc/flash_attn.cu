@@ -1,64 +1,195 @@
-// K6: forward GQA flash attention for Hopper (sm_90a), fp32 math on CUDA
+// K6: forward GQA flash attention for Hopper (sm_90a) on the tensor
 // cores. Replaces the JAX package's Pallas kernel
 // src/repro/kernels/flash_attn/kernel.py:143 flash_attention_bhsd.
 //
 // Computes, for q (B, Hq, S, D) and k, v (B, Hkv, S, D), fp32 or bf16,
-// contiguous, out (B, Hq, S, D) in q's dtype:
-//   logits = (q * scale) . k           (scale = 1/sqrt(D), applied to q)
+// contiguous and 16-byte aligned, out (B, Hq, S, D) in q's dtype:
+//   logits = (q * scale) . k           (scale = 1/sqrt(D))
 //   logits = cap * tanh(logits * (1/cap))           (when cap > 0)
 //   masked -> -2**30: k >= s_valid; causal k > q; window k <= q - window
-//   online softmax over 64-key tiles: fp32 running max m, rescale
+//   online softmax over key tiles: fp32 running max m, rescale
 //   alpha = exp(m_old - m_new), denominator l; masked probabilities are
 //   zeroed after the exp; out = acc / max(l, 1e-30).
 //
-// What bounds it: at prefill lengths the work is 4*D flops per unmasked
-// (query head, query, key) triple against reading q, k, v and writing
-// out once, hundreds of flops per byte, so it is bound by operations:
-// fp32 FMAs at the H100's 67 TFLOP/s (CUDA cores). fp32 parity with the
-// JAX package rules out TF32 and tensor-core products on fp32 data, so
-// the design aims at keeping the FMA pipes fed from shared memory:
-//   * a block serves 64 rows, the (q-head, query) pairs of ALL q-heads
-//     of one KV head over 64 / group queries (the TPU kernel folds the
-//     heads into its tile for the same reason): each K/V tile is read
-//     from device memory once for the whole group;
-//   * 256 threads as 16 x 16; a thread owns 4 rows x 4 key columns of
-//     the score tile and 4 rows x D/16 output columns, so the inner
-//     loops do 16 (scores) or 4*D/16 (output) FMAs per 5 or 1 + D/16
-//     shared-memory loads; q and p are stored transposed (one 16-byte
-//     load gives a thread its 4 rows), k transposed with a padded
-//     stride, v row-major, all without bank conflicts on the reads;
+// What bounds it: at prefill lengths both products, S = (q*scale).k and
+// O += P.v, run hundreds of flops per byte of q, k, v and out, so the
+// tensor cores bound it.
+//   * fp32: 3xTF32 on mma.sync m16n8k8 (tf32 in, fp32 accumulate). Each
+//     fp32 operand x splits as big = x rounded to tf32 (nearest, ties
+//     away: cvt.rna's rounding) and small = x - big, and a.b ~
+//     a_small.b_big + a_big.b_small + a_big.b_big, the two small cross
+//     terms accumulated before the big one (CUTLASS's
+//     OpMultiplyAddFastF32, PyTorch's memory-efficient attention on
+//     fp32). The dropped a_small.b_small term is ~2^-22 of the product,
+//     the size of fp32 rounding in another summation order, so the
+//     kernel keeps fp32 parity with the plain version (2e-5). Bound: 3 x
+//     4*D flops per attended (q-head, query, key) triple at 495 TFLOP/s
+//     dense TF32 (mma.sync itself reaches ~65 % of that rate).
+//   * bf16: mma.sync m16n8k16 bf16 with fp32 accumulation (bf16 x bf16
+//     products are exact in fp32); the scale is applied to the fp32
+//     logits, and P is rounded to bf16 for P.v, as flash attention
+//     kernels do. Bound: 4*D flops per triple at 989 TFLOP/s.
+// Design:
+//   * a block holds ROWS folded rows, the (q-head, query) pairs of ALL
+//     q-heads of one KV head over ROWS / group queries (the TPU kernel
+//     folds the heads into its tile for the same reason), so each K/V
+//     tile is read from device memory once for the whole group; ROWS =
+//     128 (8 warps), 64 (4 warps) at D = 256; each warp owns 16 rows;
+//   * K/V tiles of BK keys (64 at D = 128, else 32) are double-buffered
+//     with cp.async 16-byte copies: tile k + 1 loads while tile k
+//     computes, one __syncthreads per tile; at D <= 64 the small tiles
+//     let two blocks share an SM (128 registers a thread);
+//   * q lands once a block; bf16 keeps its fragments in registers
+//     (D <= 128), fp32 reads them from shared memory and splits them
+//     each tile (its split fragments would not fit the registers);
+//   * fp32 at D <= 64 splits each landed K/V tile once for the block
+//     (k's big part in place, its small part beside, v's two parts
+//     transposed with the keys in P.v's order, all read by ldmatrix):
+//     8 warps splitting the same fragments was half their instructions;
+//     at D = 128 and 256 the split tiles do not fit beside the others,
+//     and each warp splits the fragments it reads;
+//   * a row's m and l live in the quad of threads that hold that row of
+//     the accumulator fragment: row reductions are two xor shuffles;
+//   * P goes from the score fragment straight into the P.v A-fragment:
+//     in fp32 by permuting the keys of each 8-key step (A column t ->
+//     key 2t, t + 4 -> key 2t + 1, V's rows read in the same order), in
+//     bf16 by the layout the two fragments share;
+//   * fp32 P.v of a tile accumulates in fresh registers and joins o by
+//     one fmaf: the tensor core truncates as it accumulates, and a
+//     running o fed through it for hundreds of tiles drifts to ~2e-5;
+//   * shared rows are padded by 16 bytes, so ldmatrix (q, k; v in bf16
+//     with .trans) and the scalar reads of v in fp32 are free of bank
+//     conflicts;
 //   * the Pallas kernel's pair table of surviving (q-block, k-block)
-//     tiles becomes a k range per block, [k_lo, k_hi) from the causal,
-//     window and tail masks; skip = 0 walks every k-tile and masks
-//     inside, bit-identical because a fully masked tile is a no-op
-//     (alpha = 1, p = 0);
-//   * blocks are issued longest causal range first;
+//     tiles becomes a k range per block from the causal, window and
+//     tail masks, and (skip = 1) a warp drops a tile that masks all its
+//     rows; skip = 0 walks every k-tile, bit-identical because a fully
+//     masked tile is an exact no-op (alpha = 1, P = 0, +0 through the
+//     mma); only tiles that straddle a mask edge are masked elementwise;
+//   * blocks are issued longest causal range first, across all heads;
 //   * IEEE expf / tanhf and true division, no fast-math intrinsics.
-// Shared memory: (D*68 + D*65 + 64*D + 64*68) floats, 219,136 bytes at
-// D = 256, so every D takes dynamic shared memory after
+// Shared memory: (ROWS + 4 * BK) * (D + 16 / sizeof(T)) elements (and
+// the split tiles at D <= 64), at most 202,752 bytes (fp32, D = 128), as
+// dynamic shared memory after
 // cudaFuncSetAttribute; a refused launch is returned by
 // cudaGetLastError() and raised by the wrapper.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 64;         // (q-head, query) rows of a block
-constexpr int BK = 64;           // keys per tile
-constexpr int THREADS = 256;     // 16 x 16
-constexpr int TM = 4;            // rows per thread
-constexpr int TN = BK / 16;      // score columns per thread
-constexpr int QSTR = ROWS + 4;   // stride of the transposed q and p tiles
-constexpr int KSTR = BK + 1;     // stride of the transposed k tile
 constexpr float NEG_INF = -1073741824.0f;   // -2**30, as the TPU kernel
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int ROWS = D == 256 ? 64 : 128;   // folded rows
+  static constexpr int THREADS = ROWS / 16 * 32;     // a warp per 16 rows
+  static constexpr int BK = D == 128 ? 64 : 32;      // keys per tile
+  static constexpr int MINB = D <= 64 ? 2 : 1;       // blocks per SM
+  static constexpr int VEC = 16 / (int)sizeof(T);    // elements in 16 B
+  static constexpr int STR = D + VEC;                // padded shared row
+  static constexpr int KSTEP = 2 * VEC;              // mma depth (32 B)
+  static constexpr int NT = BK / 8;                  // score n-tiles
+  static constexpr int ND = D / 8;                   // output n-tiles
+  static constexpr int KQ = D / KSTEP;               // k-steps of q.k
+  static constexpr int KP = BK / KSTEP;              // k-steps of p.v
+  static constexpr bool QREG = !F32 && D <= 128;      // q in registers
+  // fp32 at D <= 64: k and v are split once a tile for all warps (the
+  // split tiles fit the shared memory of two blocks an SM); above, each
+  // warp splits the fragments it reads
+  static constexpr bool PRESPLIT = F32 && D <= 64;
+  static constexpr int Q_ELEMS = ROWS * STR;
+  static constexpr int KV_ELEMS = BK * STR;
+  // fp32: the tile's split operands, k's small part (its big part
+  // overwrites the landed tile) and v's big and small parts transposed
+  static constexpr int VT_STR = BK + 4;
+  static constexpr int VT_ELEMS = D * VT_STR;
+  static constexpr int SPLIT_ELEMS = PRESPLIT ? KV_ELEMS + 2 * VT_ELEMS : 0;
+  static constexpr size_t SMEM =
+      (size_t)(Q_ELEMS + 4 * KV_ELEMS + SPLIT_ELEMS) * sizeof(T);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+
+// 16 bytes global -> shared; bytes = 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// x = big + small: big = x rounded to tf32, to nearest with ties away
+// from zero (the rounding of cvt.rna.tf32.f32, in two integer ops on the
+// full-rate pipes; cvt runs on the conversion pipe at 16 a clock an SM),
+// small = x - big (exact in fp32), whose 13 low bits the tensor core
+// drops (truncation, |error| < 2^-21 |x|)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 3xTF32: c += a.b with a = ab + as, b = bb + bs, small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ bool attends(long long kp, long long qp,
@@ -69,45 +200,61 @@ __device__ __forceinline__ bool attends(long long kp, long long qp,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<T, D>::THREADS, Cfg<T, D>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int hq, int hkv,
           long long s, long long s_valid, int causal, int window,
           float scale, float cap, float inv_cap, int skip, int gh, int bq,
           int n_chunks) {
-  constexpr int TD = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;               // D x QSTR: q * scale, transposed
-  float* kT = qT + D * QSTR;      // D x KSTR: k tile, transposed
-  float* vs = kT + D * KSTR;      // BK x D:   v tile
-  float* pT = vs + BK * D;        // BK x QSTR: probabilities, transposed
+  using C = Cfg<T, D>;
+  constexpr int BK = C::BK, STR = C::STR, VEC = C::VEC, KSTEP = C::KSTEP;
+  constexpr int CH = D / VEC;                 // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);     // ROWS x STR
+  T* ks = qs + C::Q_ELEMS;                    // 2 stages of BK x STR
+  T* vs = ks + 2 * C::KV_ELEMS;               // 2 stages of BK x STR
+  float* k_small = reinterpret_cast<float*>(vs + 2 * C::KV_ELEMS);
+  float* vt_big = k_small + C::KV_ELEMS;      // D x VT_STR
+  float* vt_small = vt_big + C::VT_ELEMS;     // D x VT_STR
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int group = hq / hkv;
-  const long long qt = (long long)gridDim.x - 1 - blockIdx.x;
-  const int kvh = blockIdx.y / n_chunks;
-  const int g0 = (blockIdx.y % n_chunks) * gh;
+  // x enumerates (q-tile, KV head, head chunk), the q-tile slowest and
+  // the longest causal range first
+  const int ny = hkv * n_chunks;
+  const long long qt = (long long)(gridDim.x / ny) - 1 - blockIdx.x / ny;
+  const int y = blockIdx.x % ny;
+  const int kvh = y / n_chunks;
+  const int g0 = (y % n_chunks) * gh;
   const long long b = blockIdx.z;
   const long long q0 = qt * bq;
   const int rows = gh * bq;
   const long long kv_base = (b * hkv + kvh) * s;
 
   // row r: q-head kvh * group + g0 + r / bq, query q0 + r % bq
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < C::ROWS * CH; idx += C::THREADS) {
+    const int r = idx / CH, c = idx % CH;
     const int gi = g0 + r / bq;
     const long long qp = q0 + r % bq;
-    float x = 0.f;
-    if (r < rows && gi < group && qp < s) {
-      const long long h = (long long)kvh * group + gi;
-      x = to_f(q[((b * hq + h) * s + qp) * D + d]) * scale;
-    }
-    qT[d * QSTR + r] = x;
+    const bool ok = r < rows && gi < group && qp < s;
+    const T* src =
+        ok ? q + ((b * hq + (long long)kvh * group + gi) * s + qp) * D +
+                 c * VEC
+           : q;
+    cp_async16(smem_addr(qs + r * STR + c * VEC), src, ok ? 16 : 0);
   }
-
-  long long qpos[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) qpos[i] = q0 + (ty * TM + i) % bq;
+  auto load_kv = [&](long long k0, int stage) {
+    T* kd = ks + stage * C::KV_ELEMS;
+    T* vd = vs + stage * C::KV_ELEMS;
+    for (int idx = tid; idx < BK * CH; idx += C::THREADS) {
+      const int r = idx / CH, c = idx % CH;
+      const bool ok = k0 + r < s;
+      const long long off = ok ? (kv_base + k0 + r) * D + c * VEC : 0;
+      cp_async16(smem_addr(kd + r * STR + c * VEC), k + off, ok ? 16 : 0);
+      cp_async16(smem_addr(vd + r * STR + c * VEC), v + off, ok ? 16 : 0);
+    }
+  };
 
   long long k_begin = 0, k_end = s;
   if (skip) {
@@ -117,110 +264,311 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (window > 0 && q0 - window + 1 > 0)
       k_begin = (q0 - window + 1) / BK * BK;
   }
+  const int n_tiles =
+      k_end > k_begin ? (int)((k_end - k_begin + BK - 1) / BK) : 0;
+  if (n_tiles > 0) load_kv(k_begin, 0);
+  cp_async_commit();
 
-  float m[TM], l[TM], acc[TM][TD];
+  // this thread's rows g and g + 8 of the warp's 16, and the warp's
+  // query range [lo, hi] (for the edge and dead-tile tests)
+  const int wr = warp * 16;
+  long long qpos[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int i = 0; i < 2; ++i) qpos[i] = q0 + (wr + g + 8 * i) % bq;
+  long long lo = qpos[0] < qpos[1] ? qpos[0] : qpos[1];
+  long long hi = qpos[0] < qpos[1] ? qpos[1] : qpos[0];
 #pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
+  for (int off = 4; off < 32; off <<= 1) {
+    const long long l2 = __shfl_xor_sync(0xffffffffu, lo, off);
+    const long long h2 = __shfl_xor_sync(0xffffffffu, hi, off);
+    lo = l2 < lo ? l2 : lo;
+    hi = h2 > hi ? h2 : hi;
   }
 
-  for (long long k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int c = idx / D, d = idx % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < s) {
-        const long long off = (kv_base + k0 + c) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+  // ldmatrix row addresses: q's A fragment (lane -> row, 16-byte half)
+  const uint32_t q_addr = smem_addr(
+      qs + (wr + (lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+      (lane >> 4) * VEC);
+  // k's B fragments of two n-tiles
+  const int k_lane_off = ((lane >> 4) * 8 + (lane & 7)) * STR +
+                         ((lane >> 3) & 1) * VEC;
+  // fp32: k's small part at the same offsets; v's transposed parts, the
+  // B fragments of two output n-tiles
+  const uint32_t ks_addr = smem_addr(k_small + k_lane_off);
+  const int vt_lane_off = ((lane >> 4) * 8 + (lane & 7)) * C::VT_STR +
+                          ((lane >> 3) & 1) * 4;
+  const uint32_t vtb_addr = smem_addr(vt_big + vt_lane_off);
+  const uint32_t vts_addr = smem_addr(vt_small + vt_lane_off);
+
+  cp_async_wait_all();
+  __syncthreads();
+
+  // fp32: 4 big + 4 small tf32 words per k-step; bf16: 4 words
+  constexpr int QW = C::F32 ? 8 : 4;
+  uint32_t qreg[C::QREG ? C::KQ : 1][QW];
+  auto q_frag = [&](int kk, uint32_t (&w)[QW]) {
+    uint32_t raw[4];
+    ldsm4(raw, q_addr + kk * KSTEP * (int)sizeof(T));
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split(__uint_as_float(raw[e]) * scale, w[e], w[4 + e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e] = raw[e];
+    }
+  };
+  if constexpr (C::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < C::KQ; ++kk) q_frag(kk, qreg[kk]);
+  }
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) {
+      cp_async_wait_all();   // tile it has landed (this thread's copies)
+      __syncthreads();       // ... everyone's; tile it - 1 is consumed
+    }
+    if (it + 1 < n_tiles) {
+      load_kv(k_begin + (long long)(it + 1) * BK, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const long long k0 = k_begin + (long long)it * BK;
+    T* kt = ks + (it & 1) * C::KV_ELEMS;
+    const T* vt = vs + (it & 1) * C::KV_ELEMS;
+    if constexpr (C::PRESPLIT) {
+      // split the tile once for all warps: k's big part in place, its
+      // small part beside; v's parts transposed (row d), the keys of each
+      // 8-key step in the P.v A-fragment's order (key 2t at t, key 2t + 1
+      // at t + 4), so that ldmatrix reads the B fragments
+      float* kf = reinterpret_cast<float*>(kt);
+      const float* vf = reinterpret_cast<const float*>(vt);
+      for (int idx = tid; idx < BK * D / 4; idx += C::THREADS) {
+        const int r = idx / (D / 4), c = 4 * (idx % (D / 4));
+        float4 x = *reinterpret_cast<const float4*>(kf + r * STR + c);
+        uint32_t bg[4], sm[4];
+        split(x.x, bg[0], sm[0]);
+        split(x.y, bg[1], sm[1]);
+        split(x.z, bg[2], sm[2]);
+        split(x.w, bg[3], sm[3]);
+        *reinterpret_cast<uint4*>(kf + r * STR + c) =
+            make_uint4(bg[0], bg[1], bg[2], bg[3]);
+        *reinterpret_cast<uint4*>(k_small + r * STR + c) =
+            make_uint4(sm[0], sm[1], sm[2], sm[3]);
       }
-      kT[d * KSTR + c] = kx;
-      vs[c * D + d] = vx;
+      for (int idx = tid; idx < BK * D / 4; idx += C::THREADS) {
+        const int key = idx % BK, d = 4 * (idx / BK);
+        const int pos = (key & ~7) | ((key & 1) << 2) | ((key & 7) >> 1);
+        const float4 x = *reinterpret_cast<const float4*>(vf + key * STR + d);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t bg, sm;
+          split(xs[i], bg, sm);
+          vt_big[(d + i) * C::VT_STR + pos] = __uint_as_float(bg);
+          vt_small[(d + i) * C::VT_STR + pos] = __uint_as_float(sm);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    // a tile that masks every row of this warp is a no-op: skip drops it
+    if (skip && ((causal && k0 > hi) ||
+                 (window > 0 && k0 + BK - 1 <= lo - window)))
+      continue;
+    const bool edge = k0 + BK > s_valid || (causal && k0 + BK - 1 > lo) ||
+                      (window > 0 && k0 <= hi - window);
+    const uint32_t k_addr = smem_addr(kt + k_lane_off);
 
-    float sc[TM][TN];
+    // S = (q * scale) . k: sc[j] holds keys 8j + 2t, +1 of rows g, g + 8
+    float sc[C::NT][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qT[d * QSTR + ty * TM]);
-      const float qa[TM] = {qv.x, qv.y, qv.z, qv.w};
-      float kx[TN];
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) kx[j] = kT[d * KSTR + tx + 16 * j];
+    for (int kk = 0; kk < C::KQ; ++kk) {
+      uint32_t qw[QW];
+      if constexpr (C::QREG) {
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int e = 0; e < QW; ++e) qw[e] = qreg[kk][e];
+      } else {
+        q_frag(kk, qw);
+      }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) sc[i][j] = fmaf(qa[i], kx[j], sc[i][j]);
+      for (int j = 0; j < C::NT; j += 2) {
+        const int off = (j * 8 * STR + kk * KSTEP) * (int)sizeof(T);
+        uint32_t kb[4], ksm[4];
+        ldsm4(kb, k_addr + off);
+        if constexpr (C::PRESPLIT) {
+          ldsm4(ksm, ks_addr + off);
+        } else if constexpr (C::F32) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split(__uint_as_float(kb[e]), kb[e], ksm[e]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (C::F32) {
+            uint32_t ab[4], as[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ab[e] = qw[e];
+              as[e] = qw[4 + e];
+            }
+            mma_3xtf32(sc[j + h], ab, as, kb[2 * h], kb[2 * h + 1],
+                       ksm[2 * h], ksm[2 * h + 1]);
+          } else {
+            const uint32_t a[4] = {qw[0], qw[1], qw[2], qw[3]};
+            mma_bf16(sc[j + h], a, kb[2 * h], kb[2 * h + 1]);
+          }
+        }
+      }
     }
 
+    // online softmax; bit (4j + e) of keep: the element is attended
+    uint32_t keep = 0xffffffffu;
+    float mc[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float mc = NEG_INF;
+    for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        float x = sc[i][j];
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e];
+        if constexpr (!C::F32) x *= scale;
         if (cap > 0.f) x = cap * tanhf(x * inv_cap);
-        if (!attends(k0 + tx + 16 * j, qpos[i], s_valid, causal, window))
+        if (edge && !attends(k0 + 8 * j + 2 * t + (e & 1), qpos[e >> 1],
+                             s_valid, causal, window)) {
           x = NEG_INF;
-        sc[i][j] = x;
-        mc = fmaxf(mc, x);
+          keep &= ~(1u << (4 * j + e));
+        }
+        sc[j][e] = x;
+        mc[e >> 1] = fmaxf(mc[e >> 1], x);
       }
+    float mn[2], ps[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-      const float mn = fmaxf(m[i], mc);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p =
-            attends(k0 + tx + 16 * j, qpos[i], s_valid, causal, window)
-                ? expf(sc[i][j] - mn)
-                : 0.f;
-        pT[(tx + 16 * j) * QSTR + ty * TM + i] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      const float alpha = expf(m[i] - mn);
-      l[i] = alpha * l[i] + ps;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
-      m[i] = mn;
+    for (int i = 0; i < 2; ++i) {
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+      mn[i] = fmaxf(m[i], mc[i]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            (keep >> (4 * j + e)) & 1u ? expf(sc[j][e] - mn[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        ps[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+      alpha[i] = expf(m[i] - mn[i]);
+      l[i] = alpha[i] * l[i] + ps[i];
+      m[i] = mn[i];
+      if constexpr (!C::F32) {
+#pragma unroll
+        for (int n = 0; n < C::ND; ++n) {
+          o[n][2 * i] *= alpha[i];
+          o[n][2 * i + 1] *= alpha[i];
+        }
+      }
+    }
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&pT[c * QSTR + ty * TM]);
-      const float pa[TM] = {pv.x, pv.y, pv.z, pv.w};
-      float vx[TD];
+    // O += P . v
+    if constexpr (C::F32) {
+      // the tile's P.v goes into fresh accumulators, added to o once
+      // (o = o * alpha + tile, one fmaf): the tensor core truncates as it
+      // accumulates, which over hundreds of tiles drifts by ~1e-5; within
+      // one tile it stays at the plain version's rounding. k-step c =
+      // score tile c, keys permuted: A column t is key 2t, column t + 4
+      // key 2t + 1 (B rows t, t + 4: v rows 2t, 2t + 1)
+      constexpr int NG = C::ND < 8 ? C::ND : 8;   // output n-tiles at a time
+      uint32_t pb[C::NT][4], psm[C::NT][4];
 #pragma unroll
-      for (int j = 0; j < TD; ++j) vx[j] = vs[c * D + tx + 16 * j];
+      for (int c = 0; c < C::NT; ++c) {
+        split(sc[c][0], pb[c][0], psm[c][0]);
+        split(sc[c][2], pb[c][1], psm[c][1]);
+        split(sc[c][1], pb[c][2], psm[c][2]);
+        split(sc[c][3], pb[c][3], psm[c][3]);
+      }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int n0 = 0; n0 < C::ND; n0 += NG) {
+        float acc[NG][4];
 #pragma unroll
-        for (int j = 0; j < TD; ++j) acc[i][j] = fmaf(pa[i], vx[j], acc[i][j]);
+        for (int nn = 0; nn < NG; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C::NT; ++c) {
+          if constexpr (C::PRESPLIT) {
+#pragma unroll
+            for (int nn = 0; nn < NG; nn += 2) {
+              const int off = (8 * (n0 + nn) * C::VT_STR + 8 * c) * 4;
+              uint32_t vb[4], vsm[4];
+              ldsm4(vb, vtb_addr + off);
+              ldsm4(vsm, vts_addr + off);
+              mma_3xtf32(acc[nn], pb[c], psm[c], vb[0], vb[1], vsm[0],
+                         vsm[1]);
+              mma_3xtf32(acc[nn + 1], pb[c], psm[c], vb[2], vb[3], vsm[2],
+                         vsm[3]);
+            }
+          } else {
+            const float* v0 = reinterpret_cast<const float*>(vt) +
+                              (8 * c + 2 * t) * STR + g + 8 * n0;
+#pragma unroll
+            for (int nn = 0; nn < NG; ++nn) {
+              uint32_t bb0, bs0, bb1, bs1;
+              split(v0[8 * nn], bb0, bs0);
+              split(v0[STR + 8 * nn], bb1, bs1);
+              mma_3xtf32(acc[nn], pb[c], psm[c], bb0, bb1, bs0, bs1);
+            }
+          }
+        }
+#pragma unroll
+        for (int nn = 0; nn < NG; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[n0 + nn][e] = fmaf(o[n0 + nn][e], alpha[e >> 1], acc[nn][e]);
+      }
+    } else {
+      const uint32_t v_addr = smem_addr(
+          vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+          (lane >> 4) * 8);
+#pragma unroll
+      for (int c = 0; c < C::KP; ++c) {
+        const uint32_t a[4] = {pack_bf16(sc[2 * c][0], sc[2 * c][1]),
+                               pack_bf16(sc[2 * c][2], sc[2 * c][3]),
+                               pack_bf16(sc[2 * c + 1][0], sc[2 * c + 1][1]),
+                               pack_bf16(sc[2 * c + 1][2], sc[2 * c + 1][3])};
+#pragma unroll
+        for (int n = 0; n < C::ND; n += 2) {
+          uint32_t vb[4];
+          ldsm4_t(vb, v_addr + (16 * c * STR + 8 * n) * (int)sizeof(T));
+          mma_bf16(o[n], a, vb[0], vb[1]);
+          mma_bf16(o[n + 1], a, vb[2], vb[3]);
+        }
+      }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty * TM + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
     const int gi = g0 + r / bq;
     if (r >= rows || gi >= group || qpos[i] >= s) continue;
     const long long h = (long long)kvh * group + gi;
-    T* o = out + ((b * hq + h) * s + qpos[i]) * D;
+    T* orow = out + ((b * hq + h) * s + qpos[i]) * D + 2 * t;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < TD; ++j) store(o + tx + 16 * j, acc[i][j] / den);
+    for (int n = 0; n < C::ND; ++n)
+      store2(orow + 8 * n, o[n][2 * i] / den, o[n][2 * i + 1] / den);
   }
 }
 
@@ -229,19 +577,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    long long b, int hq, int hkv, long long s,
                    long long s_valid, int causal, int window, float scale,
                    float cap, float inv_cap, int skip, cudaStream_t stream) {
+  using C = Cfg<T, D>;
   const int group = hq / hkv;
-  const int gh = group > ROWS ? ROWS : group;
-  const int bq = ROWS / gh;
+  const int gh = group > C::ROWS ? C::ROWS : group;
+  const int bq = C::ROWS / gh;
   const int n_chunks = (group + gh - 1) / gh;
-  const long long n_qt = (s + bq - 1) / bq;
-  const size_t smem =
-      (size_t)(D * QSTR + D * KSTR + BK * D + BK * QSTR) * sizeof(float);
+  const long long n_x = (s + bq - 1) / bq * hkv * n_chunks;
+  if (n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)n_qt, (unsigned)(hkv * n_chunks), (unsigned)b);
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)n_x, 1u, (unsigned)b);
+  flash_fwd<T, D><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, s, s_valid,
       causal, window, scale, cap, inv_cap, skip, gh, bq, n_chunks);
@@ -282,6 +630,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               float inv_cap, int skip, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || s <= 0 || b <= 0)
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch<float>(d, q, k, v, out, b, hq, hkv, s, s_valid,

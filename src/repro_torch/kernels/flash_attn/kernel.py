@@ -7,7 +7,9 @@ package's Pallas ``flash_attention_bhsd``
 Layout (B, H, S, D), head-major, as the Pallas kernel takes it: q
 (B, Hq, S, D), k and v (B, Hkv, S, D), fp32 or bf16; fp32 math
 (online softmax with fp32 running max, rescale and denominator), output
-in q's dtype. Masks: causal, a sliding window (a key is seen iff
+in q's dtype. K6 computes both products on the tensor cores: fp32 as
+3xTF32 (each operand split into two TF32 parts, three products, fp32
+accumulation), bf16 as bf16 products with P rounded to bf16 for P.v. Masks: causal, a sliding window (a key is seen iff
 ``q - window < k <= q``) and the padded tail (keys ``k >= s_valid``
 are never attended); optional tanh softcap.
 
@@ -20,12 +22,13 @@ is no fallback. ``flash_attention_bhsd.launches`` counts K6's launches
 version and for ``skip_grid``: the plain version walks the same
 (q-block, k-block) tiles, in the same order per q-block, as the Pallas
 kernel's pair table. K6 takes its own tiles and ignores them: a block
-of 64 rows serves ``64 // group`` queries of every q-head of one KV
-head (``group = Hq / Hkv``; 64 heads at a time above 64), with 64-key
-tiles of K and V in shared memory, and computes its own k range from
-the masks (with ``skip=False``, every k-tile). Because the tiles
-differ, K6 and the plain version agree to rounding (rtol = atol =
-2e-5 in fp32), not bit for bit; ``skip=True`` and ``skip=False`` are
+of 128 rows (64 at D = 256) serves ``rows // group`` queries of every
+q-head of one KV head (``group = Hq / Hkv``; ``rows`` heads at a time
+above that), with 64-key tiles (32 at D = 256) of K and V in shared
+memory, and computes its own k range from the masks (with
+``skip=False``, every k-tile). Because the tiles and the products
+differ, K6 and the plain version agree to rounding (rtol = atol = 2e-5
+in fp32), not bit for bit; ``skip=True`` and ``skip=False`` are
 bit-identical on each side, since a fully masked tile adds exactly
 nothing.
 
@@ -239,6 +242,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             "aligned (K6 copies 16-byte chunks)")
     if not 0 < s_valid <= s:
         raise ValueError(f"flash_attention: s_valid {s_valid} outside "
                          f"(0, {s}]")

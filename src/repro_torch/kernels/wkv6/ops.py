@@ -33,9 +33,9 @@ class _Forward(torch.autograd.Function):
     def backward(ctx, *grads):
         raise NotImplementedError(
             "the WKV6 kernel is forward-only (the JAX package's Pallas "
-            "kernel has no backward pass either); rwkv training on the "
-            "card comes with a later slice, on the CPU it runs the plain "
-            "chunked scan")
+            "kernel has no backward pass either); an rwkv model trains "
+            "through the chunked scan, which models.rwkv.wkv_scan_for "
+            "picks whenever autograd records")
 
 
 def wkv6(r, k, v, log_w, u, *, state0=None, chunk: int = CHUNK) -> tuple:

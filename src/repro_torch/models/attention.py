@@ -150,7 +150,7 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
-               window: int = 0, dtype=torch.float32, device=None,
+               window: int = 0, dtype=torch.bfloat16, device=None,
                lead: tuple = ()) -> dict:
     """window > 0 -> ring buffer of ``window`` slots; else seq_len slots.
     ``lead`` prepends stacking dims (the scanned layers' n_rep)."""

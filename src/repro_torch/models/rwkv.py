@@ -10,8 +10,8 @@ current token:
 Prefill and training use the chunked parallel form ``wkv_chunked``
 (intra-chunk (C, C) products + the inter-chunk state carry), the oracle
 of the WKV6 kernel. ``time_mix`` runs the scan on K7 (through
-``kernels.wkv6.ops.wkv6``, forward only) for a CUDA tensor and on
-``wkv_chunked`` for a CPU one.
+``kernels.wkv6.ops.wkv6``, forward only) for a CUDA tensor when autograd
+records nothing, and on ``wkv_chunked`` otherwise (``wkv_scan_for``).
 Decode carries (S, token-shift tail) as the recurrent state and steps
 it with ``wkv_recurrent_step`` (plain torch, as in JAX).
 
@@ -157,6 +157,22 @@ def wkv_recurrent_step(r, k, v, log_w, u, state) -> tuple:
     return att + bonus, new_state
 
 
+def wkv_scan_for(*inputs):
+    """The WKV6 scan to run on these inputs (``None`` entries ignored).
+
+    K7 (``wkv_ops.wkv6``, forward-only) when they lie on the card and
+    autograd records nothing: grad mode is off, or no input requires
+    grad (prefill and serving). Otherwise the differentiable chunked
+    scan, JAX's own model path, so that a train step on the card runs as
+    on the CPU. Both compute one function (the chunked scan is K7's
+    oracle)."""
+    ts = [t for t in inputs if t is not None]
+    records = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    if ts[0].is_cuda and not records:
+        return wkv_ops.wkv6
+    return wkv_chunked
+
+
 def _out(p: dict, x: torch.Tensor, out: torch.Tensor, g: torch.Tensor
          ) -> torch.Tensor:
     b, s, d = x.shape
@@ -172,12 +188,8 @@ def time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     prev_x = None if state is None else state["prev_x"]
     s0 = None if state is None else state["wkv"]
     r, k, v, g, log_w = _rwkv_projections(p, cfg, x, _token_shift(x, prev_x))
-    # JAX's two scan paths compute one function (the chunked scan is the
-    # kernel's oracle): the card runs K7, which has no backward; the CPU
-    # runs the differentiable chunked scan, as JAX's model block does.
-    scan = wkv_ops.wkv6 if x.is_cuda else wkv_chunked
-    out, new_s = scan(r.float(), k.float(), v.float(), log_w,
-                      p["u"].float(), state0=s0)
+    args = (r.float(), k.float(), v.float(), log_w, p["u"].float())
+    out, new_s = wkv_scan_for(*args, s0)(*args, state0=s0)
     return _out(p, x, out, g), {"prev_x": x[:, -1].float(), "wkv": new_s}
 
 

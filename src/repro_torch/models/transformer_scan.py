@@ -175,7 +175,7 @@ def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                       seq_len: int, *, window: int = 0,
-                      dtype=torch.float32, device=None) -> dict:
+                      dtype=torch.bfloat16, device=None) -> dict:
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     if device is None:
         device = params["embed"].device

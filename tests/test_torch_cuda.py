@@ -411,7 +411,8 @@ def test_k7_refuses_bad_inputs_and_a_refused_launch_raises(card):
 def test_rwkv_prefill_on_the_card_runs_k7_and_matches_the_cpu(card):
     """Reduced rwkv6-3b: the prefill launches K7 once a layer and equals
     the CPU's plain chunked scan within 1e-5 (the model tests'
-    tolerance); a reduced rwkv block's backward on the card raises."""
+    tolerance); a train step's loss and gradients on the card run the
+    chunked scan (no K7 launch) and equal the CPU's within 1e-5."""
     from repro_torch import configs
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.train import steps
@@ -428,6 +429,12 @@ def test_rwkv_prefill_on_the_card_runs_k7_and_matches_the_cpu(card):
     assert wk.wkv6_bhsk.launches == mc.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
-    batch = {"tokens": tok[:, :32].to(card), "labels": tok[:, 1:33].to(card)}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        steps.value_and_grad(loss, gparams, batch)
+    batch = {"tokens": tok[:, :32], "labels": tok[:, 1:33]}
+    want_l, want_g = steps.value_and_grad(loss, params, batch)
+    wk.reset_launches()
+    got_l, got_g = steps.value_and_grad(
+        loss, gparams, {k: t.to(card) for k, t in batch.items()})
+    assert wk.wkv6_bhsk.launches == 0
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
+    for g, w in zip(pytree.tree_leaves(got_g), pytree.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)

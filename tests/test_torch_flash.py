@@ -108,6 +108,88 @@ def test_skip_is_bit_identical_to_full_grid(s, causal, window):
         tq, tk, tv, causal=causal, window=window).numpy(), **TOL)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` and K6's split of the
+    big part: add half of the 13 dropped bits to the magnitude, then
+    clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """fp32 with its 13 low bits dropped: what the tensor core reads of a
+    TF32 operand that was not rounded (K6's small part)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, mode):
+    """a @ b as the tensor cores compute it in each mode, fp32
+    accumulation: "3xtf32" is K6's split (big rounded, small truncated,
+    the small cross terms first), "tf32" a single TF32 product."""
+    if mode == "fp32":
+        return a @ b
+    ab, bb = _tf32(a), _tf32(b)
+    if mode == "tf32":
+        return ab @ bb
+    as_, bs = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _k6_emulated(q, k, v, *, causal, softcap, mode, block_k=64):
+    """K6's fp32 arithmetic over 64-key tiles (q scaled before the dot,
+    softcap, mask to NEG_INF, online softmax, acc * alpha + P.v) with
+    both products computed in ``mode``. q (B, Hq, S, D), k, v (B, Hkv,
+    S, D) with the heads repeated to the group."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    qs = q * (1.0 / np.sqrt(d))
+    m = torch.full((b, hq, s, 1), fk.NEG_INF)
+    l_ = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    qp = torch.arange(s)[:, None]
+    for k0 in range(0, s, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        logits = _product(qs, kt.transpose(-1, -2), mode)
+        if softcap > 0:
+            logits = softcap * torch.tanh(logits * (1.0 / softcap))
+        mask = (k0 + torch.arange(kt.shape[2]))[None] <= qp if causal \
+            else torch.ones((s, kt.shape[2]), dtype=torch.bool)
+        logits = torch.where(mask, logits, fk.NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(logits - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_ = alpha * l_ + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _product(p, vt, mode)
+        m = m_new
+    return acc / torch.clamp_min(l_, 1e-30)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0], ids=["plain", "softcap"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_3xtf32_products_keep_fp32_parity_and_one_tf32_pass_does_not(
+        d, softcap):
+    """The tolerance argument for K6's fp32 route, emulated on the CPU:
+    3xTF32 in both products (S = (q*scale).k and O += P.v) stays within
+    2e-5 of the plain version, at K6's tile; a single TF32 pass does
+    not, which is why the operands are split. Unit normals as in the
+    card's checks, S = 128, causal, two q-heads on one KV head."""
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(a.transpose(
+        0, 2, 1, 3))) for a in _qkv(1, 128, 2, 1, d, seed=d + int(softcap)))
+    want = fk.flash_attention_plain(tq, tk, tv, causal=True, window=0,
+                                    softcap=softcap, block_q=64,
+                                    block_k=64, s_valid=128)
+    kw = dict(causal=True, softcap=softcap)
+    torch.testing.assert_close(_k6_emulated(tq, tk, tv, mode="fp32", **kw),
+                               want, **TOL)
+    torch.testing.assert_close(_k6_emulated(tq, tk, tv, mode="3xtf32",
+                                            **kw), want, **TOL)
+    one = _k6_emulated(tq, tk, tv, mode="tf32", **kw)
+    assert not torch.allclose(one, want, **TOL)
+    assert float((one - want).abs().max()) > 1e-4
+
+
 def test_backward_raises_like_jax():
     """The kernel is forward-only: jax.grad raises, and so does a
     backward through the port's call (no silent gradient)."""

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.models import attention as jattn
 from repro.models import transformer_scan as jts
 from repro.train import steps as jsteps
 from repro_torch import configs, interop
 from repro_torch.core import pytree
+from repro_torch.models import attention as tattn
 from repro_torch.models import transformer_scan as tts
 from repro_torch.train import steps
 
@@ -74,6 +76,29 @@ def test_port_init_has_the_jax_tree(model):
     assert tts.pattern_segments(tmc) == jts.pattern_segments(jmc)
 
 
+def _dtype_name(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_decode_caches_default_to_the_jax_dtype(model, window):
+    """``init_decode_state`` and ``attention.init_cache`` called without
+    a dtype store K and V in JAX's default (bf16); the fp32 callers pass
+    it explicitly."""
+    jmc, tmc, jp, tp = model
+    jst = jts.init_decode_state(jp, jmc, 2, 8, window=window)
+    tst = tts.init_decode_state(tp, tmc, 2, 8, window=window)
+    jc = jattn.init_cache(jmc, 2, 8, window=window)
+    tc = tattn.init_cache(tmc, 2, 8, window=window)
+    for j, t in [(jst["scan"][0], tst["scan"][0]), (jc, tc)]:
+        for name in ("k", "v"):
+            assert _dtype_name(t[name]) == np.dtype(j[name].dtype).name \
+                == "bfloat16"
+    fp32 = tts.init_decode_state(tp, tmc, 2, 8, window=window,
+                                 dtype=torch.float32)
+    assert fp32["scan"][0]["k"].dtype == torch.float32
+
+
 @pytest.mark.parametrize("window", [0, 4])
 def test_decode_step_logits_match_jax(model, window):
     jmc, tmc, jp, tp = model
@@ -81,7 +106,8 @@ def test_decode_step_logits_match_jax(model, window):
     toks = _tokens(jmc, B, P)
     jst = jts.init_decode_state(jp, jmc, B, P + 4, window=window,
                                 dtype=jnp.float32)
-    tst = tts.init_decode_state(tp, tmc, B, P + 4, window=window)
+    tst = tts.init_decode_state(tp, tmc, B, P + 4, window=window,
+                                dtype=torch.float32)
     jstep = jax.jit(jsteps.make_serve_step(jmc, scan_layers=True))
     tstep = steps.make_serve_step(tmc)
     for i in range(P):
@@ -108,11 +134,13 @@ def test_bulk_prefill_matches_jax_and_is_token_by_token(model, window):
     jl, _ = jax.jit(jsteps.make_bulk_prefill(jmc, scan_layers=True))(
         jp, jst, jnp.asarray(toks))
     bulk = steps.make_bulk_prefill(tmc)
-    tst = tts.init_decode_state(tp, tmc, B, P + 3, window=window)
+    tst = tts.init_decode_state(tp, tmc, B, P + 3, window=window,
+                                dtype=torch.float32)
     tl, bst = bulk(tp, tst, torch.from_numpy(toks).long())
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     # within the port: bit-identical to feeding the tokens one by one
-    st = tts.init_decode_state(tp, tmc, B, P + 3, window=window)
+    st = tts.init_decode_state(tp, tmc, B, P + 3, window=window,
+                               dtype=torch.float32)
     step = steps.make_serve_step(tmc)
     for i in range(P):
         logits, st = step(tp, st,
@@ -129,10 +157,12 @@ def test_rows_keep_their_own_cursor(model):
     _, tmc, _, tp = model
     toks = torch.from_numpy(_tokens(tmc, 2, 5, seed=3)).long()
     step = steps.make_serve_step(tmc)
-    both = tts.init_decode_state(tp, tmc, 2, 8, window=4)
+    both = tts.init_decode_state(tp, tmc, 2, 8, window=4,
+                                 dtype=torch.float32)
     for i in range(5):
         lb, both = step(tp, both, {"tokens": toks[:, i:i + 1]})
-    solo = tts.init_decode_state(tp, tmc, 1, 8, window=4)
+    solo = tts.init_decode_state(tp, tmc, 1, 8, window=4,
+                                 dtype=torch.float32)
     for i in range(5):
         ls, solo = step(tp, solo, {"tokens": toks[1:, i:i + 1]})
     torch.testing.assert_close(ls[0], lb[1], rtol=1e-5, atol=1e-5)
@@ -149,7 +179,7 @@ def test_unported_norm_and_activation_raise(model):
         mc = dataclasses.replace(tmc, **change)
         with pytest.raises(NotImplementedError, match="not ported"):
             p = tts.init(mc, tts.generator(0))
-            st = tts.init_decode_state(p, mc, 1, 4)
+            st = tts.init_decode_state(p, mc, 1, 4, dtype=torch.float32)
             tts.decode_step(p, mc, {"tokens": torch.zeros((1, 1),
                                                           dtype=torch.long)},
                             st)

@@ -15,6 +15,7 @@ scan's state (a sum of outer products whose rounding follows its terms'
 magnitude, not the element's; the backward sums over every token).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -187,6 +188,41 @@ def test_time_mix_with_a_carried_state_matches_jax(cfgs, mixer, use_kernel):
     _state_close(tst2, jst2)
 
 
+@pytest.mark.parametrize("on_card,grad_mode,requires_grad,want", [
+    (True, False, True, "kernel"),     # serving: torch.no_grad
+    (True, True, False, "kernel"),     # a prefill of plain tensors
+    (True, True, True, "chunked"),     # a train step on the card
+    (False, False, False, "chunked"),
+    (False, True, True, "chunked"),
+])
+def test_wkv_scan_for_picks_the_chunked_scan_when_grad_is_recorded(
+        on_card, grad_mode, requires_grad, want):
+    """K7 is forward-only: it runs only on card tensors while autograd
+    records nothing; a recorded scan (training) takes the chunked scan
+    on either device, as JAX's model block always does. The inputs are
+    stand-ins with the two attributes the choice reads."""
+    ins = [types.SimpleNamespace(is_cuda=on_card, requires_grad=False)
+           for _ in range(5)]
+    ins[3].requires_grad = requires_grad
+    with torch.set_grad_enabled(grad_mode):
+        got = rwkv.wkv_scan_for(*ins, None)
+    assert got is {"kernel": rwkv.wkv_ops.wkv6,
+                   "chunked": rwkv.wkv_chunked}[want]
+
+
+def test_rwkv_decode_state_stays_fp32_under_the_bf16_default(cfgs,
+                                                             scanned):
+    """The cache dtype defaults to bf16, as JAX's; the recurrent state
+    is fp32 whatever it is, in both packages."""
+    jmc, tmc = cfgs
+    jp, tp = scanned
+    jst = jts.init_decode_state(jp, jmc, 2, 8)
+    tst = tts.init_decode_state(tp, tmc, 2, 8)
+    for name, leaf in tst["scan"][0].items():
+        assert leaf.dtype == torch.float32, name
+        assert np.dtype(jst["scan"][0][name].dtype) == np.float32, name
+
+
 @pytest.mark.parametrize("with_prev", [False, True])
 def test_channel_mix_matches_jax(cfgs, mixer, with_prev):
     jmc, tmc = cfgs
@@ -273,7 +309,7 @@ def test_decode_step_matches_jax_in_every_state_leaf(cfgs, scanned):
     B, P = 2, 9
     toks = _tokens(jmc, B, P, seed=11)
     jst = jts.init_decode_state(jp, jmc, B, P, dtype=jnp.float32)
-    tst = tts.init_decode_state(tp, tmc, B, P)
+    tst = tts.init_decode_state(tp, tmc, B, P, dtype=torch.float32)
     assert sorted(tst["scan"][0]) == ["prev_x", "prev_x_ffn", "wkv"]
     jstep = jax.jit(jsteps.make_serve_step(jmc, scan_layers=True))
     tstep = steps.make_serve_step(tmc)
@@ -293,10 +329,11 @@ def test_bulk_prefill_equals_token_by_token_and_jax(cfgs, scanned):
     B, P = 2, 11
     toks = _tokens(jmc, B, P, seed=12)
     bulk = steps.make_bulk_prefill(tmc)
-    lb, sb = bulk(tp, tts.init_decode_state(tp, tmc, B, P),
+    lb, sb = bulk(tp, tts.init_decode_state(tp, tmc, B, P,
+                                            dtype=torch.float32),
                   torch.from_numpy(toks))
     step = steps.make_serve_step(tmc)
-    st = tts.init_decode_state(tp, tmc, B, P)
+    st = tts.init_decode_state(tp, tmc, B, P, dtype=torch.float32)
     for i in range(P):
         ls, st = step(tp, st, {"tokens": torch.from_numpy(toks[:, i:i + 1])})
     assert torch.equal(lb, ls)
