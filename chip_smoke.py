@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
      against their plain versions on the card, bit for bit (payload,
      params, decoded values), at the full-width qwen1.5-0.5b geometry
      for bits 8/4/2 and on an unaligned multi-bucket buffer; CUDA-event
-     timings at the rq8 full-width shapes beside the bytes bound;
+     timings at the rq8 full-width shapes beside the bytes bound, K1 in
+     turns with torch.aminmax on the same inputs;
   3. serve: ServeConfig(reduced=False, slots=4, 8 requests) on fp32
      weights with TF32 off; 3 ticks, publish a fresh rq8 checkpoint,
      swap, run to completion; hot == cold tokens on a probe; a flipped
@@ -65,9 +66,10 @@ Phases (any failure raises and the script exits non-zero):
      flash. Then a reduced flash prefill on the card against the CPU;
   8. rwkv: K7 wkv6_bhsk against its plain version on the card (rtol =
      atol = 1e-4, out and state) at the prefill's shape of one layer
-     (B 1, H 40, S 32768, K 64) and at the JAX tests' shapes through
-     ops.wkv6 with a state0, in rwkv6-3b's own decay regime and the JAX
-     tests'; K7 and plain times beside the fp32 flop bound. Then
+     (B 1, H 40, S 32768, K 64), at the JAX tests' shapes and at 37
+     chunks through ops.wkv6 with a state0, in rwkv6-3b's own decay
+     regime and the JAX tests'; K7 and plain times beside the bound (the
+     bytes, against the 3xTF32 operations K7 runs). Then
      rwkv6-3b at full width and depth (3,089,290,240 parameters, fp32,
      TF32 off): make_prefill_step(scan_layers=True,
      logits_positions="last") on 1 x 32768 tokens, a warm-up and 3
@@ -77,6 +79,9 @@ Phases (any failure raises and the script exits non-zero):
      the Engine serving 8 requests on 4 slots with 0 dropped. Then a
      reduced prefill, train step (loss and gradients, on the chunked
      scan) and decode on the card against the CPU.
+
+Kernel times are medians of samples that each time a run of
+back-to-back calls (about SAMPLE_MS of work) between CUDA events.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before
 it holds the card's name and power limit, and the one before that the
@@ -99,6 +104,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 REPS = 20
+# work in one timing sample: a kernel shorter than this is launched back
+# to back within the sample
+SAMPLE_MS = 5.0
 FULL_ARCH = "qwen1.5-0.5b"
 # JAX's flat_geometry on jax.eval_shape(transformer_scan.init) at full
 # width: the port's tree must give the same wire geometry
@@ -177,10 +185,14 @@ RWKV_PREFILL = ("prefill_32k", 1, 32_768)
 # tolerance
 WKV_TOL = 1e-4
 # (B, H, S, K): the prefill's shape of one layer, then the JAX tests'
-# shapes (through ops.wkv6 with a state0; S = 100 is padded)
+# shapes (through ops.wkv6 with a state0; S = 100 is padded) and 37
+# chunks (two full groups of K7's two-level scan and a short one)
 WKV_PREFILL_SHAPE = (1, 40, 32_768, 64)
-WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 192, 64))
+WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 192, 64),
+                   (1, 4, 2368, 64))
 WKV_CHUNK = 64
+# K7 computes each product as three TF32 products (3xTF32)
+WKV_FP32_PRODUCTS = 3
 # the prefill's last-position logits (K7's chunked scan) against the
 # serving path's bulk prefill (the token-by-token recurrence) at full
 # width on 1 x 320 tokens (five chunks and a padded tail). Both are
@@ -191,6 +203,9 @@ WKV_CHUNK = 64
 # O(1-5); a dropped chunk, a wrong state carry or a wrong decay moves
 # them by O(0.1) or more
 RWKV_CHECK_LEN = 320
+# the 1 x 32,768 prefill's peak device memory with K7's earlier design
+# (one block per (b, h), no scratch), as this script measured it
+RWKV_ONE_BLOCK_PEAK = 17_462_810_624
 RWKV_LOGITS_TOL = 1e-3
 
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
@@ -257,19 +272,31 @@ def max_abs(a, b) -> float:
 
 
 def time_ms(fn, reps: int = REPS) -> float:
-    """Median over ``reps`` runs, each between two CUDA events (after a
-    warm-up run)."""
+    """Median time of one call over ``reps`` samples (after a warm-up
+    call). Each sample times a run of back-to-back calls, about
+    SAMPLE_MS of work, between two CUDA events, so a wrapper's host-side
+    launch overhead hides behind the queue as it does on a busy path;
+    the call count is set from one timed call."""
     import torch
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    n = max(1, min(64, int(SAMPLE_MS / max(start.elapsed_time(end), 1e-3))
+                   + 1))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     times.sort()
     return times[len(times) // 2]
 
@@ -368,11 +395,19 @@ def check_kernels(padded, total: int, key, *, bits: int, bucket_elems: int,
 
     if timed:
         elems = x3.numel() + (x4.numel() if nb > 1 else 0)
+        # K1 against torch.aminmax in turns (K1, aminmax, aminmax, K1)
+        k1 = [time_ms(lambda: kernel.minmax_bucketed(xr))]
+        lib = [time_ms(lambda: torch.aminmax(x2, dim=1)) for _ in range(2)]
+        k1.append(time_ms(lambda: kernel.minmax_bucketed(xr)))
         res["minmax_bucketed"].update(
-            ms=time_ms(lambda: kernel.minmax_bucketed(xr)),
+            ms=sum(k1) / 2, turns_ms=k1,
             plain_ms=time_ms(lambda: ref.minmax_bucketed(x2)),
-            library_ms=time_ms(lambda: torch.aminmax(x2, dim=1)),
+            library_ms=sum(lib) / 2, library_turns_ms=lib,
             bound_ms=(x2.numel() * 4 + nb * 8) / HBM_BYTES_PER_S * 1e3)
+        log(f"[kernels] K1 {sum(k1) / 2:.4f} ms ({k1[0]:.4f}, {k1[1]:.4f}) "
+            f"vs torch.aminmax {sum(lib) / 2:.4f} ms ({lib[0]:.4f}, "
+            f"{lib[1]:.4f}) on the same inputs: K1 <= aminmax: "
+            f"{sum(k1) <= sum(lib)}")
         res["encode_packed"].update(
             ms=time_ms(k2), plain_ms=time_ms(k2_plain), library_ms=None,
             bound_ms=(elems * 8 + elems // pack + nb * 8)
@@ -1578,17 +1613,22 @@ def wkv_draw(torch, rng, b: int, h: int, s: int, k: int, regime: str):
 def wkv_bound(b: int, h: int, s: int, k: int) -> dict:
     """The least time for K7's work on (B, H, S, K): per (b, h, chunk)
     the needed 4·C·K² flops (q_in @ S, the state update) + 2·C·(C-1)·K
-    (att and att @ v on the strict lower triangle) at the fp32 rate,
-    against r, k, v, log_w, u read and out and the final state written
-    once at the memory rate."""
+    (att and att @ v on the strict lower triangle), run as 3xTF32 (three
+    TF32 products each) at the dense TF32 rate, against r, k, v, log_w,
+    u read and out and the final state written once at the memory rate
+    (K7's own scratch is not counted). The fp32 term (the same flops at
+    the fp32 rate, K7's earlier CUDA-core arithmetic) is reported beside
+    it."""
     c = WKV_CHUNK
     flops = (4 * c * k * k + 2 * c * (c - 1) * k) * b * h * (s // c)
     nbytes = (5 * b * h * s * k + h * k + b * h * k * k) * 4
+    ops_ms = WKV_FP32_PRODUCTS * flops / TF32_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(flops / FP32_FLOPS_PER_S,
-                            nbytes / HBM_BYTES_PER_S) * 1e3,
-            "bound_by": ("operations" if flops / FP32_FLOPS_PER_S >=
-                         nbytes / HBM_BYTES_PER_S else "bytes")}
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "fp32_operations_ms": flops / FP32_FLOPS_PER_S * 1e3}
 
 
 def wkv_close(torch, got, want, what: str) -> float:
@@ -1869,6 +1909,7 @@ def rwkv_phase(torch) -> dict:
     of the kernels line is K7 at the prefill's shape, model decays."""
     from repro_torch import configs
     from repro_torch.core import pytree
+    from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.models import transformer_scan
 
     t0 = time.perf_counter()
@@ -1888,14 +1929,20 @@ def rwkv_phase(torch) -> dict:
     k7 = dict(next(g for g in geoms if g["shape"] == list(WKV_PREFILL_SHAPE)
                    and g["regime"] == "model"))
     k7["max_abs_err"] = max(g["max_abs_err"] for g in geoms)
+    b, h, s, k = WKV_PREFILL_SHAPE
     pre.update(params=n_params, allocated_before_init=held,
                k7_ms=k7["ms"],
-               k7_share=k7["ms"] * RWKV_LAYERS / pre["median_ms"])
+               k7_share=k7["ms"] * RWKV_LAYERS / pre["median_ms"],
+               k7_group_chunks=wk.GROUP_CHUNKS,
+               k7_scratch_bytes=wk.scratch_bytes(b, h, s, k))
     log(f"[rwkv] prefill {pre['batch']} x {pre['seq']}: median "
         f"{pre['median_ms']:.1f} ms of {[round(t, 1) for t in pre['prefill_ms']]}"
         f", {pre['tokens_per_s']:.1f} tokens/s, K7 {k7['ms']:.3f} ms x "
         f"{RWKV_LAYERS} = {100 * pre['k7_share']:.1f} % of the prefill, "
-        f"peak {pre['max_memory_allocated']} B; " + json.dumps(pre))
+        f"K7 groups of G = {wk.GROUP_CHUNKS} chunks with "
+        f"{pre['k7_scratch_bytes']} B of scratch a layer, peak "
+        f"{pre['max_memory_allocated']} B (the one-block-per-(b, h) K7: "
+        f"{RWKV_ONE_BLOCK_PEAK} B); " + json.dumps(pre))
     check = rwkv_vs_decode(torch, params, cfg, seed=42)
     log(f"[rwkv] prefill vs bulk prefill (decode) logits on 1 x "
         f"{RWKV_CHECK_LEN}: max abs err {check['logits_max_abs_err']:.3g} "

@@ -70,33 +70,67 @@ __device__ __forceinline__ void block_minmax(float& lo, float& hi) {
 // minmax_bucketed (and the range statistics of encode_packed[_bucketed]).
 // The TPU kernel carried the running range across a sequential grid in
 // its output block; blocks here run in no order, so each block reduces
-// its strided share of one bucket to a partial (lo, hi) and a second,
-// small launch folds a bucket's partials. min and max are exact, so the
-// order of reduction cannot change the result.
-// Bound: bytes — reads B * cap * 4 bytes once.
+// a contiguous slice of one bucket to a partial (lo, hi), and the last
+// block of a bucket to finish folds the bucket's partials in the same
+// launch: each block publishes its partial, __threadfence, then takes a
+// ticket (atomicAdd on the bucket's counter); the block that draws the
+// last ticket reads every partial and resets the counter to 0, so the
+// next call starts clean without a memset. min and max are exact, so
+// the order of reduction cannot change the result.
+// Bound: bytes — reads B * cap * 4 bytes once. Each thread keeps four
+// 16-byte loads in flight (a bucket is R x 512 floats, so its rows are
+// 16-byte aligned when the base is; the wrapper refuses a base that is
+// not); each block reads a contiguous slice, and the grid is sized to
+// four waves of 8 blocks an SM over all buckets (k1_blocks).
 // ---------------------------------------------------------------------------
-__global__ void minmax_partial_kernel(const float* __restrict__ x,
-                                      float2* __restrict__ partial,
-                                      long long cap) {
-  const long long b = blockIdx.y;
-  const float* xb = x + b * cap;
-  float lo = INFINITY, hi = -INFINITY;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < cap;
-       i += (long long)gridDim.x * kThreads) {
-    const float v = xb[i];
-    lo = nan_min(lo, v);
-    hi = nan_max(hi, v);
-  }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) partial[b * gridDim.x + blockIdx.x] = make_float2(lo, hi);
+constexpr int kMinmaxUnroll = 4;      // 16-byte loads in flight a thread
+constexpr int kBlocksPerSM = 8;       // 8 x 256 threads fill an SM
+constexpr int kSMs = 132;
+
+__device__ __forceinline__ void fold4(float& lo, float& hi, float4 v) {
+  lo = nan_min(nan_min(lo, v.x), nan_min(v.y, nan_min(v.z, v.w)));
+  hi = nan_max(nan_max(hi, v.x), nan_max(v.y, nan_max(v.z, v.w)));
 }
 
-__global__ void minmax_final_kernel(const float2* __restrict__ partial,
-                                    float* __restrict__ out, int nblk) {
-  const long long b = blockIdx.x;
+__global__ void __launch_bounds__(kThreads)
+minmax_kernel(const float4* __restrict__ x, float2* __restrict__ partial,
+              unsigned* __restrict__ ticket, float* __restrict__ out,
+              long long n4) {
+  const long long b = blockIdx.y;
+  const unsigned nblk = gridDim.x;
+  const float4* xb = x + b * n4;
+  // a contiguous slice of the bucket, its start on a 512-byte boundary
+  const long long begin = ((long long)blockIdx.x * n4 / nblk) & ~31LL;
+  const long long end =
+      blockIdx.x + 1 == nblk ? n4
+                             : (((long long)blockIdx.x + 1) * n4 / nblk) & ~31LL;
+  const long long step = (long long)kThreads * kMinmaxUnroll;
   float lo = INFINITY, hi = -INFINITY;
-  for (int i = threadIdx.x; i < nblk; i += kThreads) {
-    const float2 p = partial[b * nblk + i];
+  for (long long i = begin + threadIdx.x; i < end; i += step) {
+    float4 v[kMinmaxUnroll];
+#pragma unroll
+    for (int u = 0; u < kMinmaxUnroll; ++u) {
+      // past the slice, x[i] again: a repeated element moves no extreme
+      const long long j = i + (long long)u * kThreads;
+      v[u] = __ldg(xb + (j < end ? j : i));
+    }
+#pragma unroll
+    for (int u = 0; u < kMinmaxUnroll; ++u) fold4(lo, hi, v[u]);
+  }
+  block_minmax(lo, hi);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partial[b * nblk + blockIdx.x] = make_float2(lo, hi);
+    __threadfence();
+    last = atomicAdd(ticket + b, 1u) == nblk - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  lo = INFINITY;
+  hi = -INFINITY;
+  for (unsigned i = threadIdx.x; i < nblk; i += kThreads) {
+    const float2 p = __ldcg(partial + b * nblk + i);
     lo = nan_min(lo, p.x);
     hi = nan_max(hi, p.y);
   }
@@ -104,7 +138,20 @@ __global__ void minmax_final_kernel(const float2* __restrict__ partial,
   if (threadIdx.x == 0) {
     out[2 * b] = lo;
     out[2 * b + 1] = hi;
+    ticket[b] = 0;
   }
+}
+
+// K1's blocks along one bucket of n4 float4s: four waves of
+// kBlocksPerSM blocks on every SM across all buckets (fewer when the
+// buckets are small), at least one block per bucket.
+unsigned k1_blocks(long long n4, long long n_buckets) {
+  const long long slots = 4LL * kSMs * kBlocksPerSM;
+  long long want = slots / (n_buckets > 0 ? n_buckets : 1);
+  const long long most = (n4 + kThreads * kMinmaxUnroll - 1) /
+                         (kThreads * kMinmaxUnroll);
+  if (want > most) want = most;
+  return (unsigned)(want < 1 ? 1 : want);
 }
 
 // ---------------------------------------------------------------------------
@@ -359,24 +406,30 @@ unsigned blocks_per_bucket(long long elems, long long n_buckets) {
 
 extern "C" {
 
-// x: (B, cap) fp32; partial: (B, nblk) float2 scratch; out: (B, 2) fp32.
-int quant_minmax_bucketed(const void* x, void* partial, void* out,
-                          long long n_buckets, long long cap, int nblk,
-                          void* stream) {
-  if (n_buckets < 1 || n_buckets > 65535 || cap < 1 || nblk < 1)
+// x: (B, cap) fp32, 16-byte aligned, cap a multiple of 4; partial:
+// (B, nblk) float2 scratch, nblk = quant_k1_blocks(B, cap); ticket: B
+// zeroed uint32 counters (left zeroed); out: (B, 2) fp32. One launch.
+int quant_minmax_bucketed(const void* x, void* partial, void* ticket,
+                          void* out, long long n_buckets, long long cap,
+                          int nblk, void* stream) {
+  if (n_buckets < 1 || n_buckets > 65535 || cap < 4 || cap % 4 != 0 ||
+      nblk < 1 || (reinterpret_cast<uintptr_t>(x) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  minmax_partial_kernel<<<dim3(nblk, (unsigned)n_buckets), kThreads, 0, s>>>(
-      (const float*)x, (float2*)partial, cap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  minmax_final_kernel<<<(unsigned)n_buckets, kThreads, 0, s>>>(
-      (const float2*)partial, (float*)out, nblk);
+  minmax_kernel<<<dim3(nblk, (unsigned)n_buckets), kThreads, 0, s>>>(
+      (const float4*)x, (float2*)partial, (unsigned*)ticket, (float*)out,
+      cap / 4);
   return (int)cudaGetLastError();
 }
 
 // Blocks per bucket K1 launches for a bucket of cap elements (the
 // wrapper sizes the partial scratch with it).
+int quant_k1_blocks(long long n_buckets, long long cap) {
+  return (int)k1_blocks(cap / 4, n_buckets);
+}
+
+// Blocks per bucket of K5's min/max partials for a bucket of cap
+// elements (the wrapper sizes K5's partial scratch with it).
 int quant_minmax_blocks(long long n_buckets, long long cap) {
   return (int)blocks_per_bucket(cap, n_buckets);
 }

@@ -39,6 +39,7 @@ LIBRARY = nvcc.BUILD_DIR / "libquant.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_ticket_bufs: dict = {}
 
 
 def build(*, force: bool = False) -> Path:
@@ -53,7 +54,9 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.quant_minmax_bucketed.argtypes = [vp, vp, vp, ll, ll, i, vp]
+            lib.quant_minmax_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i,
+                                                  vp]
+            lib.quant_k1_blocks.argtypes = [ll, ll]
             lib.quant_minmax_blocks.argtypes = [ll, ll]
             lib.quant_encode_packed.argtypes = [vp, vp, vp, vp, ll, ll, i,
                                                 vp]
@@ -61,7 +64,8 @@ def _load() -> ctypes.CDLL:
             lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i, vp]
             lib.quant_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp,
                                                     vp, ll, ll, i, i, vp]
-            for fn in (lib.quant_minmax_bucketed, lib.quant_minmax_blocks,
+            for fn in (lib.quant_minmax_bucketed, lib.quant_k1_blocks,
+                       lib.quant_minmax_blocks,
                        lib.quant_encode_packed, lib.quant_decode_packed,
                        lib.quant_qdq_bucketed, lib.quant_decode_add_encode):
                 fn.restype = ctypes.c_int
@@ -122,8 +126,21 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """K1's per-bucket ticket counters on ``device``, at least ``n``:
+    zeroed when made, and left zeroed by every K1 launch (its last block
+    of a bucket resets the bucket's counter)."""
+    with _lock:
+        t = _ticket_bufs.get(device)
+        if t is None or t.numel() < n:
+            t = torch.zeros((n,), dtype=torch.int32, device=device)
+            _ticket_bufs[device] = t
+        return t
+
+
 def minmax_bucketed(x3: torch.Tensor) -> torch.Tensor:
-    """K1: (B, R, 512) fp32 bucket view -> (B, 2) fp32 [lo, hi]."""
+    """K1: (B, R, 512) fp32 bucket view -> (B, 2) fp32 [lo, hi]. One
+    CUDA launch; a CUDA input must be 16-byte aligned."""
     if x3.dim() != 3 or x3.shape[2] != LANES:
         raise ValueError(f"minmax_bucketed: need (B, R, {LANES}), got "
                          f"{tuple(x3.shape)}")
@@ -132,13 +149,16 @@ def minmax_bucketed(x3: torch.Tensor) -> torch.Tensor:
         return torch.stack([lo, hi], dim=1)
     b, r, _ = x3.shape
     _require(x3, "minmax_bucketed x", torch.float32, (b, r, LANES), x3.device)
+    if x3.data_ptr() % 16:
+        raise ValueError("minmax_bucketed x: must be 16-byte aligned")
     lib = _load()
     cap = r * LANES
-    nblk = lib.quant_minmax_blocks(b, cap)
+    nblk = lib.quant_k1_blocks(b, cap)
     partial = torch.empty((b, nblk, 2), dtype=torch.float32,
                           device=x3.device)
     out = torch.empty((b, 2), dtype=torch.float32, device=x3.device)
     _check(lib.quant_minmax_bucketed(x3.data_ptr(), partial.data_ptr(),
+                                     _tickets(x3.device, b).data_ptr(),
                                      out.data_ptr(), b, cap, nblk,
                                      _stream()), "minmax_bucketed")
     minmax_bucketed.launches += 1

@@ -16,9 +16,13 @@ started from a zero state. Per chunk of C = 64 steps, in order:
 Dispatch follows the tensor: a CPU tensor takes the plain version; a
 CUDA tensor launches K7 on PyTorch's current stream or raises — there
 is no fallback. K7 takes C = 64 and K in {32, 64}. ``wkv6_bhsk.launches``
-counts K7's launches (``reset_launches`` zeroes it). K7 sums in another
-order than the plain version (its own cumsum, per-thread dot products):
-the two agree to rounding, not bit for bit.
+counts K7's calls (one a call, whatever the CUDA launches of its three
+passes; ``reset_launches`` zeroes it). K7 runs a two-level chunk scan:
+groups of ``GROUP_CHUNKS`` chunks scan from zero, an elementwise scan
+over the groups gives each group's entry state, and the groups compute
+their outputs from it; its products run on the tensor cores as 3xTF32,
+its cumsum as a warp-shuffle scan. It sums in another order than the
+plain version: the two agree to rounding, not bit for bit.
 
 The library is built by ``kernels.nvcc`` at first use, never at import.
 """
@@ -35,6 +39,9 @@ from repro_torch.kernels import nvcc
 
 CHUNK = 64
 HEAD_DIMS = (32, 64)
+# chunks a group of K7's two-level scan holds (16 beat 4 and 8 in the
+# probes on the card, PERF.md)
+GROUP_CHUNKS = 16
 SOURCE = nvcc.CSRC / "wkv6.cu"
 LIBRARY = nvcc.BUILD_DIR / "libwkv6.so"
 
@@ -54,8 +61,8 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.wkv6_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i, ll,
-                                     i, vp]
+            lib.wkv6_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll,
+                                     i, ll, i, i, vp]
             lib.wkv6_fwd.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -130,16 +137,32 @@ def wkv6_bhsk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"wkv6: {name} must be contiguous and 16-byte "
                              "aligned")
+    group = GROUP_CHUNKS
+    n_groups = -(-(s // CHUNK) // group)
     out = torch.empty_like(r)
     state = torch.empty((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    # the groups' local states (then entry states) and decays
+    lstate = torch.empty((b, h, n_groups, dk, dk), dtype=torch.float32,
+                         device=r.device)
+    dec = torch.empty((b, h, n_groups, dk), dtype=torch.float32,
+                      device=r.device)
     err = _load().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), out.data_ptr(), state.data_ptr(), b, h, s, dk,
+        u.data_ptr(), out.data_ptr(), state.data_ptr(), lstate.data_ptr(),
+        dec.data_ptr(), b, h, s, dk, group,
         torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6: CUDA launch failed with error {err}")
     wkv6_bhsk.launches += 1
     return out, state
+
+
+def scratch_bytes(b: int, h: int, s: int, dk: int,
+                  group: Optional[int] = None) -> int:
+    """Bytes of the scratch K7 allocates for one call: the groups' K x K
+    states and K decays, fp32."""
+    n_groups = -(-(s // CHUNK) // (group or GROUP_CHUNKS))
+    return b * h * n_groups * (dk * dk + dk) * 4
 
 
 def reset_launches() -> None:

@@ -150,6 +150,34 @@ def test_wrappers_refuse_bad_cuda_inputs(card):
                             torch.zeros((2, 2)), bits=8)         # CPU params
 
 
+def test_k1_bit_equal_on_nan_and_inf_buckets_over_calls_of_two_sizes(card):
+    """K1 against its plain version bit for bit (NaN at the same places)
+    on buckets holding NaN, +Inf and -Inf, in two calls of different
+    bucket counts and then the first again: each call is one launch, and
+    the ticket counters its last blocks reset leave the next call
+    right."""
+    from repro_torch.kernels.quant import ref
+    g = torch.Generator().manual_seed(11)
+    for nb, r in ((5, 64), (111, 3), (5, 64)):
+        x = torch.randn((nb, r, 512), generator=g)
+        x[0, r // 2, 7] = float("nan")
+        x[1, r - 1, 511] = float("inf")
+        x[2, 0, 0] = float("-inf")
+        x[3, 1, 3] = float("inf")
+        x[3, 0, 9] = float("-inf")
+        kernel.reset_launches()
+        got = kernel.minmax_bucketed(x.to(card))
+        assert kernel.minmax_bucketed.launches == 1
+        lo, hi = ref.minmax_bucketed(x)
+        assert _same_bits(got, torch.stack([lo, hi], dim=1))
+
+
+def test_k1_refuses_an_unaligned_input(card):
+    buf = torch.zeros(2 * 512 + 1, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel.minmax_bucketed(buf[1:].view(2, 1, 512))
+
+
 def test_serving_on_the_card_swaps_and_matches_a_cold_start(card):
     cfg = serve.ServeConfig(slots=2, max_len=32, prompt_len=6, n_requests=3,
                             mixed_gen=(3, 5), seed=1)
@@ -367,6 +395,42 @@ def test_k7_matches_the_cpu_plain_version(card, b, h, s, dk, regime):
     torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("b,h,s,dk,regime", [
+    (1, 3, 64, 64, "model"),           # one chunk
+    (1, 4, 64 * 37, 64, "tests"),      # two full groups and a short one
+    (1, 2, 64 * 37, 32, "model"),
+    (1, 40, 8192, 64, "model"),        # rwkv6-3b's heads, 128 chunks
+])
+def test_k7_two_level_scan_matches_plain_across_groups(card, b, h, s, dk,
+                                                       regime):
+    """K7 (groups of GROUP_CHUNKS chunks, the scan over the groups)
+    against its plain version on the card, out and final state within
+    1e-4, at one chunk, at a chunk count that is no multiple of the
+    group size, and at rwkv6-3b's 40 heads."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    x = [t.to(card) for t in _wkv(b, h, s, dk, seed=s + dk, regime=regime)[:5]]
+    wk.reset_launches()
+    got_o, got_s = wk.wkv6_bhsk(*x)
+    assert wk.wkv6_bhsk.launches == 1
+    want_o, want_s = wk.wkv6_plain(*x, chunk=wk.CHUNK)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_k7_back_to_back_calls_of_different_shapes(card):
+    """Two K7 calls of different shapes and group counts, queued without
+    a sync between them, both equal their plain versions: no scratch or
+    state of one call leaks into the other."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    xa = [t.to(card) for t in _wkv(1, 8, 64 * 40, 64, seed=1)[:5]]
+    xb = [t.to(card) for t in _wkv(2, 3, 64 * 5, 32, seed=2, regime="model")[:5]]
+    got = [wk.wkv6_bhsk(*xa), wk.wkv6_bhsk(*xb)]
+    for x, (go, gs) in zip((xa, xb), got):
+        wo, ws = wk.wkv6_plain(*x, chunk=wk.CHUNK)
+        torch.testing.assert_close(go, wo, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-4)
+
+
 def test_k7_entry_point_with_padding_and_state0(card):
     """The public (B, S, H, K) entry point at S = 100 (padded to 128)
     with a state0 folded in: one K7 launch, equal to the CPU path."""
@@ -396,7 +460,7 @@ def test_k7_refuses_bad_inputs_and_a_refused_launch_raises(card):
     with pytest.raises(ValueError, match="contiguous"):
         wk.wkv6_bhsk(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                      lw, u)
-    # gridDim.y = B above 65,535: the launch is refused and raises
+    # gridDim.z = B above 65,535: the launch is refused and raises
     z = [torch.zeros((70_000, 1, 64, 32), device=card) for _ in range(4)]
     with pytest.raises(RuntimeError, match="launch failed"):
         wk.wkv6_bhsk(*z, torch.zeros((1, 32), device=card))
