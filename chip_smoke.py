@@ -37,18 +37,27 @@ Phases (any failure raises and the script exits non-zero):
      step time, tokens/s, peak memory and a breakdown of the step; the
      trained state through save_state / load_state bit for bit; and one
      reduced step on the card against the CPU;
-  6. ring: K5 decode_add_encode_bucketed against its plain version and
-     against K3 -> add -> K1 -> K2 on the card, bit for bit, at the
-     full-width repro-100m partition geometry (N = 4) for bits 8/4/2, on
-     a multi-bucket buffer whose last bucket is short, on an unaligned
-     buffer (which takes the composition, as in the JAX package) and on
-     buckets holding Inf and NaN; CUDA-event times at rq4. Then
+  6. ring: the device Threefry (K5's draws) against prng.random_bits
+     and prng.uniform bit for bit over 4Mi counters from 0, across 2**24
+     and up to 2**32; K5 decode_add_encode_bucketed, one call over a hop
+     of 4 workers, against its keyed plain version (prng draws, then the
+     TPU kernel's function), against K3 -> add -> K1 -> K2 on the same
+     draws and against 4 one-worker hops through decode_add_encode_flat,
+     bit for bit, at the full-width repro-100m partition geometry (N = 4)
+     for bits 8/4/2, on partitions of several buckets whose last bucket is
+     short, and on buckets holding Inf and NaN; an unaligned buffer takes
+     the composition, as in the JAX package; a hop of 9 workers, and one
+     of 300 buckets a worker, past one launch's argument block (one
+     call); CUDA-event times at rq4 beside the plain version, the
+     composition and the bound (bytes, or the Threefry's integer
+     instructions counted in the SASS per pipe at the card's pipe rates,
+     whichever is larger). Then
      parallel.run_distributed with CSGDRingExchange(rq4) over 4 workers
      stacked on the card, full-width repro-100m, plain SGD, 5 steps:
      finite loss at the mean iterate, consensus exactly 0 at every step,
-     24 K5 launches a step, comm bytes from the geometry; step time,
-     tokens/s, peak memory and a breakdown. Then a reduced ring exchange
-     on the card against the CPU, bit for bit;
+     3 K5 launches a step (one call, one count, a hop), comm bytes from the geometry; step
+     time, tokens/s, peak memory and a breakdown. Then a reduced ring
+     exchange on the card against the CPU, bit for bit;
   7. prefill: K6 flash_attention_bhsd against its plain version on the
      card at S = 8192 (rtol = atol = 2e-5; bf16 0.05) at the attention
      geometries of qwen1.5-0.5b, granite-8b, grok-1 (softcap 30),
@@ -93,6 +102,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,6 +113,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+SMS = 132                          # H100 SXM streaming multiprocessors
+# The SASS opcodes of 32-bit integer instructions (the device Threefry's
+# count) by the pipe that runs them on Hopper: the integer ALU pipe, and
+# the FMA pipe, which runs the integer multiply-adds the compiler also
+# uses for adds and moves. Each pipe has 64 lanes an SM a clock, and an
+# SM dispatches 128 instructions a clock (4 schedulers x one warp).
+INT32_ALU_OPCODES = frozenset({"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL",
+                               "SHR", "LEA", "PRMT", "IABS", "IMNMX",
+                               "ISETP", "SEL"})
+INT32_FMA_OPCODES = frozenset({"IMAD", "IMUL"})
+PIPE_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
 REPS = 20
 # work in one timing sample: a kernel shorter than this is launched back
 # to back within the sample
@@ -217,8 +239,7 @@ KERNELS = {
     "encode_packed": (f"{QUANT_TPU}:203", QUANT_SOURCE, "bytes"),
     "decode_packed": (f"{QUANT_TPU}:394", QUANT_SOURCE, "bytes"),
     "qdq_bucketed": (f"{QUANT_TPU}:187", QUANT_SOURCE, "bytes"),
-    "decode_add_encode_bucketed": (f"{QUANT_TPU}:349", QUANT_SOURCE,
-                                   "bytes"),
+    "decode_add_encode_bucketed": (f"{QUANT_TPU}:349", QUANT_SOURCE, None),
     "flash_attention_bhsd": ("src/repro/kernels/flash_attn/kernel.py:143",
                              "src/repro_torch/csrc/flash_attn.cu",
                              "operations"),
@@ -925,114 +946,231 @@ def train_cross_device_check(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def dae_parts(pay, par, loc, key, *, bits: int, bucket_elems: int):
-    """The (payload, params, x4, u4) of K5's head and tail launches over
-    one granule-aligned flat message, as decode_add_encode_flat cuts
-    them."""
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sass_opcodes(library) -> dict:
+    """Function name -> the opcodes of its SASS (cuobjdump -sass)."""
+    from repro_torch.kernels import nvcc
+    tool = Path(nvcc.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                funcs[name].append(m.group(1).split(".")[0])
+    return funcs
+
+
+def threefry_int_ops() -> dict:
+    """The device Threefry's 32-bit integer instructions per element,
+    counted in the built SASS: the check kernel that hashes one counter a
+    thread (threefry_kernel<1>) less the same kernel writing the counter
+    itself (threefry_kernel<0>), by pipe. ``clocks_per_element`` is the
+    busiest of the ALU pipe, the FMA pipe and the dispatch slots, in SM
+    clocks (one lane's share)."""
+    from repro_torch.kernels.quant import kernel
+
+    funcs = sass_opcodes(kernel.LIBRARY)
+    ops = INT32_ALU_OPCODES | INT32_FMA_OPCODES
+
+    def ops_of(mode: int) -> list:
+        names = [n for n in funcs if f"threefry_kernelILi{mode}E" in n]
+        if len(names) != 1:
+            raise AssertionError(f"threefry_kernel<{mode}> in the SASS: "
+                                 f"{names}")
+        return [op for op in funcs[names[0]] if op in ops]
+
+    hashed, plain = ops_of(1), ops_of(0)
+    by_op = {op: hashed.count(op) - plain.count(op)
+             for op in sorted(set(hashed))}
+    alu = sum(c for op, c in by_op.items() if op in INT32_ALU_OPCODES)
+    fma = sum(c for op, c in by_op.items() if op in INT32_FMA_OPCODES)
+    if alu + fma < 40:
+        raise AssertionError(f"{alu + fma} integer instructions for 20 "
+                             f"rounds: {by_op}")
+    clocks = max(alu / PIPE_LANES_PER_SM, fma / PIPE_LANES_PER_SM,
+                 (alu + fma) / DISPATCH_LANES_PER_SM)
+    return {"per_element": alu + fma, "alu": alu, "fma": fma,
+            "clocks_per_element": clocks,
+            "bound_by": ("alu pipe" if clocks == alu / PIPE_LANES_PER_SM
+                         else "fma pipe" if clocks == fma / PIPE_LANES_PER_SM
+                         else "dispatch"),
+            "by_opcode": by_op}
+
+
+def threefry_check(torch) -> None:
+    """The card's Threefry (K5's draws, csrc/threefry.cuh) against
+    prng.random_bits / prng.uniform, bit for bit: 4Mi counters from 0
+    under three keys, 4Mi across 2**24 and 4Mi up to 2**32."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import kernel
+
+    n = 1 << 22
+    for seed in (0, 1, 12345):
+        key = prng.PRNGKey(seed)
+        if not bits_equal(kernel.threefry(key, 0, n, device="cuda"),
+                          prng.random_bits(key, (n,), device="cuda")):
+            raise AssertionError(f"device threefry bits != prng (seed {seed})")
+        if not bits_equal(kernel.threefry(key, 0, n, device="cuda",
+                                          unit=True),
+                          prng.uniform(key, (n,), device="cuda")):
+            raise AssertionError(f"device uniforms != prng (seed {seed})")
+    key = prng.fold_in(prng.PRNGKey(9), 3)
+    want = prng.random_bits(key, ((1 << 24) + n // 2,), device="cuda")
+    if not bits_equal(kernel.threefry(key, (1 << 24) - n // 2, n,
+                                      device="cuda"), want[-n:]):
+        raise AssertionError("device threefry != prng across 2**24")
+    del want
+    lo = torch.arange((1 << 32) - n, 1 << 32, dtype=torch.int64,
+                      device="cuda")
+    y0, y1 = prng.threefry2x32(*prng.key_words(key), torch.zeros_like(lo),
+                               lo)
+    if not bits_equal(kernel.threefry(key, (1 << 32) - n, n, device="cuda"),
+                      y0 ^ y1):
+        raise AssertionError("device threefry != prng below 2**32")
+    log("[ring] device Threefry == prng.random_bits and prng.uniform bit "
+        "for bit: 4Mi counters from 0 under 3 keys, 4Mi across 2**24, 4Mi "
+        "up to 2**32")
+
+
+def hop_inputs(n: int, part: int, seed: int, *, bits: int,
+               bucket_elems: int, nonfinite: bool = False):
+    """One reduce-scatter hop of n workers on the card, cut as the ring
+    cuts it: stacked slices (n, n, part), worker i's first message
+    encodes its own slice (i, i); at the hop worker i receives worker
+    i - 1's message and adds its slice (i, i - 1) under its own key.
+    Returns the hop's (payloads, params, locals_, keys), views all."""
     from repro_torch.core import prng
     from repro_torch.kernels.quant import ops
-
-    total = loc.numel()
-    pack, cap, nb, rows_b, rows_kept = ops.flat_geometry(
-        total, bits=bits, bucket_elems=bucket_elems)
-    head_rows, head_elems = (nb - 1) * rows_b, (nb - 1) * cap
-    rt = rows_kept - head_rows
-    parts = []
-    if nb > 1:
-        parts.append((pay[:head_rows].view(nb - 1, rows_b, ops.LANES),
-                      par[:nb - 1],
-                      loc[:head_elems].view(nb - 1, pack, rows_b, ops.LANES),
-                      ops._head_uniforms(key, nb, pack, rows_b, loc.device)))
-    parts.append((pay[head_rows:].view(1, rt, ops.LANES), par[nb - 1:],
-                  loc[head_elems:].view(1, pack, rt, ops.LANES),
-                  prng.uniform(ops.bucket_key(key, nb - 1),
-                               (1, pack, rt, ops.LANES), device=loc.device)))
-    return parts
-
-
-def check_dae(total: int, seed: int, *, bits: int, bucket_elems: int,
-              nonfinite: bool = False, timed: bool = False) -> dict:
-    """K5 (head + tail) against its plain version and against the
-    K3 -> add -> K1 -> K2 kernels, on a random incoming message and
-    addend of ``total`` elements on the card."""
     import torch
-    from repro_torch.core import prng
-    from repro_torch.kernels.quant import kernel, ops, ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(total, generator=g, device="cuda") * 0.01
-    loc = torch.randn(total, generator=g, device="cuda") * 0.01
-    if nonfinite:
-        loc[7] = float("inf")
-        loc[bucket_elems + 9] = float("nan")
-        loc[2 * bucket_elems + 3] = -float("inf")
-    pay, par = ops.encode_flat(x, prng.PRNGKey(seed), bits=bits,
-                               bucket_elems=bucket_elems)
-    key = prng.PRNGKey(seed + 1)
-    parts = dae_parts(pay, par, loc, key, bits=bits,
-                      bucket_elems=bucket_elems)
+    gparts = torch.randn((n, n, part), generator=g, device="cuda") * 0.01
+    if nonfinite:          # worker 1's addend, in buckets 0, 1 and 2
+        gparts[1, 0, 7] = float("inf")
+        gparts[1, 0, bucket_elems + 9] = float("nan")
+        gparts[1, 0, 2 * bucket_elems + 3] = -float("inf")
+    msgs = [ops.encode_flat(gparts[i, i], prng.PRNGKey(seed + i), bits=bits,
+                            bucket_elems=bucket_elems) for i in range(n)]
+    return ([msgs[(i - 1) % n][0] for i in range(n)],
+            [msgs[(i - 1) % n][1] for i in range(n)],
+            [gparts[i, (i - 1) % n] for i in range(n)],
+            [prng.fold_in(prng.PRNGKey(seed + 100 + i), 1)
+             for i in range(n)])
+
+
+def check_hop(n: int, part: int, seed: int, *, bits: int,
+              bucket_elems: int, nonfinite: bool = False,
+              timed: bool = False) -> dict:
+    """K5 over one hop of n workers (one call) against its keyed plain
+    version, against K3 -> add -> K1 -> K2 on the same draws, and against
+    n one-worker hops through decode_add_encode_flat, bit for bit."""
+    import torch
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    pays, prms, locs, keys = hop_inputs(n, part, seed, bits=bits,
+                                        bucket_elems=bucket_elems,
+                                        nonfinite=nonfinite)
+    _, _, nb, rows_b, rows_kept = ops.flat_geometry(
+        part, bits=bits, bucket_elems=bucket_elems)
+    rt = rows_kept - (nb - 1) * rows_b
 
     def k5():
-        return [kernel.decode_add_encode_bucketed(p, q, x4, u4, bits=bits)
-                for p, q, x4, u4 in parts]
+        return ops.decode_add_encode_partitions(
+            pays, prms, locs, keys, bits=bits, bucket_elems=bucket_elems)
 
     def k5_plain():
-        return [ref.decode_add_encode_bucketed(p, q, x4, u4, bits=bits)
-                for p, q, x4, u4 in parts]
+        return ref.decode_add_encode_hop(pays, prms, locs, keys, bits=bits,
+                                         rows_b=rows_b, rt=rt)
 
-    def composed():
-        outs = []
-        for p, q, x4, u4 in parts:
-            s = kernel.decode_packed(p, q, bits=bits).add_(x4)
-            mm = kernel.minmax_bucketed(s.view(s.shape[0], -1, ops.LANES))
-            sp = torch.stack([mm[:, 0], ref.scale_of(mm[:, 0], mm[:, 1],
-                                                     bits)], dim=1)
-            outs.append((kernel.encode_packed(s, u4, sp, bits=bits), sp))
-        return outs
+    def composed():    # K3, add, K1 + K2 on prng.uniform draws, per worker
+        outs = [ops.encode_flat(ops.decode_flat(
+            p, q, total=part, bits=bits, bucket_elems=bucket_elems).add_(x),
+            key, bits=bits, bucket_elems=bucket_elems)
+            for p, q, x, key in zip(pays, prms, locs, keys)]
+        return (torch.stack([o for o, _ in outs]),
+                torch.stack([q for _, q in outs]))
 
-    got, want, via = k5(), k5_plain(), composed()
-    for (o, op), (w, wp), (v, vp) in zip(got, want, via):
-        if not (bits_equal(o, w) and same_bits(op, wp)):
-            raise AssertionError(f"K5 != plain (bits={bits}, total={total})")
-        if not (bits_equal(o, v) and same_bits(op, vp)):
-            raise AssertionError(f"K5 != K3 -> add -> K1 -> K2 (bits={bits}, "
-                                 f"total={total})")
-    res = {"max_abs_err": max(max(max_abs(o.float(), w.float()),
-                                  max_abs(op, wp))
-                              for (o, op), (w, wp) in zip(got, want))}
-    # the flat entry point, as the ring calls it, gives the same message
-    fo, fp = ops.decode_add_encode_flat(pay, par, loc, key, bits=bits,
-                                        bucket_elems=bucket_elems)
-    if not (bits_equal(fo, torch.cat([o.reshape(-1, ops.LANES)
-                                      for o, _ in got]))
-            and same_bits(fp, torch.cat([op for _, op in got]))):
-        raise AssertionError("decode_add_encode_flat != its K5 launches")
+    what = f"(bits={bits}, N={n}, {part} elements a partition)"
+    before = kernel.decode_add_encode_bucketed.launches
+    got, got_p = k5()
+    if kernel.decode_add_encode_bucketed.launches - before != 1:
+        raise AssertionError(f"K5 hop launched "
+                             f"{kernel.decode_add_encode_bucketed.launches - before} "
+                             f"times {what}")
+    for name, (w, wp) in (("its keyed plain version", k5_plain()),
+                          ("K3 -> add -> K1 -> K2", composed())):
+        if not (bits_equal(got, w) and same_bits(got_p, wp)):
+            raise AssertionError(f"K5 != {name} {what}")
+    before = kernel.decode_add_encode_bucketed.launches
+    for i in range(n):
+        fo, fp = ops.decode_add_encode_flat(pays[i], prms[i], locs[i],
+                                            keys[i], bits=bits,
+                                            bucket_elems=bucket_elems)
+        if not (bits_equal(fo, got[i]) and same_bits(fp, got_p[i])):
+            raise AssertionError(f"decode_add_encode_flat (N = 1) != the "
+                                 f"N-worker hop, worker {i} {what}")
+    if kernel.decode_add_encode_bucketed.launches - before != n:
+        raise AssertionError("decode_add_encode_flat: not one K5 call")
+    want, want_p = k5_plain()
+    res = {"max_abs_err": max(max_abs(got.float(), want.float()),
+                              max_abs(got_p, want_p))}
+    del want, want_p
     if nonfinite:
-        bad = ~torch.isfinite(fp).all(dim=1)
-        res["nonfinite_buckets"] = bad.tolist()
+        res["nonfinite_buckets"] = (~torch.isfinite(got_p).all(dim=2)
+                                    ).tolist()
     if timed:
-        elems = total
+        elems = n * part
+        clock = sm_clock_mhz()
+        int_ops = threefry_int_ops()
+        bytes_ms = (elems * (2 * bits / 8 + 4) + 16 * n * nb) \
+            / HBM_BYTES_PER_S * 1e3
+        int_ms = elems * int_ops["clocks_per_element"] / (
+            SMS * clock * 1e6) * 1e3
         res.update(
-            ms=time_ms(k5), plain_ms=time_ms(k5_plain),
-            composed_ms=time_ms(composed), library_ms=None,
-            bound_ms=(elems * (2 * bits / 8 + 8) + 16 * len(par))
-            / HBM_BYTES_PER_S * 1e3,
-            two_pass_ms=(elems * (3 * bits / 8 + 12) + 16 * len(par))
-            / HBM_BYTES_PER_S * 1e3)
+            ms=time_ms(k5),
+            plain_ms=time_ms(k5_plain, reps=3),
+            composed_ms=time_ms(composed, reps=3), library_ms=None,
+            bound_ms=max(bytes_ms, int_ms),
+            bound_by="bytes" if bytes_ms >= int_ms else "operations",
+            bytes_bound_ms=bytes_ms, int_bound_ms=int_ms,
+            int_ops_per_element=int_ops["per_element"],
+            int_alu_ops=int_ops["alu"], int_fma_ops=int_ops["fma"],
+            int_bound_by=int_ops["bound_by"],
+            int_ops_by_opcode=int_ops["by_opcode"], sm_clock_mhz=clock,
+            design_floor_ms=(elems * (2 * (bits / 8 + 4) + bits / 8)
+                             + 16 * n * nb) / HBM_BYTES_PER_S * 1e3,
+            workers=n, elements=elems, buckets_per_worker=nb)
     return res
 
 
 def dae_phase(torch) -> dict:
-    """K5 at the full-width ring partition geometry (bits 8/4/2, timed
-    at rq4), on a multi-bucket buffer with a short last bucket, on an
-    unaligned buffer, and on buckets holding Inf and NaN."""
+    """The device Threefry, then K5 over a hop of RING_WORKERS workers at
+    the full-width ring partition geometry (bits 8/4/2, timed at rq4), on
+    partitions of several buckets with a short last one, with buckets
+    holding Inf and NaN, and an unaligned buffer (the composition)."""
     from repro_torch.kernels.quant import kernel, ops
 
+    threefry_check(torch)
     err, timing = 0.0, {}
     for bits in (8, 4, 2):
         pe, nb_p, rows_p = ops.partition_geometry(TRAIN_TOTAL, RING_WORKERS,
                                                   bits=bits)
-        res = check_dae(pe, 20 + bits, bits=bits,
+        res = check_hop(RING_WORKERS, pe, 20 + bits, bits=bits,
                         bucket_elems=ops.DEFAULT_BUCKET_ELEMS,
                         timed=(bits == 4))
         err = max(err, res["max_abs_err"])
@@ -1043,14 +1181,25 @@ def dae_phase(torch) -> dict:
                                      f"{rows_p}")
             timing = res
         torch.cuda.empty_cache()
-        log(f"[ring] K5 full-width partition bits={bits} ({pe} elements, "
-            f"{nb_p} buckets): == plain, == K3 -> add -> K1 -> K2")
+        log(f"[ring] K5 one call over {RING_WORKERS} full-width partitions "
+            f"bits={bits} ({pe} elements, {nb_p} buckets each): == keyed "
+            "plain, == K3 -> add -> K1 -> K2, == 4 one-worker hops")
     for bits in (8, 4, 2):
         granule = (8 // bits) * ops.LANES
-        err = max(err, check_dae(5 * 4096 + 3 * granule, 40 + bits,
-                                 bits=bits, bucket_elems=4096)["max_abs_err"])
-    log("[ring] K5 multi-bucket buffer with a short last bucket "
-        "(bucket_elems 4096): bits 8/4/2 == plain, == composition")
+        err = max(err, check_hop(RING_WORKERS, 5 * 4096 + 3 * granule,
+                                 40 + bits, bits=bits,
+                                 bucket_elems=4096)["max_abs_err"])
+    log(f"[ring] K5 over {RING_WORKERS} partitions of several buckets with a "
+        "short last bucket (bucket_elems 4096): bits 8/4/2 == keyed plain, "
+        "== composition")
+    # hops past one launch's argument block: one call, several launches
+    for n, nb in ((kernel.HOP_MAX_WORKERS + 1, 40),
+                  (2, kernel.HOP_MAX_KEYS + 44)):
+        err = max(err, check_hop(n, (nb - 1) * 4096 + 3 * 1024, 60 + n,
+                                 bits=4, bucket_elems=4096)["max_abs_err"])
+        log(f"[ring] K5 one call over {n} partitions of {nb} buckets "
+            f"({len(kernel.hop_chunks(n, nb))} launches): == keyed plain, "
+            "== composition")
     # an unaligned total is JAX's sequential composition: no K5 launch
     g = torch.Generator(device="cuda").manual_seed(5)
     from repro_torch.core import prng
@@ -1073,13 +1222,16 @@ def dae_phase(torch) -> dict:
                                  "composition")
     log("[ring] unaligned total 300001: decode_add_encode_flat == "
         "K3 -> add -> K1 -> K2, bits 8/4/2")
-    res = check_dae(3 * 4096, 3, bits=4, bucket_elems=4096, nonfinite=True)
-    if res["nonfinite_buckets"] != [True, True, True]:
-        raise AssertionError(f"non-finite buckets {res['nonfinite_buckets']}")
-    log("[ring] K5 buckets with Inf/NaN: == plain, NaN at the same places "
-        f"(non-finite params rows {res['nonfinite_buckets']})")
+    res = check_hop(RING_WORKERS, 3 * 4096, 3, bits=4, bucket_elems=4096,
+                    nonfinite=True)
+    bad = res["nonfinite_buckets"]
+    if bad[1] != [True, True, True] or any(any(r) for i, r in enumerate(bad)
+                                           if i != 1):
+        raise AssertionError(f"non-finite buckets {bad}")
+    log("[ring] K5 buckets with Inf/NaN: == keyed plain, NaN at the same "
+        f"places (non-finite params rows by worker {bad})")
     timing["max_abs_err"] = max(err, res["max_abs_err"])
-    log("[ring] K5 at the rq4 full-width partition (head + tail): "
+    log(f"[ring] K5 over a hop of {RING_WORKERS} rq4 full-width partitions: "
         + json.dumps(timing))
     return timing
 
@@ -1179,8 +1331,7 @@ def ring_phase(torch) -> dict:
             f"{gnorms[t]:.4f} consensus {cons[t]!r} step {step_ms[t]:.1f} "
             f"ms (exchange {ex_ms:.1f} ms) K5 launches "
             f"{per['decode_add_encode_bucketed']}")
-        if per["decode_add_encode_bucketed"] != \
-                RING_WORKERS * (RING_WORKERS - 1) * 2:
+        if per["decode_add_encode_bucketed"] != RING_WORKERS - 1:
             raise AssertionError(f"step {t}: launches {per}")
     if not all(math.isfinite(v) for v in losses + gnorms):
         raise AssertionError(f"non-finite loss {losses}")
@@ -1211,7 +1362,9 @@ def ring_phase(torch) -> dict:
 
 def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
     """Where a full-width ring step's time goes, piece by piece, each
-    timed alone on the host clock around a synchronize."""
+    timed alone on the host clock around a synchronize. Uniforms are
+    drawn in plain torch for the N initial encodes only: K5 draws the
+    hops' own."""
     from repro_torch.core import communicators as C
     from repro_torch.core import compression, prng, pytree
     from repro_torch.kernels.quant import kernel, ops
@@ -1238,28 +1391,37 @@ def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
         prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
                      device="cuda")
 
-    parts = dae_parts(*msgs[0], gparts[1, 0], key, bits=4,
-                      bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
+    def k5_hops():     # the N - 1 reduce-scatter hops, one call each
+        pay, prm = [m[0] for m in msgs], [m[1] for m in msgs]
+        for h in range(1, n):
+            pay, prm = cdc.decode_add_encode_partitions(
+                [pay[(i - 1) % n] for i in range(n)],
+                [prm[(i - 1) % n] for i in range(n)],
+                [gparts[i, (i - h) % n] for i in range(n)],
+                [prng.fold_in(key, 10 * i + h) for i in range(n)])
 
-    def k5_hops():
-        for _ in range(n * (n - 1)):
-            for p, q, x4, u4 in parts:
-                kernel.decode_add_encode_bucketed(p, q, x4, u4, bits=4)
+    # K1 + K2 of the N initial partition encodes, on drawn uniforms
+    x4, u4, x3, u3, _, _ = ops._bucket_views(
+        ops.edge_pad(gparts[0, 0], nb * cap), pe, key, bits=4,
+        bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
 
-    def encode_no_draws():   # K1 + K2 of the N initial partition encodes
+    def encode_no_draws():
         for i in range(n):
-            ops.bucket_params(ops.edge_pad(gparts[i, i], nb * cap).view(
+            prm = ops.bucket_params(ops.edge_pad(gparts[i, i], nb * cap).view(
                 nb, cap), bits=4)
-            for _, q, x4, u4 in parts:
-                kernel.encode_packed(x4, u4, q, bits=4)
+            if nb > 1:
+                kernel.encode_packed(x4, u4, prm[:nb - 1], bits=4)
+            kernel.encode_packed(x3, u3, prm[nb - 1:], bits=4)
 
     payload_all = torch.empty((n, n) + tuple(msgs[0][0].shape),
                               dtype=torch.uint8, device="cuda")
+    stacked = torch.stack([m[0] for m in msgs])
+    rows = torch.arange(n, device="cuda")
 
-    def all_gather():
-        for i in range(n):
-            for j in range(n):
-                payload_all[i, j] = msgs[j][0]
+    def all_gather():  # as the ring forwards the stacked messages
+        for g in range(n):
+            src = (rows - g) % n
+            payload_all[rows, (src + 1) % n] = stacked[src]
 
     out = torch.empty((n, n * pe), device="cuda")
 
@@ -1269,7 +1431,7 @@ def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
                 cdc.decode_partition(*msgs[j], part_elems=pe,
                                      out=out[i, j * pe:(j + 1) * pe])
 
-    n_draws = n + n * (n - 1)      # partition encodes per step
+    n_draws = n        # the initial encodes; K5 draws its own in the hops
     return {
         "fwd_bwd_per_worker_ms": host_ms(torch, lambda: steps.value_and_grad(
             loss_fn, p0, batch), reps=3),
@@ -1321,7 +1483,7 @@ def ring_cross_device_check(torch) -> None:
             raise AssertionError("card and CPU ring exchanges differ")
         if not all(bits_equal(a[i], a[0]) for i in range(1, RING_WORKERS)):
             raise AssertionError("workers differ after the all-gather")
-    if k5 != RING_WORKERS * (RING_WORKERS - 1) * 2:
+    if k5 != RING_WORKERS - 1:
         raise AssertionError(f"reduced ring launched K5 {k5} times")
     total = sum(t.numel() for t in pytree.tree_leaves(params))
     log(f"[check] reduced {TRAIN_ARCH} rq4 ring ({total} parameters, "

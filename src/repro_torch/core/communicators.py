@@ -276,33 +276,38 @@ class CSGDRingExchange:
         wkeys = [_worker_key(key, i) for i in range(n)]
 
         # reduce-scatter: worker i starts with its own partition i; hop h
-        # ships the partial sum of partition (i - h) mod N one step right
+        # ships the partial sum of partition (i - h) mod N one step right,
+        # all N workers in one K5 call reading their slices of gparts
+        # in place; a hop writes its stacked messages over the ones of two
+        # hops back
         msgs = [cdc.encode_partition(gparts[i, i], wkeys[i],
                                      bucket_elems=be) for i in range(n)]
+        pay, prm = [m[0] for m in msgs], [m[1] for m in msgs]
+        spare = (None, None)
         for h in range(1, n):
-            incoming = [msgs[(i - 1) % n] for i in range(n)]
-            msgs = [cdc.decode_add_encode_partition(
-                *incoming[i], gparts[i, (i - h) % n],
-                prng.fold_in(wkeys[i], h), bucket_elems=be)
-                for i in range(n)]
-        del gparts
+            sent = cdc.decode_add_encode_partitions(
+                [pay[(i - 1) % n] for i in range(n)],
+                [prm[(i - 1) % n] for i in range(n)],
+                [gparts[i, (i - h) % n] for i in range(n)],
+                [prng.fold_in(wkeys[i], h) for i in range(n)],
+                bucket_elems=be, out=spare[0], params_out=spare[1])
+            spare = (pay, prm) if h > 1 else (None, None)
+            pay, prm = sent
+        del gparts, msgs, spare
 
         # all-gather: worker i finished partition (i + 1) mod N; N - 1
-        # hops forward finished partitions verbatim into the backing
-        # buffer of every worker
-        pay, prm = msgs[0]
-        payload_all = torch.empty((n, n) + tuple(pay.shape), dtype=pay.dtype,
+        # hops forward finished messages verbatim one step right, into the
+        # backing buffer of every worker (after g hops worker i holds
+        # worker (i - g) mod N's message)
+        payload_all = torch.empty((n,) + tuple(pay.shape), dtype=pay.dtype,
                                   device=pay.device)
-        params_all = torch.empty((n, n) + tuple(prm.shape), dtype=prm.dtype,
+        params_all = torch.empty((n,) + tuple(prm.shape), dtype=prm.dtype,
                                  device=prm.device)
-        cur = msgs
+        rows = torch.arange(n, device=pay.device)
         for g in range(n):
-            if g:
-                cur = [cur[(i - 1) % n] for i in range(n)]
-            for i in range(n):
-                idx = (i + 1 - g) % n
-                payload_all[i, idx] = cur[i][0]
-                params_all[i, idx] = cur[i][1]
+            src = (rows - g) % n
+            payload_all[rows, (src + 1) % n] = pay[src]
+            params_all[rows, (src + 1) % n] = prm[src]
 
         out = torch.empty((n, n * part_elems), dtype=torch.float32,
                           device=pay.device)

@@ -406,6 +406,18 @@ class QuantCodec(Codec):
                                           bits=self.bits,
                                           bucket_elems=bucket_elems)
 
+    def decode_add_encode_partitions(self, payloads, params, locals_, keys,
+                                     *, bucket_elems=DEFAULT_BUCKET_ELEMS,
+                                     out=None, params_out=None):
+        """The fused ring hop of N workers at once (K5, one call):
+        worker w's ``decode_add_encode_partition(payloads[w], params[w],
+        locals_[w], keys[w])``, stacked -> (payloads (N, rows_p, 512),
+        params (N, nb_p, 2)), into ``out`` / ``params_out`` when
+        given."""
+        return ops.decode_add_encode_partitions(
+            payloads, params, locals_, keys, bits=self.bits,
+            bucket_elems=bucket_elems, out=out, params_out=params_out)
+
     def flat_encode_partitioned(self, flat, key, layout: FlatLayout, *,
                                 n_parts: int,
                                 bucket_elems: int = DEFAULT_BUCKET_ELEMS

@@ -59,7 +59,8 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def _ints(key) -> tuple[int, int]:
+def key_words(key) -> tuple[int, int]:
+    """A key's two uint32 words as Python ints."""
     k = key.tolist() if isinstance(key, torch.Tensor) else list(key)
     if len(k) != 2:
         raise ValueError(f"a raw threefry key has 2 words, got {k}")
@@ -80,13 +81,13 @@ def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 (mirrors jax.random)
 
 def fold_in(key, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: hash the counter (0, data) under key."""
-    k0, k1 = _ints(key)
+    k0, k1 = key_words(key)
     return _key(*threefry2x32(k0, k1, 0, int(data) & M32))
 
 
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: (num, 2) keys; key i hashes counter i."""
-    k0, k1 = _ints(key)
+    k0, k1 = key_words(key)
     out = [threefry2x32(k0, k1, i >> 32, i & M32) for i in range(num)]
     return torch.tensor(out, dtype=torch.int64).reshape(num, 2)
 
@@ -102,13 +103,13 @@ def random_bits(key, shape: Sequence[int], *,
     """32 random bits per element (uint32 values in int64)."""
     shape = tuple(int(d) for d in shape)
     n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    k0, k1 = _ints(key)
+    k0, k1 = key_words(key)
     hi, lo = _counters(n, device)
     y0, y1 = threefry2x32(k0, k1, hi, lo)
     return (y0 ^ y1).reshape(shape)
 
 
-def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """[0, 1) floats from the top 23 bits, the JAX way: mantissa bits
     under exponent 0 (a float in [1, 2)), minus 1 — exact."""
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
@@ -121,7 +122,7 @@ def uniform(key, shape: Sequence[int], *,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``. XLA
     contracts ``u * span + lo`` into one FMA, so the product and sum run
     in float64 (the product is exact there) and round once."""
-    u = _bits_to_unit(random_bits(key, shape, device=device))
+    u = bits_to_unit(random_bits(key, shape, device=device))
     if minval == 0.0 and maxval == 1.0:
         return u
     lo = np.float32(minval)

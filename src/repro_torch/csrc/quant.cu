@@ -2,7 +2,8 @@
 // checkpoint wire, the training step's gradient compression and the ring
 // AllReduce: per-bucket min/max (K1), quantize + bit-pack (K2), unpack +
 // dequantize (K3), the fused stochastic quantize -> dequantize (K4) and the
-// fused ring hop decode + add + re-encode (K5). Plain C interface, loaded with ctypes by
+// fused ring hop decode + add + re-encode of every worker, with its own
+// uniform draws (K5). Plain C interface, loaded with ctypes by
 // repro_torch/kernels/quant/kernel.py, which allocates every buffer,
 // checks shapes and passes PyTorch's current stream.
 //
@@ -18,15 +19,19 @@
 // params is (B, 2) fp32: [lo, scale] per bucket for K2-K5, K1 writes
 // [lo, hi].
 //
-// All five are bound by device memory, not arithmetic: each element is
-// read once and written once, with coalesced accesses (neighbouring
-// threads touch neighbouring addresses in every segment). A bucket is
-// spread over many blocks (grid.y = bucket, grid.x strides over it), so
-// the 110-odd buckets of a full-width checkpoint fill all 132 SMs.
+// K1-K4 are bound by device memory, not arithmetic: each element is read
+// once and written once, with coalesced accesses (neighbouring threads
+// touch neighbouring addresses in every segment). A bucket is spread over
+// many blocks (grid.y = bucket, grid.x strides over it), so the 110-odd
+// buckets of a full-width checkpoint fill all 132 SMs. K5 hashes a
+// Threefry counter for every element it encodes and is bound by the
+// card's integer rate (see K5).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -260,32 +265,117 @@ __global__ void qdq_kernel(const float* x, const float* __restrict__ u,
 }
 
 // ---------------------------------------------------------------------------
-// K5 decode_add_encode_bucketed. Replaces repro/kernels/quant/kernel.py
-// decode_add_encode_bucketed (:349, pallas_call at :366): the partitioned
-// ring AllReduce's reduce-scatter hop, for the full buckets of a partition
-// and for its tail (as B = 1). Per bucket it computes
+// K5 decode_add_encode_bucketed: one reduce-scatter hop of the partitioned
+// ring AllReduce, for every worker, in one call. Replaces
+// repro/kernels/quant/kernel.py decode_add_encode_bucketed (:349,
+// pallas_call at :366) together with the jax.random.uniform draws beside
+// it (repro/kernels/quant/ops.py decode_add_encode_flat: fold_in(key, b)
+// per bucket): the unit the JAX package computes per worker and hop, here
+// for all N workers at once. Per bucket, as the TPU kernel computes:
 //   s     = code_k * scale_in + lo_in + x   ONE rounding for the multiply-add
 //                                          (__fmaf_rn, as K3), then the add
 //   lo,hi = exact, NaN-propagating min / max of s over the bucket
 //   scale = (hi - lo) * f32(1/levels), or 1 where hi > lo fails
-//   code  = the stochastic rounding of (s - lo) / scale against u, as K2,
-//           with K4's NaN-keeping clip (a NaN code packs as 0, as XLA's and
+//   code  = the stochastic rounding of (s - lo) / scale (__fdiv_rn) against
+//           u = uniform(fold_in(key_w, b), (pack, R, 512))[k, r, c], with
+//           K4's NaN-keeping clip (a NaN code packs as 0, as XLA's and
 //           PyTorch's float -> uint8 casts give)
-// and packs segment k at bits [k*b, (k+1)*b) of the outgoing payload.
+// and packs segment k at bits [k*b, (k+1)*b) of the outgoing payload. The
+// uniforms are drawn here by the Threefry of threefry.cuh from the
+// bucket's key (computed on the host) and the element's counter
+// k*R*512 + r*512 + c, so they are the bits prng.uniform would have drawn
+// and never reach device memory.
+//
+// Worker w reads its incoming message (payload + params) and its local
+// fp32 slice, and writes its outgoing message, through pointers of its
+// own: the ring passes views (worker w's incoming message is w - 1's
+// outgoing one, its slice a window of the stacked gradient), and nothing
+// is copied into a stacked buffer first.
 //
 // The TPU kernel carried each bucket's [lo, hi] in VMEM scratch across a
 // sequential grid: a stats phase, then an encode phase that recomputes the
-// sum. Blocks here run in no order, so the carry becomes three launches on
-// one stream: (1) grid-stride blocks per bucket decode + add and write
-// per-block (min, max) partials; (2) one small block per bucket folds its
-// partials and writes params_out = [lo, scale]; (3) the encode launch
-// recomputes decode + add from payload and x and quantizes and packs with
-// params_out. The fp32 sum never reaches device memory; min and max are
-// exact, so the order of blocks cannot change the result.
-// Bound: bytes — payload in (1/pack B), x and u (8 B) and payload out
-// (1/pack B) per element: 9 B at rq4, 10 B at rq8. This two-pass design
-// reads payload and x twice (13.5 B per element at rq4).
+// sum. Blocks here run in no order, so the two phases walk one flat list of
+// slices (16Ki elements of one bucket of one worker each) on a persistent
+// grid, as many blocks as the card holds at once:
+//   phase 1  each slice's (min, max) of s to a partial; the block that
+//            finishes a bucket's last slice (a ticket per bucket, as K1)
+//            folds the bucket's partials and writes params_out = [lo,
+//            scale], and resets the ticket;
+//   barrier  the end of the first of two launches on one stream (a
+//            cooperative launch with a grid sync in its place measured
+//            slower on the H100, PERF.md);
+//   phase 2  recompute s, draw u, encode and pack. Slices are walked in
+//            reverse, so the first ones phase 2 reads are the last phase 1
+//            read, still in the 50 MB L2.
+// The fp32 sum never reaches device memory; min and max are exact, so the
+// order of blocks cannot change the result. Each thread takes 4 columns of
+// a row at a time: one 4-byte payload word (128 B a warp) and one 16-byte
+// load of x a segment.
+// Bound: the larger of the bytes -- payload in and out (2/pack B) and x
+// (4 B) per element, 16 B of params a bucket: 5 B an element at rq4 -- and
+// the Threefry's integer instructions an element, counted per pipe: ~52 on
+// the ALU pipe (LOP3, SHF, IADD3) at 64 lanes an SM a clock, which binds
+// over the ~17 IMAD the compiler moves to the FMA pipe (also 64 lanes) and
+// over the dispatch rate (128 an SM a clock): ~2x the bytes, so K5 is bound by
+// its arithmetic. The design itself reads payload and x twice (9.5 B an
+// element at rq4), which the L2 shortens for the last slices of phase 1.
+//
+// One launch takes at most kHopMaxWorkers workers and kHopMaxKeys
+// (worker, bucket) keys, which travel in its argument block; the wrapper
+// cuts a larger hop into launches of whole buckets (kernel.hop_chunks).
 // ---------------------------------------------------------------------------
+constexpr int kHopMaxWorkers = 8;
+constexpr int kHopMaxKeys = 256;      // (worker, bucket) keys in one launch
+constexpr int kHopSliceElems = 16384;
+constexpr int kHopMinBlocks = 4;      // blocks an SM its registers allow
+
+struct HopArgs {
+  const uint8_t* pay_in[kHopMaxWorkers];
+  const float* par_in[kHopMaxWorkers];
+  const float* x[kHopMaxWorkers];
+  uint8_t* pay_out[kHopMaxWorkers];
+  float* par_out[kHopMaxWorkers];
+  uint32_t key[kHopMaxKeys][2];       // worker w, bucket b at w * nb + b
+  float2* partial;                    // one (lo, hi) a slice
+  unsigned* ticket;                   // one zeroed counter a (worker, bucket)
+  int n_workers, n_buckets;
+  int rows_b, rt;                     // rows of a full bucket, of the tail
+  int slice_rows;                     // rows of one slice
+  int spf, spt;                       // slices of a full bucket, of the tail
+  int n_slices;
+};
+
+struct HopSlice {
+  int w, b;        // worker, bucket
+  int rows;        // the bucket's R
+  int r0, r1;      // the slice's rows [r0, r1)
+  int first;       // the bucket's first slice
+  int count;       // the bucket's slices
+};
+
+__device__ __forceinline__ HopSlice hop_slice(const HopArgs& a, int s) {
+  const int head = (a.n_buckets - 1) * a.spf;
+  const int per_worker = head + a.spt;
+  HopSlice q;
+  q.w = s / per_worker;
+  int j = s - q.w * per_worker;
+  if (j < head) {
+    q.b = j / a.spf;
+    j -= q.b * a.spf;
+    q.rows = a.rows_b;
+    q.count = a.spf;
+  } else {
+    q.b = a.n_buckets - 1;
+    j -= head;
+    q.rows = a.rt;
+    q.count = a.spt;
+  }
+  q.first = s - j;
+  q.r0 = j * a.slice_rows;
+  q.r1 = min(q.r0 + a.slice_rows, q.rows);
+  return q;
+}
+
 template <int BITS>
 __device__ __forceinline__ float dae_sum(unsigned p, int k, float scale,
                                          float lo, float x) {
@@ -294,102 +384,176 @@ __device__ __forceinline__ float dae_sum(unsigned p, int k, float scale,
   return __fadd_rn(__fmaf_rn(code, scale, lo), x);
 }
 
+// Phase 1 of slice s: its partial (lo, hi) of s; the bucket's last slice
+// to finish folds the partials into params_out.
 template <int BITS>
-__global__ void dae_stats_kernel(const uint8_t* __restrict__ payload,
-                                 const float* __restrict__ params,
-                                 const float* __restrict__ x,
-                                 float2* __restrict__ partial,
-                                 long long row_elems) {
+__device__ void hop_stats(const HopArgs& a, int s) {
   constexpr int kPack = 8 / BITS;
-  const long long b = blockIdx.y;
-  const float lo_in = params[2 * b];
-  const float scale_in = params[2 * b + 1];
+  // the jitted reference's scale: a multiply by the fp32 reciprocal
+  constexpr float kInv = (float)(1.0 / (double)((1 << BITS) - 1));
+  const HopSlice q = hop_slice(a, s);
+  const long long bucket = (long long)q.b * a.rows_b * 512;
+  const uint8_t* pay = a.pay_in[q.w] + bucket;
+  const float* x = a.x[q.w] + kPack * bucket;
+  const float lo_in = __ldg(a.par_in[q.w] + 2 * q.b);
+  const float scale_in = __ldg(a.par_in[q.w] + 2 * q.b + 1);
+  const long long seg = (long long)q.rows * 512;
+  const int units = (q.r1 - q.r0) * 128;
   float lo = INFINITY, hi = -INFINITY;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < row_elems; i += (long long)gridDim.x * kThreads) {
-    const unsigned p = payload[b * row_elems + i];
+#pragma unroll 4
+  for (int u = threadIdx.x; u < units; u += kThreads) {
+    const long long rc = (long long)(q.r0 + (u >> 7)) * 512 + ((u & 127) << 2);
+    const unsigned p = __ldg(reinterpret_cast<const unsigned*>(pay + rc));
 #pragma unroll
     for (int k = 0; k < kPack; ++k) {
-      const float s = dae_sum<BITS>(p, k, scale_in, lo_in,
-                                    x[(b * kPack + k) * row_elems + i]);
-      lo = nan_min(lo, s);
-      hi = nan_max(hi, s);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + k * seg + rc));
+      const float xs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float sum = dae_sum<BITS>((p >> (8 * j)) & 0xFFu, k, scale_in,
+                                        lo_in, xs[j]);
+        lo = nan_min(lo, sum);
+        hi = nan_max(hi, sum);
+      }
     }
   }
   block_minmax(lo, hi);
-  if (threadIdx.x == 0) partial[b * gridDim.x + blockIdx.x] = make_float2(lo, hi);
-}
-
-template <int BITS>
-__global__ void dae_finalize_kernel(const float2* __restrict__ partial,
-                                    float* __restrict__ params_out, int nblk) {
-  // the jitted reference's scale: a multiply by the fp32 reciprocal
-  constexpr float kInv = (float)(1.0 / (double)((1 << BITS) - 1));
-  const long long b = blockIdx.x;
-  float lo = INFINITY, hi = -INFINITY;
-  for (int i = threadIdx.x; i < nblk; i += kThreads) {
-    const float2 p = partial[b * nblk + i];
+  __shared__ bool last;
+  unsigned* ticket = a.ticket + q.w * a.n_buckets + q.b;
+  if (threadIdx.x == 0) {
+    a.partial[s] = make_float2(lo, hi);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)q.count - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  lo = INFINITY;
+  hi = -INFINITY;
+  for (int i = threadIdx.x; i < q.count; i += kThreads) {
+    const float2 p = __ldcg(a.partial + q.first + i);
     lo = nan_min(lo, p.x);
     hi = nan_max(hi, p.y);
   }
   block_minmax(lo, hi);
   if (threadIdx.x == 0) {
-    params_out[2 * b] = lo;
-    params_out[2 * b + 1] = hi > lo ? __fmul_rn(__fsub_rn(hi, lo), kInv) : 1.0f;
+    float* out = a.par_out[q.w] + 2 * q.b;
+    out[0] = lo;
+    out[1] = hi > lo ? __fmul_rn(__fsub_rn(hi, lo), kInv) : 1.0f;
+    *ticket = 0u;
   }
+  __syncthreads();   // warp 0 has read block_minmax's shared partials
 }
 
+// Phase 2 of slice s: re-encode against the bucket's params_out and the
+// uniforms drawn from its key.
 template <int BITS>
-__global__ void dae_encode_kernel(const uint8_t* __restrict__ payload,
-                                  const float* __restrict__ params,
-                                  const float* __restrict__ x,
-                                  const float* __restrict__ u,
-                                  const float* __restrict__ params_out,
-                                  uint8_t* __restrict__ out,
-                                  long long row_elems) {
+__device__ void hop_encode(const HopArgs& a, int s) {
   constexpr int kPack = 8 / BITS;
   constexpr float kLevels = (float)((1 << BITS) - 1);
-  const long long b = blockIdx.y;
-  const float lo_in = params[2 * b];
-  const float scale_in = params[2 * b + 1];
-  const float lo = params_out[2 * b];
-  const float scale = params_out[2 * b + 1];
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < row_elems; i += (long long)gridDim.x * kThreads) {
-    const unsigned p = payload[b * row_elems + i];
+  const HopSlice q = hop_slice(a, s);
+  const long long bucket = (long long)q.b * a.rows_b * 512;
+  const uint8_t* pay = a.pay_in[q.w] + bucket;
+  const float* x = a.x[q.w] + kPack * bucket;
+  uint8_t* out = a.pay_out[q.w] + bucket;
+  const float lo_in = __ldg(a.par_in[q.w] + 2 * q.b);
+  const float scale_in = __ldg(a.par_in[q.w] + 2 * q.b + 1);
+  // written in this launch (or the one before) by another block
+  const float lo = __ldcg(a.par_out[q.w] + 2 * q.b);
+  const float scale = __ldcg(a.par_out[q.w] + 2 * q.b + 1);
+  const int kw = q.w * a.n_buckets + q.b;
+  const threefry::Key key = threefry::make_key(a.key[kw][0], a.key[kw][1]);
+  const long long seg = (long long)q.rows * 512;
+  const int units = (q.r1 - q.r0) * 128;
+  for (int u = threadIdx.x; u < units; u += kThreads) {
+    const long long rc = (long long)(q.r0 + (u >> 7)) * 512 + ((u & 127) << 2);
+    const unsigned p = __ldg(reinterpret_cast<const unsigned*>(pay + rc));
     unsigned acc = 0;
 #pragma unroll
     for (int k = 0; k < kPack; ++k) {
-      const long long j = (b * kPack + k) * row_elems + i;
-      const float s = dae_sum<BITS>(p, k, scale_in, lo_in, x[j]);
-      const float norm = __fdiv_rn(__fsub_rn(s, lo), scale);
-      const float fl = floorf(norm);
-      float q = __fadd_rn(fl, u[j] < __fsub_rn(norm, fl) ? 1.0f : 0.0f);
-      q = nan_min(nan_max(q, 0.0f), kLevels);
-      const unsigned code = q != q ? 0u : (unsigned)q;
-      acc |= code << (k * BITS);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + k * seg + rc));
+      const float xs[4] = {v.x, v.y, v.z, v.w};
+      // the element's counter in its bucket's (pack, R, 512) draw
+      const uint32_t ctr = (uint32_t)(k * seg + rc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float sum = dae_sum<BITS>((p >> (8 * j)) & 0xFFu, k, scale_in,
+                                        lo_in, xs[j]);
+        const float norm = __fdiv_rn(__fsub_rn(sum, lo), scale);
+        const float fl = floorf(norm);
+        const float uni = threefry::uniform(key, ctr + (uint32_t)j);
+        float qv = __fadd_rn(fl, uni < __fsub_rn(norm, fl) ? 1.0f : 0.0f);
+        qv = nan_min(nan_max(qv, 0.0f), kLevels);
+        const unsigned code = qv != qv ? 0u : (unsigned)qv;
+        acc |= code << (8 * j + k * BITS);
+      }
     }
-    out[b * row_elems + i] = (uint8_t)acc;
+    *reinterpret_cast<unsigned*>(out + rc) = acc;
   }
 }
 
-template <int BITS>
-cudaError_t dae_launch(const uint8_t* payload, const float* params,
-                       const float* x, const float* u, float2* partial,
-                       uint8_t* out, float* params_out, long long n_buckets,
-                       long long row_elems, int nblk, cudaStream_t s) {
-  const dim3 grid((unsigned)nblk, (unsigned)n_buckets);
-  dae_stats_kernel<BITS><<<grid, kThreads, 0, s>>>(payload, params, x,
-                                                   partial, row_elems);
-  cudaError_t err = cudaGetLastError();
+// PHASE 1 or 2 of the hop: two ordinary launches on one stream.
+template <int BITS, int PHASE>
+__global__ void __launch_bounds__(kThreads, kHopMinBlocks)
+hop_kernel(const __grid_constant__ HopArgs a) {
+  if (PHASE == 1)
+    for (int s = blockIdx.x; s < a.n_slices; s += (int)gridDim.x)
+      hop_stats<BITS>(a, s);
+  else
+    for (int s = a.n_slices - 1 - (int)blockIdx.x; s >= 0; s -= (int)gridDim.x)
+      hop_encode<BITS>(a, s);
+}
+
+// Blocks of the persistent grid: as many as the card holds at once.
+template <typename Kernel>
+cudaError_t hop_grid(Kernel kern, int n_slices, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return err;
-  dae_finalize_kernel<BITS><<<(unsigned)n_buckets, kThreads, 0, s>>>(
-      partial, params_out, nblk);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = per_sm * sms < n_slices ? per_sm * sms : n_slices;
+  return cudaSuccess;
+}
+
+template <int BITS>
+cudaError_t hop_launch(const HopArgs& a, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err = hop_grid(hop_kernel<BITS, 1>, a.n_slices, &grid);
+  if (err != cudaSuccess) return err;
+  hop_kernel<BITS, 1><<<grid, kThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dae_encode_kernel<BITS><<<grid, kThreads, 0, s>>>(
-      payload, params, x, u, params_out, out, row_elems);
+  err = hop_grid(hop_kernel<BITS, 2>, a.n_slices, &grid);
+  if (err != cudaSuccess) return err;
+  hop_kernel<BITS, 2><<<grid, kThreads, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+int hop_slice_rows(int bits) { return kHopSliceElems / ((8 / bits) * 512); }
+
+// ---------------------------------------------------------------------------
+// The device Threefry alone, for checking it against prng.random_bits /
+// prng.uniform (MODE 1: bits, 2: unit floats) and for counting its
+// instructions in the SASS (MODE 0 writes the counter itself: the same
+// kernel without the hash). One counter a thread.
+// ---------------------------------------------------------------------------
+template <int MODE>
+__global__ void threefry_kernel(uint32_t k0, uint32_t k1, uint32_t offset,
+                                long long count, uint32_t* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t ctr = offset + (uint32_t)i;
+  if (MODE == 0) {
+    out[i] = ctr;
+    return;
+  }
+  const uint32_t b = threefry::bits(threefry::make_key(k0, k1), ctr);
+  out[i] = MODE == 1 ? b : __float_as_uint(threefry::unit(b));
 }
 
 // Blocks along one bucket: enough to cover it once, but no more than
@@ -428,11 +592,6 @@ int quant_k1_blocks(long long n_buckets, long long cap) {
   return (int)k1_blocks(cap / 4, n_buckets);
 }
 
-// Blocks per bucket of K5's min/max partials for a bucket of cap
-// elements (the wrapper sizes K5's partial scratch with it).
-int quant_minmax_blocks(long long n_buckets, long long cap) {
-  return (int)blocks_per_bucket(cap, n_buckets);
-}
 
 // x, u: (B, pack, R, 512) fp32; params: (B, 2); out: (B, R, 512) uint8.
 int quant_encode_packed(const void* x, const void* u, const void* params,
@@ -499,33 +658,80 @@ int quant_qdq_bucketed(const void* x, const void* u, const void* params,
   return (int)cudaGetLastError();
 }
 
-// payload, out: (B, R, 512) uint8; params, params_out: (B, 2) fp32;
-// x, u: (B, pack, R, 512) fp32; partial: (B, nblk) float2 scratch with
-// nblk = quant_minmax_blocks(B, R * 512). out must not alias payload (the
-// encode launch reads payload again).
-int quant_decode_add_encode(const void* payload, const void* params,
-                            const void* x, const void* u, void* partial,
-                            void* out, void* params_out, long long n_buckets,
-                            long long rows, int nblk, int bits, void* stream) {
-  if (n_buckets < 1 || n_buckets > 65535 || rows < 1 || nblk < 1)
+// The K5 hop over n_workers workers. ptrs: 5 * n_workers device pointers,
+// [payload_in, params_in, x, payload_out, params_out] each for worker 0 ..
+// n - 1 (payload (rows, 512) uint8 with rows = (nb - 1) * rows_b + rt,
+// params (nb, 2) fp32, x (pack * rows * 512,) fp32; payloads and x 16-byte
+// aligned; no output aliases an input). keys: n_workers * nb (k0, k1)
+// pairs, worker-major. partial: quant_hop_slices(...) float2 scratch;
+// ticket: n_workers * nb zeroed uint32 counters (left zeroed).
+int quant_decode_add_encode_hop(const unsigned long long* ptrs,
+                                const unsigned* keys, void* partial,
+                                void* ticket, int n_workers, int n_buckets,
+                                long long rows_b, long long rt, int bits,
+                                void* stream) {
+  if (bits != 8 && bits != 4 && bits != 2) return (int)cudaErrorInvalidValue;
+  const long long pack = 8 / bits;
+  if (n_workers < 1 || n_workers > kHopMaxWorkers || n_buckets < 1 ||
+      (long long)n_workers * n_buckets > kHopMaxKeys || rt < 1 ||
+      rows_b < rt || pack * rows_b * 512 > 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  const long long row_elems = rows * 512;
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* p = (const uint8_t*)payload;
-  const float* pf = (const float*)params;
-  const float* xf = (const float*)x;
-  const float* uf = (const float*)u;
-  float2* part = (float2*)partial;
-  uint8_t* o = (uint8_t*)out;
-  float* po = (float*)params_out;
-  cudaError_t err;
-  switch (bits) {
-    case 8: err = dae_launch<8>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
-    case 4: err = dae_launch<4>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
-    case 2: err = dae_launch<2>(p, pf, xf, uf, part, o, po, n_buckets, row_elems, nblk, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  HopArgs a;
+  for (int w = 0; w < n_workers; ++w) {
+    a.pay_in[w] = (const uint8_t*)ptrs[w];
+    a.par_in[w] = (const float*)ptrs[n_workers + w];
+    a.x[w] = (const float*)ptrs[2 * n_workers + w];
+    a.pay_out[w] = (uint8_t*)ptrs[3 * n_workers + w];
+    a.par_out[w] = (float*)ptrs[4 * n_workers + w];
+    if (((ptrs[w] | ptrs[2 * n_workers + w] | ptrs[3 * n_workers + w]) & 15)
+        != 0)
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
+  for (int i = 0; i < n_workers * n_buckets; ++i) {
+    a.key[i][0] = keys[2 * i];
+    a.key[i][1] = keys[2 * i + 1];
+  }
+  a.partial = (float2*)partial;
+  a.ticket = (unsigned*)ticket;
+  a.n_workers = n_workers;
+  a.n_buckets = n_buckets;
+  a.rows_b = (int)rows_b;
+  a.rt = (int)rt;
+  a.slice_rows = hop_slice_rows(bits);
+  a.spf = (int)((rows_b + a.slice_rows - 1) / a.slice_rows);
+  a.spt = (int)((rt + a.slice_rows - 1) / a.slice_rows);
+  a.n_slices = n_workers * ((n_buckets - 1) * a.spf + a.spt);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bits) {
+    case 8: return (int)hop_launch<8>(a, s);
+    case 4: return (int)hop_launch<4>(a, s);
+    default: return (int)hop_launch<2>(a, s);
+  }
+}
+
+// The partial scratch K5 needs: its slices over the hop.
+long long quant_hop_slices(int n_workers, int n_buckets, long long rows_b,
+                           long long rt, int bits) {
+  const long long sr = hop_slice_rows(bits);
+  return (long long)n_workers *
+         ((n_buckets - 1) * ((rows_b + sr - 1) / sr) + (rt + sr - 1) / sr);
+}
+
+// out[i] = the Threefry's bits (mode 1) or unit float (mode 2) of counter
+// offset + i under (k0, k1), or the counter itself (mode 0), i < count.
+int quant_threefry(unsigned k0, unsigned k1, unsigned offset, long long count,
+                   void* out, int mode, void* stream) {
+  if (count < 1 || count > 0x100000000LL || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((count + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* o = (uint32_t*)out;
+  switch (mode) {
+    case 0: threefry_kernel<0><<<grid, kThreads, 0, s>>>(k0, k1, offset, count, o); break;
+    case 1: threefry_kernel<1><<<grid, kThreads, 0, s>>>(k0, k1, offset, count, o); break;
+    default: threefry_kernel<2><<<grid, kThreads, 0, s>>>(k0, k1, offset, count, o); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """The port's one ``nvcc`` builder: each CUDA source under ``csrc/`` is
 compiled for ``sm_90a`` into its own shared library with a plain C
 interface under ``build/repro_torch/`` in the checkout, at first use
-(rebuilt when the source is newer), and bound with ctypes by its
-wrapper module. Importing this module needs no compiler and no card.
+(rebuilt when the source or a header beside it is newer), and bound
+with ctypes by its wrapper module. Importing this module needs no
+compiler and no card.
 
 ``build_many`` starts one ``nvcc`` per source, all together, and waits
 for them all: ``chip_smoke.py`` builds every library that way.
@@ -34,8 +35,12 @@ def nvcc() -> str:
 
 
 def _fresh(source: Path, library: Path) -> bool:
-    return library.exists() and library.stat().st_mtime >= \
-        source.stat().st_mtime
+    """The library is newer than its source and every header beside it."""
+    if not library.exists():
+        return False
+    built = library.stat().st_mtime
+    return all(built >= f.stat().st_mtime
+               for f in [source, *source.parent.glob("*.cuh")])
 
 
 def build_many(pairs, *, force: bool = False) -> list:

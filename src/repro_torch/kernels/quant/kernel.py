@@ -5,11 +5,15 @@
   K2 ``encode_packed``    quantize + bit-pack       (B, pack, R, 512) -> (B, R, 512) u8
   K3 ``decode_packed``    unpack + dequantize       (B, R, 512) u8 -> (B, pack, R, 512)
   K4 ``qdq_bucketed``     quantize -> dequantize    (B, pack, R, 512) -> same shape
-  K5 ``decode_add_encode_bucketed``  the ring hop   (B, R, 512) u8 + (B, pack, R, 512) -> (B, R, 512) u8
+  K5 ``decode_add_encode_bucketed``  one ring hop of N workers, drawing
+                                     its own uniforms: N x ((rows, 512) u8
+                                     + (pack * rows * 512,) f32) -> (N, rows, 512) u8
 
 K1-K4 each replace a pair of the JAX package's Pallas kernels: the
 bucketed form on the full buckets, and the per-leaf form as B = 1 on the
-tail. K5 replaces the fused ring hop, bucketed, with its tail as B = 1.
+tail. K5 replaces the fused ring hop and the uniform draws beside it, for
+every worker's full buckets and tail in one call; its plain version
+is ``ref.decode_add_encode_hop``.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version in
 ``ref.py``; a CUDA tensor launches the kernel on PyTorch's current
@@ -26,14 +30,20 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.quant import ref
 
 LANES = 512
+# One K5 launch's limits (csrc/quant.cu kHopMaxWorkers, kHopMaxKeys): its
+# workers, and their (worker, bucket) keys in the launch's argument block
+HOP_MAX_WORKERS = 8
+HOP_MAX_KEYS = 256
 SOURCE = nvcc.CSRC / "quant.cu"
 LIBRARY = nvcc.BUILD_DIR / "libquant.so"
 
@@ -57,17 +67,20 @@ def _load() -> ctypes.CDLL:
             lib.quant_minmax_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i,
                                                   vp]
             lib.quant_k1_blocks.argtypes = [ll, ll]
-            lib.quant_minmax_blocks.argtypes = [ll, ll]
             lib.quant_encode_packed.argtypes = [vp, vp, vp, vp, ll, ll, i,
                                                 vp]
             lib.quant_decode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp]
             lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i, vp]
-            lib.quant_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp,
-                                                    vp, ll, ll, i, i, vp]
+            lib.quant_decode_add_encode_hop.argtypes = [vp, vp, vp, vp, i, i,
+                                                        ll, ll, i, vp]
+            lib.quant_hop_slices.argtypes = [i, i, ll, ll, i]
+            lib.quant_hop_slices.restype = ll
+            lib.quant_threefry.argtypes = [ctypes.c_uint, ctypes.c_uint,
+                                           ctypes.c_uint, ll, vp, i, vp]
             for fn in (lib.quant_minmax_bucketed, lib.quant_k1_blocks,
-                       lib.quant_minmax_blocks,
                        lib.quant_encode_packed, lib.quant_decode_packed,
-                       lib.quant_qdq_bucketed, lib.quant_decode_add_encode):
+                       lib.quant_qdq_bucketed,
+                       lib.quant_decode_add_encode_hop, lib.quant_threefry):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -127,9 +140,9 @@ def _stream() -> int:
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """K1's per-bucket ticket counters on ``device``, at least ``n``:
-    zeroed when made, and left zeroed by every K1 launch (its last block
-    of a bucket resets the bucket's counter)."""
+    """K1's and K5's per-bucket ticket counters on ``device``, at least ``n``:
+    zeroed when made, and left zeroed by every K1 and K5 launch (the last
+    block of a bucket resets the bucket's counter)."""
     with _lock:
         t = _ticket_bufs.get(device)
         if t is None or t.numel() < n:
@@ -262,72 +275,160 @@ def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
     return out
 
 
-def decode_add_encode_bucketed(payload: torch.Tensor, params: torch.Tensor,
-                               x4: torch.Tensor, u4: torch.Tensor, *,
-                               bits: int, out: Optional[torch.Tensor] = None,
+def hop_keys(keys, n_buckets: int) -> np.ndarray:
+    """K5's key table: ``fold_in(keys[w], b)`` for each worker w and
+    bucket b, as (N, n_buckets, 2) uint32 words, computed on the host
+    with Python ints (``ops.bucket_key`` per bucket)."""
+    words = []
+    for key in keys:
+        k0, k1 = prng.key_words(key)
+        words.extend(prng.threefry2x32(k0, k1, 0, b)
+                     for b in range(n_buckets))
+    return np.array(words, dtype=np.uint32).reshape(len(keys), n_buckets, 2)
+
+
+def hop_chunks(n_workers: int, n_buckets: int) -> list:
+    """K5's launches for a hop of ``n_workers`` partitions of
+    ``n_buckets`` buckets: (first worker, end worker, first bucket, end
+    bucket) of each, in order. Each launch holds at most HOP_MAX_WORKERS
+    workers and HOP_MAX_KEYS (worker, bucket) keys; the launches together
+    cover every bucket of every worker once. A hop within both limits is
+    one launch."""
+    per = min(n_buckets, HOP_MAX_KEYS)
+    chunks = []
+    for b0 in range(0, n_buckets, per):
+        b1 = min(n_buckets, b0 + per)
+        group = min(HOP_MAX_WORKERS, HOP_MAX_KEYS // (b1 - b0))
+        chunks.extend((w0, min(n_workers, w0 + group), b0, b1)
+                      for w0 in range(0, n_workers, group))
+    return chunks
+
+
+def decode_add_encode_bucketed(payloads, params, locals_, keys, *,
+                               bits: int, rows_b: int, rt: int,
+                               out: Optional[torch.Tensor] = None,
                                params_out: Optional[torch.Tensor] = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5, the fused ring hop: the incoming payload (B, R, 512) uint8 with
-    its params (B, 2) [lo, scale], decoded, plus the local addend x4
-    (B, pack, R, 512) fp32, re-encoded per bucket against the uniforms u4
-    -> (payload_out (B, R, 512) uint8, params_out (B, 2) [lo, scale]),
-    into ``out`` / ``params_out`` when given. Bit-identical to
-    ``encode(decode(payload) + x4)``; the sum never reaches memory.
-    ``out`` and ``params_out`` must share no memory with an input or with
-    each other (on the card the finalize launch writes ``params_out``
-    before the encode launch reads the inputs again); on either device
-    an overlap raises."""
+    """K5, one ring hop of N workers in one call. Worker w's incoming
+    message -- ``payloads[w]`` (rows, 512) uint8 with ``params[w]``
+    (nb, 2) [lo, scale] -- decoded, plus its local fp32 slice
+    ``locals_[w]`` (pack * rows * 512,), re-encoded per bucket against
+    uniforms drawn on the card from ``fold_in(keys[w], b)`` -> (out
+    (N, rows, 512) uint8, params_out (N, nb, 2)), into ``out`` /
+    ``params_out`` when given. A partition has nb - 1 full buckets of
+    ``rows_b`` rows and a tail bucket of ``rt`` (rows = (nb - 1) * rows_b
+    + rt). Bit-identical to ``ref.decode_add_encode_hop``, the JAX
+    package's draws and ``decode_add_encode_bucketed`` per worker; the
+    sum and the uniforms never reach memory.
+
+    The inputs are any views (worker w's message may be another
+    worker's output, its slice a window of a larger buffer); ``out`` and
+    ``params_out`` share no memory with an input or with each other, or
+    it raises on either device. On the card every payload, slice and
+    output row is 16-byte aligned, or it raises. A hop of more than
+    HOP_MAX_WORKERS workers or HOP_MAX_KEYS (worker, bucket) keys, which
+    one launch's argument block holds, is cut into launches of whole
+    buckets (``hop_chunks``): still one call and one count."""
+    what = "decode_add_encode_bucketed"
     pack = _bits_ok(bits)
-    if payload.dim() != 3 or payload.shape[2] != LANES:
-        raise ValueError(f"decode_add_encode_bucketed: need (B, R, {LANES}), "
-                         f"got {tuple(payload.shape)}")
-    b, r, _ = payload.shape
-    if tuple(x4.shape) != (b, pack, r, LANES):
-        raise ValueError(f"decode_add_encode_bucketed: x4 {tuple(x4.shape)}, "
-                         f"need {(b, pack, r, LANES)} for bits={bits}")
-    given = [(n, t) for n, t in (("out", out), ("params_out", params_out))
-             if t is not None]
-    for i, (name, t) in enumerate(given):
-        others = [("payload", payload), ("params", params), ("x4", x4),
-                  ("u4", u4)] + given[i + 1:]
+    n = len(payloads)
+    if n < 1 or not n == len(params) == len(locals_) == len(keys):
+        raise ValueError(f"{what}: need as many payloads, params, locals_ "
+                         "and keys (at least one)")
+    if params[0].dim() != 2:
+        raise ValueError(f"{what}: params[0] {tuple(params[0].shape)}, "
+                         "need (nb, 2)")
+    nb = params[0].shape[0]
+    if not 1 <= rt <= rows_b:
+        raise ValueError(f"{what}: need 1 <= rt <= rows_b, got rt={rt}, "
+                         f"rows_b={rows_b}")
+    rows = (nb - 1) * rows_b + rt
+    dev = payloads[0].device
+    on_card = _on_cuda(payloads[0], what)
+    inputs = []
+    for w in range(n):
+        for name, t, dtype, shape in (
+                ("payloads", payloads[w], torch.uint8, (rows, LANES)),
+                ("params", params[w], torch.float32, (nb, 2)),
+                ("locals_", locals_[w], torch.float32,
+                 (pack * rows * LANES,))):
+            _require(t, f"{what} {name}[{w}]", dtype, shape, dev)
+            inputs.append((f"{name}[{w}]", t))
+    if out is None:
+        out = torch.empty((n, rows, LANES), dtype=torch.uint8, device=dev)
+    if params_out is None:
+        params_out = torch.empty((n, nb, 2), dtype=torch.float32,
+                                 device=dev)
+    _require(out, f"{what} out", torch.uint8, (n, rows, LANES), dev)
+    _require(params_out, f"{what} params_out", torch.float32, (n, nb, 2),
+             dev)
+    for name, t, others in (("out", out, inputs + [("params_out",
+                                                    params_out)]),
+                            ("params_out", params_out, inputs)):
         for other, o in others:
             if _overlaps(t, o):
-                raise ValueError(f"decode_add_encode_bucketed: {name} "
-                                 f"overlaps {other}")
-    if not _on_cuda(payload, "decode_add_encode_bucketed"):
-        res, res_p = ref.decode_add_encode_bucketed(payload, params, x4, u4,
-                                                    bits=bits)
-        if out is not None:
-            res = out.copy_(res)
-        if params_out is not None:
-            res_p = params_out.copy_(res_p)
-        return res, res_p
-    dev = payload.device
-    _require(payload, "decode_add_encode_bucketed payload", torch.uint8,
-             (b, r, LANES), dev)
-    _require(params, "decode_add_encode_bucketed params", torch.float32,
-             (b, 2), dev)
-    _require(x4, "decode_add_encode_bucketed x", torch.float32,
-             (b, pack, r, LANES), dev)
-    _require(u4, "decode_add_encode_bucketed u", torch.float32,
-             (b, pack, r, LANES), dev)
-    if out is None:
-        out = torch.empty((b, r, LANES), dtype=torch.uint8, device=dev)
-    if params_out is None:
-        params_out = torch.empty((b, 2), dtype=torch.float32, device=dev)
-    _require(out, "decode_add_encode_bucketed out", torch.uint8,
-             (b, r, LANES), dev)
-    _require(params_out, "decode_add_encode_bucketed params_out",
-             torch.float32, (b, 2), dev)
+                raise ValueError(f"{what}: {name} overlaps {other}")
+    if not on_card:
+        res, res_p = ref.decode_add_encode_hop(
+            payloads, params, locals_, keys, bits=bits, rows_b=rows_b, rt=rt)
+        out.copy_(res)
+        params_out.copy_(res_p)
+        return out, params_out
+    for name, t in [(f"payloads[{w}]", payloads[w]) for w in range(n)] + \
+            [(f"locals_[{w}]", locals_[w]) for w in range(n)] + \
+            [(f"out[{w}]", out[w]) for w in range(n)]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} {name}: must be 16-byte aligned")
     lib = _load()
-    nblk = lib.quant_minmax_blocks(b, r * LANES)
-    partial = torch.empty((b, nblk, 2), dtype=torch.float32, device=dev)
-    _check(lib.quant_decode_add_encode(
-        payload.data_ptr(), params.data_ptr(), x4.data_ptr(), u4.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), params_out.data_ptr(), b, r, nblk,
-        bits, _stream()), "decode_add_encode_bucketed")
+    table = hop_keys(keys, nb)
+    chunks = hop_chunks(n, nb)
+    geometry = [(w1 - w0, b1 - b0, rt if b1 == nb else rows_b)
+                for w0, w1, b0, b1 in chunks]
+    partial = torch.empty(
+        (max(lib.quant_hop_slices(m, nbc, rows_b, rtc, bits)
+             for m, nbc, rtc in geometry), 2),
+        dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, max(m * nbc for m, nbc, _ in geometry))
+    bucket = rows_b * LANES          # payload bytes, x elements / pack
+    for (w0, w1, b0, b1), (m, nbc, rtc) in zip(chunks, geometry):
+        ws = range(w0, w1)
+        ptrs = (ctypes.c_ulonglong * (5 * m))(
+            *[payloads[w].data_ptr() + b0 * bucket for w in ws],
+            *[params[w].data_ptr() + b0 * 8 for w in ws],
+            *[locals_[w].data_ptr() + b0 * pack * bucket * 4 for w in ws],
+            *[out[w].data_ptr() + b0 * bucket for w in ws],
+            *[params_out[w].data_ptr() + b0 * 8 for w in ws])
+        keys_c = np.ascontiguousarray(table[w0:w1, b0:b1])
+        _check(lib.quant_decode_add_encode_hop(
+            ptrs, keys_c.ctypes.data, partial.data_ptr(),
+            tickets.data_ptr(), m, nbc, rows_b, rtc, bits, _stream()), what)
     decode_add_encode_bucketed.launches += 1
     return out, params_out
+
+
+def threefry(key, offset: int, count: int, *,
+             device: Union[str, torch.device], unit: bool = False
+             ) -> torch.Tensor:
+    """The Threefry K5 draws with (``csrc/threefry.cuh``), alone, on the
+    card: the 32 random bits of counters offset .. offset + count - 1
+    under ``key`` (uint32 values in int64, as ``prng.random_bits``), or
+    their [0, 1) uniforms with ``unit``. For holding the card's draws
+    against ``core.prng``; no path of the port calls it, and it has no
+    plain version (that is ``prng.threefry2x32``): it raises off the
+    card."""
+    if offset < 0 or count < 1 or offset + count > 1 << 32:
+        raise ValueError(f"threefry: counters [{offset}, {offset + count}) "
+                         "outside [0, 2**32)")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"threefry: the card's hash needs a CUDA device, "
+                         f"got {device}; prng.threefry2x32 is its plain "
+                         "version")
+    k0, k1 = prng.key_words(key)
+    out = torch.empty((count,), dtype=torch.int32, device=device)
+    _check(_load().quant_threefry(k0, k1, offset, count, out.data_ptr(),
+                                  2 if unit else 1, _stream()), "threefry")
+    return out.view(torch.float32) if unit else out.to(torch.int64) & prng.M32
 
 
 KERNELS = (minmax_bucketed, encode_packed, decode_packed, qdq_bucketed,

@@ -3,8 +3,9 @@
 The port of the parts of ``repro.kernels.quant.ops`` on the checkpoint
 wire's path (``encode_flat`` / ``decode_flat`` and their geometry), on
 the training step's (``qdq_flat``) and on the ring AllReduce's
-(``partition_geometry``, the fused hop ``decode_add_encode_flat``). The
-wire layout is the JAX package's, byte for byte:
+(``partition_geometry``, the fused hop ``decode_add_encode_flat`` and
+its N-worker form ``decode_add_encode_partitions``). The wire layout is
+the JAX package's, byte for byte:
 
   * the flat fp32 buffer is cut into buckets of ``cap`` elements (a
     granule-aligned cap on ``bucket_elems``); bucket b owns elements
@@ -16,8 +17,8 @@ wire layout is the JAX package's, byte for byte:
     the pack*512 granule, gets its own Rt = ceil(t / granule) rows, and
     goes as a B = 1 launch of the same kernel;
   * bucket b draws its uniforms under ``bucket_key(key, b)`` =
-    ``fold_in(key, b)`` with the port's threefry, which gives the JAX
-    package's bits — so the published payload equals JAX's, and
+    ``fold_in(key, b)`` with the port's threefry (K5 hashes the same
+    counters on the card itself), which gives the JAX package's bits — so the published payload equals JAX's, and
     ``qdq_flat`` equals ``decode_flat(encode_flat(...))`` bit for bit.
 
 Dispatch follows the tensor's device (see ``kernel.py``): the CUDA
@@ -258,36 +259,46 @@ def decode_add_encode_flat(payload: torch.Tensor, params: torch.Tensor,
                     + local, key)
 
     A granule-aligned buffer (every ring partition, by
-    ``partition_geometry``) goes to K5: one launch over the full buckets,
-    one B = 1 launch over the tail, with the uniforms of ``encode_flat``.
-    Other sizes take that sequential composition itself, as the JAX
-    package does: K5 does not reproduce the edge pad of a short tail."""
+    ``partition_geometry``) goes to K5 as a hop of one worker: one call
+    over the full buckets and the tail, drawing the uniforms of
+    ``encode_flat`` itself. Other sizes take that sequential composition,
+    as the JAX package does: K5 does not reproduce the edge pad of a
+    short tail."""
     total = local.numel()
-    pack, cap, nb, rows_b, rows_kept = flat_geometry(
-        total, bits=bits, bucket_elems=bucket_elems)
+    pack = 8 // bits
     flat = local.reshape(-1).float()
     if total % (pack * LANES):
         dec = decode_flat(payload, params, total=total, bits=bits,
                           bucket_elems=bucket_elems)
         return encode_flat(dec.add_(flat), key, bits=bits,
                            bucket_elems=bucket_elems)
-    head_rows = (nb - 1) * rows_b
-    head_elems = (nb - 1) * cap
-    rt = rows_kept - head_rows
-    dev = flat.device
-    out = torch.empty((rows_kept, LANES), dtype=torch.uint8, device=dev)
-    out_params = torch.empty((nb, 2), dtype=torch.float32, device=dev)
-    if nb > 1:
-        kernel.decode_add_encode_bucketed(
-            payload[:head_rows].view(nb - 1, rows_b, LANES), params[:nb - 1],
-            flat[:head_elems].view(nb - 1, pack, rows_b, LANES),
-            _head_uniforms(key, nb, pack, rows_b, dev), bits=bits,
-            out=out[:head_rows].view(nb - 1, rows_b, LANES),
-            params_out=out_params[:nb - 1])
-    kernel.decode_add_encode_bucketed(
-        payload[head_rows:].view(1, rt, LANES), params[nb - 1:],
-        flat[head_elems:].view(1, pack, rt, LANES),
-        prng.uniform(bucket_key(key, nb - 1), (1, pack, rt, LANES),
-                     device=dev), bits=bits,
-        out=out[head_rows:].view(1, rt, LANES), params_out=out_params[nb - 1:])
-    return out, out_params
+    out, out_params = decode_add_encode_partitions(
+        [payload], [params], [flat], [key], bits=bits,
+        bucket_elems=bucket_elems)
+    return out[0], out_params[0]
+
+
+def decode_add_encode_partitions(payloads, params, locals_, keys, *,
+                                 bits: int = 8,
+                                 bucket_elems: int = DEFAULT_BUCKET_ELEMS,
+                                 out: Optional[torch.Tensor] = None,
+                                 params_out: Optional[torch.Tensor] = None):
+    """One reduce-scatter hop of the partitioned ring for N workers at
+    once (K5, one call): worker w decodes ``payloads[w]`` /
+    ``params[w]``, adds its granule-aligned (part_elems,) slice
+    ``locals_[w]`` and re-encodes under ``keys[w]`` -> (payloads (N,
+    rows_p, 512) uint8, params (N, nb_p, 2)), into ``out`` /
+    ``params_out`` when given. Worker w's result equals
+    ``decode_add_encode_flat(payloads[w], params[w], locals_[w],
+    keys[w])``. The inputs may be views (another worker's message, a
+    window of the stacked gradient); the outputs may not overlap them."""
+    part = locals_[0].numel()
+    pack, _, nb, rows_b, rows_kept = flat_geometry(
+        part, bits=bits, bucket_elems=bucket_elems)
+    if part % (pack * LANES):
+        raise ValueError(f"a ring partition is granule-aligned: {part} "
+                         f"elements is not a multiple of {pack * LANES}")
+    return kernel.decode_add_encode_bucketed(
+        payloads, params, [t.reshape(-1) for t in locals_], keys, bits=bits,
+        rows_b=rows_b, rt=rows_kept - (nb - 1) * rows_b, out=out,
+        params_out=params_out)

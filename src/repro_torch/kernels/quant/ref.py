@@ -17,11 +17,18 @@ takes three choices that a literal transcription gets wrong:
 Layouts follow ``repro.kernels.quant``: a bucket of pack * R * 512
 elements is pack contiguous (R, 512) segments, and payload byte (r, c)
 packs ``code_k << k * bits`` over the segments k.
+
+K5 draws its uniforms itself, so its plain version
+(``decode_add_encode_hop``) takes the buckets' keys, draws with
+``core.prng`` and runs ``decode_add_encode_bucketed``, the literal form
+of the TPU kernel that takes them as an input.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 
 def levels_of(bits: int) -> int:
@@ -117,10 +124,59 @@ def decode_add_encode_bucketed(payload: torch.Tensor, params: torch.Tensor,
     (B, 2) params, add the (B, pack, R, C) addend, take each bucket's
     range and scale, and re-encode against u4 -> ((B, R, C) uint8,
     (B, 2) [lo, scale]). The literal composition of the JAX package's
-    ``ops._dae_ref``."""
+    ``ops._dae_ref`` (the TPU kernel's function, fed its uniforms)."""
     summed = decode_packed_bucketed(payload, params[:, 0], params[:, 1],
                                     bits=bits) + x4
     lo, hi = minmax_bucketed(summed)
     scale = scale_of(lo, hi, bits)
     out = encode_packed_bucketed(summed, u4, lo, scale, bits=bits)
     return out, torch.stack([lo, scale], dim=1)
+
+
+def decode_add_encode_keyed(payload: torch.Tensor, params: torch.Tensor,
+                            local: torch.Tensor, key, *, bits: int,
+                            rows_b: int, rt: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One partition's ring hop with its own uniforms: the (rows, C)
+    payload and (nb, 2) params of the incoming message, the local
+    (pack * rows * C,) fp32 slice, nb - 1 full buckets of ``rows_b`` rows
+    and a tail bucket of ``rt``; bucket b re-encodes against
+    ``prng.uniform(fold_in(key, b), (pack, R, C))`` -> ((rows, C) uint8,
+    (nb, 2) [lo, scale]). The JAX package's ``decode_add_encode_flat`` on
+    a granule-aligned buffer: its draws, then the TPU kernel's function
+    on the full buckets and on the tail as B = 1."""
+    pack, nb, lanes = 8 // bits, params.shape[0], payload.shape[1]
+    head_rows = (nb - 1) * rows_b
+    head_elems = head_rows * pack * lanes
+    parts = []
+    if nb > 1:
+        u4 = torch.empty((nb - 1, pack, rows_b, lanes), dtype=torch.float32,
+                         device=local.device)
+        for b in range(nb - 1):
+            u4[b] = prng.uniform(prng.fold_in(key, b), (pack, rows_b, lanes),
+                                 device=local.device)
+        parts.append(decode_add_encode_bucketed(
+            payload[:head_rows].view(nb - 1, rows_b, lanes), params[:nb - 1],
+            local[:head_elems].view(nb - 1, pack, rows_b, lanes), u4,
+            bits=bits))
+        del u4
+    u3 = prng.uniform(prng.fold_in(key, nb - 1), (1, pack, rt, lanes),
+                      device=local.device)
+    parts.append(decode_add_encode_bucketed(
+        payload[head_rows:].view(1, rt, lanes), params[nb - 1:],
+        local[head_elems:].view(1, pack, rt, lanes), u3, bits=bits))
+    return (torch.cat([o.reshape(-1, lanes) for o, _ in parts]),
+            torch.cat([p for _, p in parts]))
+
+
+def decode_add_encode_hop(payloads, params, locals_, keys, *, bits: int,
+                          rows_b: int, rt: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: ``decode_add_encode_keyed`` of each worker's
+    (payload, params, local, key), stacked -> ((N, rows, C) uint8,
+    (N, nb, 2))."""
+    outs = [decode_add_encode_keyed(p, q, x, k, bits=bits, rows_b=rows_b,
+                                    rt=rt)
+            for p, q, x, k in zip(payloads, params, locals_, keys)]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([p for _, p in outs]))

@@ -212,7 +212,7 @@ def test_serving_on_the_card_swaps_and_matches_a_cold_start(card):
 def test_k5_bit_equal_to_cpu_plain(card, bits):
     """decode_add_encode_flat through K5 on the card (a multi-bucket head
     and a short tail) gives the CPU plain version's payload and params,
-    bit for bit, with one head and one tail launch."""
+    bit for bit, in one K5 call over the head and the tail."""
     granule = (8 // bits) * 512
     n = 5 * 4096 + 3 * granule
     x, loc = _data(n, seed=bits), _data(n, seed=bits + 10)
@@ -222,7 +222,7 @@ def test_k5_bit_equal_to_cpu_plain(card, bits):
     got, got_p = ops.decode_add_encode_flat(pay.to(card), par.to(card),
                                             loc.to(card), prng.PRNGKey(2),
                                             bits=bits, bucket_elems=4096)
-    assert kernel.decode_add_encode_bucketed.launches == 2
+    assert kernel.decode_add_encode_bucketed.launches == 1
     want, want_p = ops.decode_add_encode_flat(pay, par, loc, prng.PRNGKey(2),
                                               bits=bits, bucket_elems=4096)
     assert torch.equal(got.cpu(), want)
@@ -233,7 +233,7 @@ def test_reduced_ring_exchange_on_the_card_matches_the_cpu(card,
                                                           monkeypatch):
     """The partitioned rq4 ring over 4 stacked workers, partitions of
     several buckets: the card's result equals the CPU's bit for bit, and
-    every worker holds the same bits."""
+    every worker holds the same bits; one K5 call (one count) a hop."""
     from repro_torch.core import communicators, compression
     rng = np.random.default_rng(0)
     g = {"a": torch.from_numpy(rng.normal(size=(4, 30000)).astype(
@@ -244,7 +244,7 @@ def test_reduced_ring_exchange_on_the_card_matches_the_cpu(card,
     kernel.reset_launches()
     got, _ = ring(pytree.tree_map(lambda t: t.to(card), g), (),
                   prng.PRNGKey(3))
-    assert kernel.decode_add_encode_bucketed.launches == 4 * 3 * 2
+    assert kernel.decode_add_encode_bucketed.launches == 3
     want, _ = ring(g, (), prng.PRNGKey(3))
     for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
@@ -252,29 +252,137 @@ def test_reduced_ring_exchange_on_the_card_matches_the_cpu(card,
 
 
 def test_k5_wrapper_refuses_bad_cuda_inputs(card):
-    pay = torch.zeros((2, 1, 512), dtype=torch.uint8, device=card)
+    pay = torch.zeros((2, 512), dtype=torch.uint8, device=card)
     par = torch.ones((2, 2), device=card)
-    x4 = torch.zeros((2, 2, 1, 512), device=card)
+    loc = torch.zeros((2 * 2 * 512,), device=card)
+    key = prng.PRNGKey(0)
+    kernel.reset_launches()
+
+    def dae(pay=pay, par=par, loc=loc, n=1, **kw):
+        # n workers of 2 buckets of one row each, rq4
+        return kernel.decode_add_encode_bucketed(
+            [pay] * n, [par] * n, [loc] * n, [key] * n, bits=4, rows_b=1,
+            rt=1, **kw)
+
     with pytest.raises(TypeError, match="dtype"):
-        kernel.decode_add_encode_bucketed(pay.float(), par, x4, x4, bits=4)
-    with pytest.raises(ValueError, match="x4"):
-        kernel.decode_add_encode_bucketed(pay, par, x4[:, :1], x4, bits=4)
+        dae(pay=pay.float())
+    with pytest.raises(ValueError, match="locals_"):
+        dae(loc=loc[:1024])
     with pytest.raises(ValueError, match="expected"):
-        kernel.decode_add_encode_bucketed(pay, par.cpu(), x4, x4, bits=4)
+        dae(par=par.cpu())
     with pytest.raises(ValueError, match="out overlaps payload"):
-        kernel.decode_add_encode_bucketed(pay, par, x4, x4, bits=4, out=pay)
+        dae(out=pay.view(1, 2, 512))
     with pytest.raises(ValueError, match="params_out overlaps params"):
-        kernel.decode_add_encode_bucketed(pay, par, x4, x4, bits=4,
-                                          params_out=par)
+        dae(params_out=par.view(1, 2, 2))
     # partial overlaps: windows of one larger buffer
-    big = torch.zeros((3, 1, 512), dtype=torch.uint8, device=card)
+    big = torch.zeros((3, 512), dtype=torch.uint8, device=card)
     with pytest.raises(ValueError, match="out overlaps payload"):
-        kernel.decode_add_encode_bucketed(big[:2], par, x4, x4, bits=4,
-                                          out=big[1:])
+        dae(pay=big[:2], out=big[1:].view(1, 2, 512))
     prm = torch.ones((3, 2), device=card)
     with pytest.raises(ValueError, match="params_out overlaps params"):
-        kernel.decode_add_encode_bucketed(pay, prm[:2], x4, x4, bits=4,
-                                          params_out=prm[1:])
+        dae(par=prm[:2], params_out=prm[1:].view(1, 2, 2))
+    # views that are not 16-byte aligned
+    flat = torch.zeros((2 * 2 * 512 + 1,), device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dae(loc=flat[1:])
+    raw = torch.zeros((2 * 512 + 4,), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dae(pay=raw[4:].view(2, 512))
+    assert kernel.decode_add_encode_bucketed.launches == 0
+
+
+@pytest.mark.parametrize("n,nb", [(kernel.HOP_MAX_WORKERS + 1, 40),
+                                  (2, kernel.HOP_MAX_KEYS + 44)])
+def test_k5_hop_beyond_one_argument_block_bit_equal_to_cpu_plain(card, n,
+                                                                 nb):
+    """A hop of more workers, or more (worker, bucket) keys, than one
+    launch's argument block holds: one call and one count, several
+    launches of whole buckets, the CPU plain version's messages bit for
+    bit (tail bucket included)."""
+    be, bits = 4096, 4
+    part = (nb - 1) * be + 3 * 1024
+    g = _data(n * part, seed=nb).view(n, part)
+    msgs = [ops.encode_flat(g[i], prng.PRNGKey(i), bits=bits,
+                            bucket_elems=be) for i in range(n)]
+    loc = _data(n * part, seed=nb + 1).view(n, part)
+    keys = [prng.fold_in(prng.PRNGKey(70 + i), 1) for i in range(n)]
+
+    def hop(dev):
+        ld = loc.to(dev)
+        return ops.decode_add_encode_partitions(
+            [p.to(dev) for p, _ in msgs], [q.to(dev) for _, q in msgs],
+            [ld[i] for i in range(n)], keys, bits=bits, bucket_elems=be)
+
+    assert len(kernel.hop_chunks(n, nb)) > 1
+    kernel.reset_launches()
+    got, got_p = hop(card)
+    assert kernel.decode_add_encode_bucketed.launches == 1
+    want, want_p = hop("cpu")
+    assert got_p.shape == (n, nb, 2)
+    assert torch.equal(got.cpu(), want)
+    assert _same_bits(got_p, want_p)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_k5_hop_of_four_workers_bit_equal_to_cpu_plain(card, bits):
+    """One K5 launch over 4 workers reading views (worker i's incoming
+    message is i - 1's, its addend a window of a stacked buffer), with a
+    bucket holding Inf and NaN: the CPU plain version's messages bit for
+    bit."""
+    n, be = 4, 4096
+    part, nb, rows_p = ops.partition_geometry(n * 15000, n, bits=bits,
+                                              bucket_elems=be)
+    g = torch.stack([_data(n * part, seed=bits + i).view(n, part)
+                     for i in range(n)])
+    g[1, 0, 5] = float("inf")
+    g[2, 1, be + 3] = float("nan")
+    msgs = [ops.encode_flat(g[i, i], prng.PRNGKey(i), bits=bits,
+                            bucket_elems=be) for i in range(n)]
+    keys = [prng.fold_in(prng.PRNGKey(50 + i), 2) for i in range(n)]
+
+    def hop(dev):
+        gd = g.to(dev)
+        ms = [(p.to(dev), q.to(dev)) for p, q in msgs]
+        return ops.decode_add_encode_partitions(
+            [ms[(i - 1) % n][0] for i in range(n)],
+            [ms[(i - 1) % n][1] for i in range(n)],
+            [gd[i, (i - 1) % n] for i in range(n)], keys, bits=bits,
+            bucket_elems=be)
+
+    kernel.reset_launches()
+    got, got_p = hop(card)
+    assert kernel.decode_add_encode_bucketed.launches == 1
+    want, want_p = hop("cpu")
+    assert got.shape == (n, rows_p, 512)
+    assert torch.equal(got.cpu(), want)
+    assert _same_bits(got_p, want_p)
+    assert not bool(got_p[1].isfinite().all())       # the Inf
+    assert bool(got_p[2].isnan().any())               # the NaN
+
+
+def test_device_threefry_equals_prng(card):
+    """The card's Threefry (K5's draws) == prng.random_bits / prng.uniform
+    bit for bit over 4Mi counters from several offsets (across 2**24 and
+    near 2**32) and keys."""
+    n = 1 << 22
+    for seed in (0, 1, 12345):
+        key = prng.PRNGKey(seed)
+        bits = kernel.threefry(key, 0, n, device=card)
+        assert torch.equal(bits, prng.random_bits(key, (n,), device=card))
+        unit = kernel.threefry(key, 0, n, device=card, unit=True)
+        assert torch.equal(unit.view(torch.int32),
+                           prng.uniform(key, (n,), device=card)
+                           .view(torch.int32))
+    key = prng.fold_in(prng.PRNGKey(9), 3)
+    for offset in ((1 << 24) - (1 << 21), (1 << 32) - n):
+        lo = torch.arange(offset, offset + n, dtype=torch.int64, device=card)
+        y0, y1 = prng.threefry2x32(*prng.key_words(key), torch.zeros_like(lo),
+                                   lo)
+        assert torch.equal(kernel.threefry(key, offset, n, device=card),
+                           y0 ^ y1)
+    want = prng.random_bits(key, ((1 << 24) + 1000,), device=card)
+    got = kernel.threefry(key, (1 << 24) - 1000, 2000, device=card)
+    assert torch.equal(got, want[-2000:])
 
 
 # ----------------------------------------------------------- K6 flash ----

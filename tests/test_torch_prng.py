@@ -62,6 +62,30 @@ def test_threefry_runs_alike_on_ints_and_tensors():
     assert ints == (int(t[0]), int(t[1]))
 
 
+@pytest.mark.parametrize("shape", [(2000,), (2, 3, 512), (1, 4, 2, 512)])
+def test_element_counter_is_its_flat_index(shape):
+    """Element i (flat, C order) of a draw hashes the counter (0, i): the
+    layout the card's Threefry (csrc/threefry.cuh) hashes per element, so
+    a bucket's (pack, R, 512) draw and the tail's (1, pack, R, 512) one
+    need no table. JAX's bits and uniforms, and the port's, at counters
+    0 .. n - 1."""
+    key = jax.random.fold_in(jax.random.PRNGKey(3), 5)
+    pkey = prng.fold_in(prng.PRNGKey(3), 5)
+    n = int(np.prod(shape))
+    lo = torch.arange(n, dtype=torch.int64)
+    y0, y1 = prng.threefry2x32(*prng.key_words(pkey), torch.zeros_like(lo),
+                               lo)
+    bits = (y0 ^ y1).reshape(shape)
+    np.testing.assert_array_equal(
+        bits.numpy().astype(np.uint32),
+        np.asarray(jax.random.bits(key, shape, jnp.uint32)))
+    assert torch.equal(prng.random_bits(pkey, shape), bits)
+    want = np.asarray(jax.random.uniform(key, shape, jnp.float32))
+    np.testing.assert_array_equal(
+        prng.bits_to_unit(bits).numpy().view(np.uint32),
+        want.view(np.uint32))
+
+
 @pytest.mark.parametrize("scale", [0.5, 3.0, 30.0])
 def test_categorical_matches_jax(scale):
     """The engine's sampler: split keys, one categorical per row."""

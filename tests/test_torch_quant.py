@@ -175,8 +175,9 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     kernel.decode_packed(pay, params, bits=8)
     kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
                         bits=8)
-    kernel.decode_add_encode_bucketed(pay, params, x.view(2, 1, 1, 512),
-                                      x.view(2, 1, 1, 512), bits=8)
+    kernel.decode_add_encode_bucketed([pay.view(2, 512)], [params],
+                                      [x.view(-1)], [prng.PRNGKey(0)],
+                                      bits=8, rows_b=1, rt=1)
     assert kernel.launch_counts() == {"minmax_bucketed": 0,
                                       "encode_packed": 0,
                                       "decode_packed": 0,
@@ -188,9 +189,10 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         kernel.decode_packed(pay, params, bits=3)
     with pytest.raises(ValueError, match="need"):
         kernel.minmax_bucketed(torch.zeros((2, 100)))
-    with pytest.raises(ValueError, match="x4"):
-        kernel.decode_add_encode_bucketed(pay, params, x.view(2, 1, 1, 512),
-                                          x.view(2, 1, 1, 512), bits=4)
+    with pytest.raises(ValueError, match="locals_"):
+        kernel.decode_add_encode_bucketed([pay.view(2, 512)], [params],
+                                          [x.view(-1)], [prng.PRNGKey(0)],
+                                          bits=4, rows_b=1, rt=1)
 
 
 QDQ_CASES = [(n, bits, be) for n in (77, 4099, 300000) for bits in (8, 4, 2)

@@ -1,8 +1,12 @@
 """The partitioned ring AllReduce of repro_torch against repro's.
 
-K5's plain version (what ``kernel.decode_add_encode_bucketed`` runs on a
-CPU tensor) equals the JAX package's ``_dae_ref`` and its Pallas kernel
-in interpret mode, bit for bit; the flat hop, the partition geometry and
+The literal port of the TPU kernel (``ref.decode_add_encode_bucketed``,
+fed uniforms) and K5's keyed plain version (what
+``kernel.decode_add_encode_bucketed`` runs on CPU tensors: its own draws
+from the buckets' keys) equal the JAX package's ``_dae_ref`` and its
+Pallas kernel in interpret mode, fed ``jax.random.uniform`` under the
+same keys, bit for bit; the N-worker hop equals N one-worker hops; the
+flat hop, the partition geometry and
 the partitioned wire objects are JAX's; and ``CSGDRingExchange`` on
 stacked gradients gives the bits of JAX's vmapped exchange for the
 partitioned and the monolithic chains. Inputs are numpy arrays from a
@@ -24,7 +28,7 @@ from repro_torch import interop
 from repro_torch.core import communicators as TC
 from repro_torch.core import compression as tcomp
 from repro_torch.core import prng, pytree
-from repro_torch.kernels.quant import kernel, ops
+from repro_torch.kernels.quant import kernel, ops, ref
 
 AXIS = "workers"
 
@@ -47,9 +51,9 @@ def _incoming(total, bits, be, seed):
 @pytest.mark.parametrize("bits", [8, 4, 2])
 @pytest.mark.parametrize("b,rows", [(3, 4), (1, 5)])
 def test_dae_plain_equals_jax_ref_and_pallas_interpret(bits, b, rows):
-    """K5's plain version == JAX's jitted _dae_ref == the Pallas kernel
-    in interpret mode, bit for bit: a multi-bucket head and a B = 1
-    tail, given the same payload, params, addend and uniforms."""
+    """The TPU kernel's literal port == JAX's jitted _dae_ref == the
+    Pallas kernel in interpret mode, bit for bit: a multi-bucket head and
+    a B = 1 tail, given the same payload, params, addend and uniforms."""
     pack = 8 // bits
     pay, par, _ = _incoming(b * pack * rows * 512, bits, pack * rows * 512,
                             seed=bits + b)
@@ -62,11 +66,9 @@ def test_dae_plain_equals_jax_ref_and_pallas_interpret(bits, b, rows):
     pal, pal_p = jkernel.decode_add_encode_bucketed(
         jnp.asarray(pay), jnp.asarray(par), jnp.asarray(x4),
         jnp.asarray(u4), bits=bits, block_r=8, interpret=True)
-    kernel.reset_launches()
-    got, got_p = kernel.decode_add_encode_bucketed(
+    got, got_p = ref.decode_add_encode_bucketed(
         torch.from_numpy(pay), torch.from_numpy(par), torch.from_numpy(x4),
         torch.from_numpy(u4), bits=bits)
-    assert kernel.decode_add_encode_bucketed.launches == 0   # plain path
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(_u32(got_p.numpy()), _u32(want_p))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
@@ -299,7 +301,7 @@ def test_nan_code_packs_as_zero_like_xla(bits):
     x4[2, 0, 1, 3] = np.inf
     want, want_p = jax.jit(jops._dae_ref, static_argnames="bits")(
         pay, par, x4, u4, bits=bits)
-    got, got_p = kernel.decode_add_encode_bucketed(
+    got, got_p = ref.decode_add_encode_bucketed(
         torch.from_numpy(pay), torch.from_numpy(par), torch.from_numpy(x4),
         torch.from_numpy(u4), bits=bits)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -316,19 +318,168 @@ def test_k5_wrapper_refuses_overlapping_outputs():
     pay = torch.zeros((3, 1, 512), dtype=torch.uint8)
     prm = torch.ones((3, 2))
     x4 = torch.zeros((2, 2, 1, 512))
-    dae = kernel.decode_add_encode_bucketed
+    key = prng.PRNGKey(0)
+
+    def dae(pay, prm, loc, **kw):      # one worker, 2 buckets of 1 row
+        return kernel.decode_add_encode_bucketed(
+            [pay.view(-1, 512)], [prm], [loc.view(-1)], [key], bits=4,
+            rows_b=1, rt=1, **kw)
+
     with pytest.raises(ValueError, match="out overlaps payload"):
-        dae(pay[:2], prm[:2], x4, x4, bits=4, out=pay[:2])
+        dae(pay[:2], prm[:2], x4, out=pay[:2].view(1, 2, 512))
     with pytest.raises(ValueError, match="out overlaps payload"):
-        dae(pay[:2], prm[:2], x4, x4, bits=4, out=pay[1:])
+        dae(pay[:2], prm[:2], x4, out=pay[1:].view(1, 2, 512))
     with pytest.raises(ValueError, match="params_out overlaps params"):
-        dae(pay[:2], prm[:2], x4, x4, bits=4, params_out=prm[1:])
-    with pytest.raises(ValueError, match="params_out overlaps x4"):
-        dae(pay[:2], prm[:2], x4, x4, bits=4,
-            params_out=x4.view(-1)[:4].view(2, 2))
-    out, out_p = torch.empty((2, 1, 512), dtype=torch.uint8), torch.empty(2, 2)
-    got, got_p = dae(pay[:2], prm[:2], x4, x4, bits=4, out=out,
-                     params_out=out_p)
-    want, want_p = dae(pay[:2], prm[:2], x4, x4, bits=4)
+        dae(pay[:2], prm[:2], x4, params_out=prm[1:].view(1, 2, 2))
+    with pytest.raises(ValueError, match="params_out overlaps locals_"):
+        dae(pay[:2], prm[:2], x4, params_out=x4.view(-1)[:4].view(1, 2, 2))
+    out, out_p = torch.empty((1, 2, 512), dtype=torch.uint8), \
+        torch.empty(1, 2, 2)
+    got, got_p = dae(pay[:2], prm[:2], x4, out=out, params_out=out_p)
+    want, want_p = dae(pay[:2], prm[:2], x4)
     assert got is out and got_p is out_p
     assert torch.equal(got, want) and torch.equal(got_p, want_p)
+
+
+def _jax_keyed_hop(pay, par, loc, key, *, bits, rows_b, rt):
+    """The JAX package's hop of one granule-aligned partition: bucket b's
+    uniforms drawn as jax.random.uniform(fold_in(key, b), (pack, R, 512)),
+    the Pallas kernel in interpret mode on the full buckets and on the
+    tail as B = 1, and jops._dae_ref on the same inputs."""
+    pack, nb = 8 // bits, par.shape[0]
+    head_rows = (nb - 1) * rows_b
+    head_elems = head_rows * pack * 512
+    groups = [(slice(0, nb - 1), pay[:head_rows].reshape(nb - 1, rows_b, 512),
+               loc[:head_elems].reshape(nb - 1, pack, rows_b, 512), rows_b,
+               range(nb - 1))] if nb > 1 else []
+    groups.append((slice(nb - 1, nb), pay[head_rows:].reshape(1, rt, 512),
+                   loc[head_elems:].reshape(1, pack, rt, 512), rt,
+                   [nb - 1]))
+    pal, ref_out = [], []
+    for sl, p3, x4, r, buckets in groups:
+        u4 = np.stack([np.asarray(jax.random.uniform(
+            jax.random.fold_in(key, b), (pack, r, 512))) for b in buckets])
+        pal.append(jkernel.decode_add_encode_bucketed(
+            jnp.asarray(p3), jnp.asarray(par[sl]), jnp.asarray(x4),
+            jnp.asarray(u4), bits=bits, block_r=8, interpret=True))
+        ref_out.append(jax.jit(jops._dae_ref, static_argnames="bits")(
+            p3, par[sl], x4, u4, bits=bits))
+    cat = lambda outs: (  # noqa: E731
+        np.concatenate([np.asarray(o).reshape(-1, 512) for o, _ in outs]),
+        np.concatenate([np.asarray(q) for _, q in outs]))
+    return cat(pal), cat(ref_out)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("nb,rows_b,rt", [(3, 4, 2), (1, 5, 5)])
+def test_keyed_plain_equals_jax_draws_and_pallas_interpret(bits, nb, rows_b,
+                                                           rt):
+    """K5's keyed plain version (and the wrapper on CPU tensors) ==
+    the Pallas kernel in interpret mode fed jax.random.uniform(fold_in(
+    key, b), (pack, R, 512)) == jops._dae_ref on those draws, bit for
+    bit: a multi-bucket head with a short tail, and a lone B = 1 bucket."""
+    pack = 8 // bits
+    rows = (nb - 1) * rows_b + rt
+    pay, par, _ = _incoming(pack * rows * 512, bits, pack * rows_b * 512,
+                            seed=nb + bits)
+    assert par.shape == (nb, 2)
+    loc = (np.random.default_rng(bits).normal(size=pack * rows * 512)
+           * 0.05).astype(np.float32)
+    (pal, pal_p), (want, want_p) = _jax_keyed_hop(
+        pay, par, loc, jax.random.PRNGKey(11), bits=bits, rows_b=rows_b,
+        rt=rt)
+    got, got_p = ref.decode_add_encode_keyed(
+        torch.from_numpy(pay), torch.from_numpy(par), torch.from_numpy(loc),
+        prng.PRNGKey(11), bits=bits, rows_b=rows_b, rt=rt)
+    for o, q in ((pal, pal_p), (want, want_p)):
+        np.testing.assert_array_equal(got.numpy(), o)
+        np.testing.assert_array_equal(_u32(got_p.numpy()), _u32(q))
+    kernel.reset_launches()
+    wo, wp = kernel.decode_add_encode_bucketed(
+        [torch.from_numpy(pay)], [torch.from_numpy(par)],
+        [torch.from_numpy(loc)], [prng.PRNGKey(11)], bits=bits,
+        rows_b=rows_b, rt=rt)
+    assert kernel.decode_add_encode_bucketed.launches == 0   # plain path
+    assert torch.equal(wo[0], got) and torch.equal(wp[0], got_p)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_batched_hop_equals_single_worker_hops(n):
+    """One hop of N workers (the ring's reduce-scatter unit: worker i's
+    incoming message is worker i - 1's, its addend a window of the
+    stacked gradient) == N one-worker decode_add_encode_flat calls, bit
+    for bit, and leaves its inputs untouched."""
+    bits, be = 4, 4096
+    cdc = tcomp.codec(f"rq{bits}")
+    part, nb, rows_p = ops.partition_geometry(n * 9000, n, bits=bits,
+                                              bucket_elems=be)
+    assert nb >= 3
+    rng = np.random.default_rng(n)
+    gparts = torch.from_numpy((rng.normal(size=(n, n, part)) * 0.05)
+                              .astype(np.float32))
+    msgs = [ops.encode_flat(gparts[i, i] * 2, prng.PRNGKey(i), bits=bits,
+                            bucket_elems=be) for i in range(n)]
+    keys = [prng.fold_in(prng.PRNGKey(100 + i), 1) for i in range(n)]
+    pays = [msgs[(i - 1) % n][0] for i in range(n)]
+    prms = [msgs[(i - 1) % n][1] for i in range(n)]
+    locs = [gparts[i, (i - 1) % n] for i in range(n)]
+    keep = [t.clone() for t in pays + prms + [gparts]]
+    got, got_p = cdc.decode_add_encode_partitions(pays, prms, locs, keys,
+                                                  bucket_elems=be)
+    assert got.shape == (n, rows_p, 512) and got_p.shape == (n, nb, 2)
+    for i in range(n):
+        want, want_p = ops.decode_add_encode_flat(
+            pays[i], prms[i], locs[i], keys[i], bits=bits, bucket_elems=be)
+        assert torch.equal(got[i], want)
+        assert torch.equal(got_p[i].view(torch.int32),
+                           want_p.view(torch.int32))
+    for a, b in zip(pays + prms + [gparts], keep):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="granule-aligned"):
+        ops.decode_add_encode_partitions(pays, prms, [t[:-1] for t in locs],
+                                         keys, bits=bits, bucket_elems=be)
+
+
+def test_hop_key_table_equals_jax_fold_ins():
+    """The key table K5 receives, fold_in(fold_in(wkey_i, h), b) per
+    worker and bucket, computed on the host, == JAX's keys."""
+    n, nb = 4, 9
+    for h in (1, 2, 3):
+        wkeys = [jax.random.fold_in(jax.random.PRNGKey(7), i)
+                 for i in range(n)]
+        want = np.stack([np.stack([np.asarray(jax.random.fold_in(
+            jax.random.fold_in(wk, h), b), np.uint32) for b in range(nb)])
+            for wk in wkeys])
+        table = kernel.hop_keys(
+            [prng.fold_in(prng.fold_in(prng.PRNGKey(7), i), h)
+             for i in range(n)], nb)
+        assert table.dtype == np.uint32 and table.shape == (n, nb, 2)
+        np.testing.assert_array_equal(table, want)
+
+
+@pytest.mark.parametrize("n,nb", [(4, 8), (4, 31), (9, 40), (2, 300),
+                                  (1, 600), (17, 1)])
+def test_hop_chunks_cover_every_bucket_within_the_argument_block(n, nb):
+    """K5's launches for a hop: each within one launch's argument block
+    (at most HOP_MAX_WORKERS workers, HOP_MAX_KEYS keys), together every
+    (worker, bucket) once, in one launch when the hop fits it."""
+    chunks = kernel.hop_chunks(n, nb)
+    seen = []
+    for w0, w1, b0, b1 in chunks:
+        assert 0 < w1 - w0 <= kernel.HOP_MAX_WORKERS
+        assert 0 < (w1 - w0) * (b1 - b0) <= kernel.HOP_MAX_KEYS
+        seen += [(w, b) for w in range(w0, w1) for b in range(b0, b1)]
+    assert sorted(seen) == [(w, b) for w in range(n) for b in range(nb)]
+    fits = n <= kernel.HOP_MAX_WORKERS and n * nb <= kernel.HOP_MAX_KEYS
+    assert (len(chunks) == 1) == fits
+
+
+def test_threefry_check_entry_runs_only_on_the_card():
+    """kernel.threefry is the card's hash alone, for holding it against
+    core.prng: it refuses the CPU (prng.threefry2x32 is its plain
+    version) and counters past 2**32."""
+    key = prng.PRNGKey(3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.threefry(key, 0, 2000, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        kernel.threefry(key, (1 << 32) - 10, 11, device="cpu")
