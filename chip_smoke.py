@@ -230,6 +230,21 @@ RWKV_CHECK_LEN = 320
 RWKV_ONE_BLOCK_PEAK = 17_462_810_624
 RWKV_LOGITS_TOL = 1e-3
 
+# the cluster phase: the virtual-cluster tier's scheduler on the host,
+# its replays on the card at full width (repro-100m, 4 workers of batch
+# 2 x seq 256, the ring phase's), rq4, plain SGD; the message is the
+# full-width fp32 gradient
+CLUSTER_WORKERS = 4
+CLUSTER_SIZE_MB = TRAIN_TOTAL * 4 / 1e6
+CLUSTER_LR = 0.1
+CLUSTER_ROUNDS = 3
+# card against CPU on the same traces: a reduced LM or the quadratic on
+# the fp32 or rq4 wire (a gradient that differs from the CPU's by ~1e-6
+# relative flips a few of the LM's ~560k stochastic roundings, each by
+# one level, so the LM on the rq4 wire is held at 1e-3)
+CLUSTER_TOL = 1e-5
+CLUSTER_LM_RQ4_TOL = 1e-3
+
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
 QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
 # name -> (the TPU kernel it replaces (its bucketed form), source, bound;
@@ -251,6 +266,7 @@ TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
 RING_KERNELS = ("decode_add_encode_bucketed",)
 PREFILL_KERNELS = ("flash_attention_bhsd",)
 RWKV_KERNELS = ("wkv6_bhsk",)
+CLUSTER_KERNELS = ("minmax_bucketed", "qdq_bucketed")
 
 
 def log(msg: str) -> None:
@@ -2122,6 +2138,278 @@ def rwkv_phase(torch) -> dict:
             "launches": {"wkv6_bhsk": pre["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# cluster phase (the sixth main path: the virtual cluster's replays)
+# ---------------------------------------------------------------------------
+
+
+def cluster_traces() -> list:
+    """The phase's eight traces, scheduled on the host: (label, trace)."""
+    from repro_torch import cluster
+    from repro_torch.core import mixing
+
+    n = CLUSTER_WORKERS
+    spec = cluster.ClusterSpec(
+        n_workers=n, t_compute=1.0,
+        multipliers=cluster.straggler_multipliers(n, factor=4.0),
+        t_lat=1e-2, t_tr=2e-3, size_mb=CLUSTER_SIZE_MB, codec="rq4")
+    mk = cluster.make_protocol
+    sync = mk("sync_ps").schedule(spec, rounds=CLUSTER_ROUNDS)
+    crash = cluster.crash_restart(n, worker=1, t_down=2.0, t_up=6.0)
+    byz = cluster.byzantine_workers(n, f=1, mode="sign_flip")
+    out = [
+        ("sync_ps", sync),
+        ("async_ps", mk("async_ps").schedule(spec, horizon=sync.makespan)),
+        ("local_sgd_h2", mk("local_sgd", period_h=2).schedule(spec,
+                                                              rounds=2)),
+        ("dsgd_ring", mk("dsgd", w=mixing.ring(n)).schedule(
+            spec, rounds=CLUSTER_ROUNDS)),
+        ("dcd_rq4", mk("dcd", compressor="rq4").schedule(
+            spec, rounds=CLUSTER_ROUNDS)),
+        ("laq", mk("laq").schedule(spec, rounds=CLUSTER_ROUNDS)),
+        ("local_sgd_crash_restart", mk("local_sgd", period_h=2).schedule(
+            spec, rounds=2, plan=crash)),
+        ("sync_ps_byzantine_trimmed_mean",
+         mk("sync_ps", aggregator="trimmed_mean").schedule(
+             spec, rounds=CLUSTER_ROUNDS, plan=byz)),
+    ]
+    for _, tr in out:
+        cluster.validate_trace(tr)
+    rejoins = sum(len(r) for r in dict(out)["local_sgd_crash_restart"]
+                  .extra("rejoiners"))
+    if rejoins < 1:
+        raise AssertionError("the crash_restart trace has no rejoin pull")
+    return out
+
+
+def codec_calls(tr) -> int:
+    """The fused flat-codec calls (one K1 + K4 each) a replay of ``tr``
+    makes, from the trace alone: every worker's gradient of a sync-PS
+    round, every async and LAQ update, a round's present workers (H
+    times a round in local SGD) and one checkpoint pull per rejoin."""
+    n, p = tr.n_workers, tr.protocol
+    if p in ("async_ps", "laq"):
+        return tr.n_updates
+    if p == "sync_ps":
+        return tr.extra("rounds") * n
+    present = tr.extra_or("present")
+    if present is None:
+        present = [range(n)] * tr.extra("rounds")
+    steps = sum(len(rows) for rows in present)
+    rejoins = tr.extra_or("rejoiners", ())
+    if p == "local_sgd":
+        return tr.extra("period_h") * steps + sum(len(r) for r in rejoins)
+    if p in ("dsgd", "dcd"):
+        return steps + sum(1 for r in rejoins for _, donor in r
+                           if donor >= 0)
+    raise ValueError(f"no call count for protocol {p}")
+
+
+def cluster_draws_ms(torch) -> float:
+    """Host-clock ms of the plain-torch uniform draws of one full-width
+    rq4 gradient (31 buckets and the tail), the part of a codec call that
+    is not K1 or K4."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import ops
+
+    pack, _, nb, rows_b, rows_kept = ops.flat_geometry(TRAIN_TOTAL, bits=4)
+    rt = rows_kept - (nb - 1) * rows_b
+    key = prng.PRNGKey(3)
+
+    def draws():
+        ops._head_uniforms(key, nb, pack, rows_b, "cuda")
+        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
+                     device="cuda")
+
+    return host_ms(torch, draws, reps=2)
+
+
+def cluster_replay(torch, tr, wl) -> dict:
+    """One full-width replay on the card: launches, wall time, peak."""
+    from repro_torch import cluster
+    from repro_torch.kernels.quant import kernel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = cluster.replay(tr, wl, codec="rq4", lr=CLUSTER_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"res": res, "wall_s": wall, "launches": kernel.launch_counts(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def cluster_phase(torch) -> dict:
+    """The virtual-cluster tier at full width: eight traces scheduled on
+    the host (sync / async PS, local SGD, DSGD, DCD, LAQ, a crash and
+    rejoin, a Byzantine worker under the trimmed mean), each replayed on
+    full-width repro-100m on the card through K1 + K4; then the same
+    traces on small workloads on the card against the CPU, and the
+    receive edge (checked_decode) on the card."""
+    import numpy as np
+    from repro_torch import cluster
+    from repro_torch.core import compression
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    traces = cluster_traces()
+    wl = cluster.lm_workload(smoke=False, batch=RING_BATCH, seq=RING_SEQ,
+                             seed=0, device="cuda")
+    total = compression.FlatLayout.from_tree(wl.params0).total
+    if total != TRAIN_TOTAL:
+        raise AssertionError(f"{TRAIN_ARCH}: {total} parameters")
+    draws_ms = cluster_draws_ms(torch)
+    log(f"[cluster] {card}; {len(traces)} traces of {CLUSTER_WORKERS} "
+        f"workers, {CLUSTER_SIZE_MB} MB fp32 messages on the rq4 wire; "
+        f"the plain-torch draws of one gradient take {draws_ms:.1f} ms")
+    rows, launches = [], {k: 0 for k in CLUSTER_KERNELS}
+    for label, tr in traces:
+        run = cluster_replay(torch, tr, wl)
+        res = run["res"]
+        calls = codec_calls(tr)
+        got = {k: run["launches"][k] for k in CLUSTER_KERNELS}
+        want = {"minmax_bucketed": calls, "qdq_bucketed": 2 * calls}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, the trace "
+                                 f"asks {want}")
+        if not np.isfinite(res.losses).all():
+            raise AssertionError(f"{label}: non-finite loss {res.losses}")
+        for k in CLUSTER_KERNELS:
+            launches[k] += got[k]
+        wall_ms = run["wall_s"] * 1e3
+        row = {"replay": label, "protocol": tr.protocol,
+               "updates_applied": res.updates_applied,
+               "max_staleness": res.max_staleness,
+               "makespan_s": res.makespan, "wall_s": run["wall_s"],
+               "ms_per_update": wall_ms / res.updates_applied,
+               "codec_calls": calls, "launches": got,
+               "final_loss": res.final_loss,
+               "losses": [float(v) for v in res.losses],
+               "draws_share": calls * draws_ms / wall_ms,
+               "max_memory_allocated": run["max_memory_allocated"],
+               "card": card}
+        log(f"[cluster] {label}: {res.updates_applied} updates, max "
+            f"staleness {res.max_staleness}, makespan {res.makespan:.3f} "
+            f"s simulated, {row['ms_per_update']:.1f} ms wall an update, "
+            f"final loss {res.final_loss:.5f}, K1 {got['minmax_bucketed']}"
+            f" K4 {got['qdq_bucketed']} (trace: {calls} codec calls), "
+            f"draws {100 * row['draws_share']:.1f} %, peak "
+            f"{run['max_memory_allocated']} B, {card}")
+        rows.append(row)
+        del run, res
+    del wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[cluster] " + json.dumps(rows))
+    checked_decode_check(torch)
+    cluster_cross_device_check(torch, traces)
+    wall = time.perf_counter() - t0
+    log(f"[cluster] phase wall time {wall:.1f} s")
+    return {"replays": rows, "draws_ms": draws_ms, "launches": launches,
+            "wall_s": wall}
+
+
+def checked_decode_check(torch) -> None:
+    """The receive edge on the card: checked_decode of a clean
+    full-width rq4 message equals K3's decode bit for bit, and the same
+    message with one bit flipped raises."""
+    from repro_torch import configs
+    from repro_torch.core import compression, prng
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    params = transformer.init(cfg, torch.Generator(device="cuda"
+                                                   ).manual_seed(5))
+    cdc = compression.codec("rq4")
+    packed, crc = compression.frame(cdc.tree_encode_flat(params,
+                                                         prng.PRNGKey(6)))
+    del params
+    before = kernel.decode_packed.launches
+    got = compression.checked_decode(cdc, packed, crc)
+    if kernel.decode_packed.launches - before != 2:
+        raise AssertionError("checked_decode did not decode on K3")
+    if not bits_equal(got, cdc.flat_decode(packed)):
+        raise AssertionError("checked_decode != K3's decode")
+    bad = compression.flip_bit(packed, 8 * packed.payload.numel() // 2 + 5)
+    try:
+        compression.checked_decode(cdc, bad, crc)
+    except compression.WireCorruptionError:
+        pass
+    else:
+        raise AssertionError("a flipped bit passed checked_decode")
+    log(f"[check] checked_decode of a full-width rq4 message "
+        f"({packed.wire_bytes} B): == K3's decode bit for bit; a flipped "
+        "bit raises WireCorruptionError")
+
+
+def cluster_cross_device_check(torch, traces) -> None:
+    """The same traces on the card and on the CPU: the quadratic on the
+    rq4 wire and the reduced LM on the fp32 wire within CLUSTER_TOL (the
+    card's K1/K4 launches as the trace asks), the reduced LM on the rq4
+    wire within CLUSTER_LM_RQ4_TOL, its codec stage given the CPU's
+    gradient bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import cluster
+    from repro_torch.cluster import execute
+    from repro_torch.core import compression, parallel, prng, pytree
+    from repro_torch.kernels.quant import kernel
+
+    prob = parallel.Quadratic.make(prng.PRNGKey(0), d=32,
+                                   n_workers=CLUSTER_WORKERS, device="cpu")
+    quad = (execute.problem_workload(prob),
+            execute.problem_workload(dataclasses.replace(
+                prob, a=prob.a.cuda(), b=prob.b.cuda())))
+    lm_cpu = cluster.lm_workload(smoke=True, batch=2, seq=32, device="cpu")
+    lm = (lm_cpu, dataclasses.replace(
+        cluster.lm_workload(smoke=True, batch=2, seq=32, device="cuda"),
+        params0=pytree.tree_map(lambda t: t.cuda(), lm_cpu.params0)))
+
+    def both(tr, pair, codec, tol):
+        kernel.reset_launches()
+        got = cluster.replay(tr, pair[1], codec=codec, lr=CLUSTER_LR)
+        counts = kernel.launch_counts()
+        want = cluster.replay(tr, pair[0], codec=codec, lr=CLUSTER_LR)
+        err = float(np.max(np.abs(got.losses - want.losses)
+                           / np.abs(want.losses)))
+        if not err <= tol or not np.isfinite(got.losses).all():
+            raise AssertionError(f"{tr.protocol} {codec}: card "
+                                 f"{got.losses} CPU {want.losses}")
+        return err, counts
+
+    errs = {}
+    for label, tr in traces:
+        err, counts = both(tr, quad, "rq4", CLUSTER_TOL)
+        calls = codec_calls(tr)
+        if (counts["minmax_bucketed"], counts["qdq_bucketed"]) != \
+                (calls, calls):
+            raise AssertionError(f"{label}: quadratic launches {counts}, "
+                                 f"the trace asks {calls} each")
+        errs[f"quadratic/{label}"] = err
+        if tr.protocol != "dcd":     # its delta always rides rq4
+            errs[f"lm_fp32/{label}"] = both(tr, lm, "none", CLUSTER_TOL)[0]
+        if label in ("sync_ps", "dcd_rq4"):
+            errs[f"lm_rq4/{label}"] = both(tr, lm, "rq4",
+                                           CLUSTER_LM_RQ4_TOL)[0]
+    key = prng.PRNGKey(9)
+    g = lm_cpu.grad_fn(lm_cpu.params0, key)
+    cdc = compression.codec("rq4")
+    q_cpu = cdc.tree_qdq_flat(g, key)
+    q_card = cdc.tree_qdq_flat(pytree.tree_map(lambda t: t.cuda(), g), key)
+    if not all(bits_equal(a.cpu(), b) for a, b in zip(
+            pytree.tree_leaves(q_card), pytree.tree_leaves(q_cpu))):
+        raise AssertionError("the reduced LM's codec stage differs")
+    log(f"[check] the {len(traces)} traces on the card against the CPU "
+        f"(max relative loss difference; tolerance {CLUSTER_TOL}, "
+        f"{CLUSTER_LM_RQ4_TOL} for the LM on rq4): " + json.dumps(errs)
+        + "; the LM's codec stage given the CPU gradient: bit for bit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2156,6 +2444,7 @@ def main() -> int:
     timing["flash_attention_bhsd"] = prefilled["k6"]
     rwkv = rwkv_phase(torch)
     timing["wkv6_bhsk"] = rwkv["k7"]
+    clustered = cluster_phase(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -2166,7 +2455,8 @@ def main() -> int:
                                     "train": trained["launches"],
                                     "ring": ringed["launches"],
                                     "prefill": prefilled["launches"],
-                                    "rwkv": rwkv["launches"]}))
+                                    "rwkv": rwkv["launches"],
+                                    "cluster": clustered["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]

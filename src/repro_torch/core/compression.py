@@ -10,8 +10,10 @@ and partitioned tier (the ring AllReduce's partitions and its fused hop,
 K5), the qdq-only ``QdqCodec`` operators (``none``, ``sign1``,
 ``clip16``, ``topk_1``, ``rand_sparse_10``, plus the reference
 ``randomized_quantize``), the ``codec()`` registry and the
-wire-integrity helpers. The per-leaf ``Packed`` tier (one message per
-leaf) is not ported: ``QuantCodec.qdq`` says so.
+wire-integrity helpers (CRC framing, ``checked_decode``). The per-leaf
+``Packed`` tier (one message per leaf) is not ported: ``QuantCodec.qdq``
+says so; only its size is (``Codec.wire_bytes_for``, which the event
+simulator and the cluster scheduler charge).
 
 A ``FlatLayout`` flattens a parameter tree onto ONE contiguous fp32
 buffer in JAX's leaf order (dict keys sorted, ``core.pytree``), so the
@@ -222,6 +224,18 @@ class Codec:
     def qdq(self, x: torch.Tensor, key) -> torch.Tensor:
         raise NotImplementedError
 
+    def _leaf_wire_bytes(self, n_elements: int) -> float:
+        return self.spec.compressed_bytes(n_elements)
+
+    def wire_bytes_for(self, n_elements: int) -> float:
+        """Wire bytes of one flat fp32 message of ``n_elements`` sent as
+        one leaf (what the event simulator and the cluster scheduler size
+        every message with): the static spec's bytes for a qdq-only
+        codec, the per-leaf packed format's for QuantCodec."""
+        b = self._leaf_wire_bytes(int(n_elements))
+        self._observe_wire(b, int(n_elements), tier="leaf")
+        return b
+
     def flat_qdq(self, flat: torch.Tensor, key, *,
                  bucket_elems: int = DEFAULT_BUCKET_ELEMS,
                  donate: bool = False) -> torch.Tensor:
@@ -303,6 +317,11 @@ class QuantCodec(Codec):
             raise ValueError(f"bits must be 8, 4 or 2, got {bits}")
         self.bits = bits
         self.spec = CompressionSpec(f"rq{bits}", True, float(bits))
+
+    def _leaf_wire_bytes(self, n_elements: int) -> float:
+        """payload rows x 512 + the (1, 2) fp32 params header."""
+        return float(ops.leaf_payload_rows(n_elements, bits=self.bits)
+                     * ops.LANES + 8)
 
     def qdq(self, x, key):
         raise NotImplementedError(
@@ -618,6 +637,15 @@ def verify_wire(packed: FlatPacked, crc: int, *, where: str = "wire"
             f"{where}: CRC32 mismatch on packed message "
             f"(got 0x{got:08x}, frame says 0x{want:08x}) — payload or "
             "params corrupted in flight")
+
+
+def checked_decode(cdc: Codec, packed: FlatPacked, crc: int, *,
+                   where: str = "wire") -> torch.Tensor:
+    """Verify the frame, then decode; the receive edge in one call."""
+    verify_wire(packed, crc, where=where)
+    out = cdc.flat_decode(packed)
+    guard_finite(out, where=where)
+    return out
 
 
 def flip_bit(packed: FlatPacked, bit: int) -> FlatPacked:

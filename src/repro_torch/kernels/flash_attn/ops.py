@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attn import kernel
+from repro_torch.obs import flight as obs_flight
 
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 128
@@ -40,6 +41,7 @@ class _Forward(torch.autograd.Function):
             "use_flash=False")
 
 
+@obs_flight.kernel_annotation("flash_attn.forward")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, block_q: int = DEFAULT_BLOCK_Q,

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.kernels.quant import kernel, ref
+from repro_torch.obs import flight as obs_flight
 
 LANES = 512
 
@@ -66,6 +67,15 @@ def flat_geometry(total: int, *, bits: int,
     tail = total - (n_buckets - 1) * cap
     rows_kept = (n_buckets - 1) * rows_b + -(-tail // granule)
     return pack, cap, n_buckets, rows_b, rows_kept
+
+
+def leaf_payload_rows(n: int, *, bits: int) -> int:
+    """Payload rows of ONE leaf of ``n`` elements in the per-leaf packed
+    format (one message per leaf, params (1, 2)): the leaf is zero-padded
+    to the pack*512 granule and packs ``pack`` codes a byte, so it takes
+    ceil(n / granule) rows of 512 bytes. Only the size is ported: the
+    per-leaf encode itself is not."""
+    return -(-int(n) // ((8 // bits) * LANES))
 
 
 def partition_geometry(total: int, n_parts: int, *, bits: int,
@@ -158,6 +168,7 @@ def encode_padded(padded: torch.Tensor, total: int, key, *, bits: int = 8,
     return payload, params
 
 
+@obs_flight.kernel_annotation("quant.encode_flat")
 def encode_flat(flat: torch.Tensor, key, *, bits: int = 8,
                 bucket_elems: int = DEFAULT_BUCKET_ELEMS):
     """Bucketed encode of a flat fp32 buffer.
@@ -172,6 +183,7 @@ def encode_flat(flat: torch.Tensor, key, *, bits: int = 8,
                          bucket_elems=bucket_elems)
 
 
+@obs_flight.kernel_annotation("quant.decode_flat")
 def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
                 bits: int = 8, bucket_elems: int = DEFAULT_BUCKET_ELEMS,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -206,6 +218,7 @@ def decode_flat(payload: torch.Tensor, params: torch.Tensor, *, total: int,
     return out
 
 
+@obs_flight.kernel_annotation("quant.qdq_flat")
 def qdq_flat(flat: torch.Tensor, key, *, bits: int = 8,
              bucket_elems: int = DEFAULT_BUCKET_ELEMS,
              donate: bool = False) -> torch.Tensor:
@@ -248,6 +261,7 @@ def _head_uniforms(key, nb: int, pack: int, rows_b: int, device):
     return u4
 
 
+@obs_flight.kernel_annotation("quant.decode_add_encode_flat")
 def decode_add_encode_flat(payload: torch.Tensor, params: torch.Tensor,
                            local: torch.Tensor, key, *, bits: int = 8,
                            bucket_elems: int = DEFAULT_BUCKET_ELEMS):

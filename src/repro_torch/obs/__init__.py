@@ -1,16 +1,22 @@
-"""Telemetry tier of the port: stdlib copies of ``repro.obs``'s switches,
-metrics and wall/sim-span tracer — what the serving path calls. Off by
-default (``REPRO_OBS=1`` or ``obs.enable()`` turns it on). The flight
-recorder, Perfetto export, run ids and the scheduler-trace renderer
-wait for the obs slice.
+"""Telemetry tier of the port: stdlib copies of ``repro.obs`` —
+switches, metrics, the wall/sim-span tracer and its scheduler-trace
+renderer, the flight recorder and run identity. Off by default
+(``REPRO_OBS=1`` or ``obs.enable()`` turns it on); ``kernel_scope``
+opens a ``torch.profiler.record_function`` range only while tracing is
+on. ``python -m repro_torch.obs.export trace`` writes a timeline.
 """
+from repro_torch.obs.flight import (kernel_scope, record as flight_record,
+                                    recorder as flight_recorder)
 from repro_torch.obs.metrics import (counter, gauge, histogram,
                                      observe_array,
                                      registry as metrics_registry)
+from repro_torch.obs.runinfo import SCHEMA_VERSION, run_id, stamp_rows
 from repro_torch.obs.state import disable, enable, enabled
-from repro_torch.obs.trace import span, tracer
+from repro_torch.obs.trace import span, timeline_from_trace, tracer
 
 __all__ = [
-    "counter", "disable", "enable", "enabled", "gauge", "histogram",
-    "metrics_registry", "observe_array", "span", "tracer",
+    "SCHEMA_VERSION", "counter", "disable", "enable", "enabled",
+    "flight_record", "flight_recorder", "gauge", "histogram",
+    "kernel_scope", "metrics_registry", "observe_array", "run_id",
+    "span", "stamp_rows", "timeline_from_trace", "tracer",
 ]

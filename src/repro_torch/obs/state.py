@@ -10,7 +10,7 @@ module must stay dependency-free and branch-cheap.
 Kinds:
   trace    span/event tracer (repro_torch.obs.trace)
   metrics  counters/gauges/histograms (repro_torch.obs.metrics)
-  flight   reserved for the flight recorder (not ported yet)
+  flight   bounded ring buffer of recent events (repro_torch.obs.flight)
 
 ``REPRO_OBS=1`` in the environment enables all three at import time
 (the CI tracing job uses exactly this). ``REPRO_OBS=trace,metrics``

@@ -1,8 +1,6 @@
 """Span/event tracer emitting Chrome-trace / Perfetto JSON timelines.
 
-A stdlib copy of ``repro.obs.trace`` up to ``span``/``tracer``; the
-scheduler-trace renderer (``timeline_from_trace``) waits for the obs
-slice of the port.
+A stdlib copy of ``repro.obs.trace``.
 
 Two clocks, one event stream:
 
@@ -14,6 +12,25 @@ Two clocks, one event stream:
     server) and a ``lane`` string, and the tracer assigns one Perfetto
     process per worker with one thread per lane, so the exported JSON
     opens as per-worker tracks in https://ui.perfetto.dev.
+
+``timeline_from_trace`` renders a scheduler ``Trace`` post-hoc from its
+ledgers alone — deterministically, with an exact accounting contract:
+
+  * ONE complete ('X') span per ``Delivery`` in ``trace.comm``, on the
+    worker-side endpoint's track (uplink: sender; downlink: receiver;
+    gossip: sender), ``cat = "wire,<direction>,<status>"`` — so
+    ok+lost+dup+corrupted wire spans == the wire ledger, mirroring
+    ``faults.validate``;
+  * ONE instant per ``TraceEvent`` (updates/barriers/rejoins) and per
+    fault-ledger record (drops, retries, dups, corruptions, shortfalls,
+    epochs, lost compute), plus one 'X' quorum-wait span per ``TimeoutRecord``
+    (the late arrival's [cut, arrival] window).
+
+Those counts are asserted by ``repro_torch.obs.export`` at export time
+and by tests/test_torch_cluster.py, so a timeline can never silently
+disagree with the ledgers it renders. Live scheduler instrumentation
+(compute spans) adds rows to the same tracks when tracing is enabled
+during scheduling.
 
 Sim seconds are exported as microseconds (ts = t * 1e6); wall spans use
 microseconds since the tracer's first event. Zero dependencies beyond
@@ -185,3 +202,106 @@ def span(name: str, *, cat: str = "host", args: Optional[dict] = None):
     """Module-level wall-span shorthand: ``with obs.span("replay"):``."""
     with _TRACER.span(name, cat=cat, args=args):
         yield
+
+
+# ---------------------------------------------------------------------------
+# Scheduler Trace -> per-worker timeline
+# ---------------------------------------------------------------------------
+
+
+def _wire_lane_owner(d, ps: int) -> tuple:
+    """(lane, owning worker) of one Delivery under the track contract."""
+    if d.dst == ps:
+        return "uplink", d.src
+    if d.src == ps:
+        return "downlink", d.dst
+    return "gossip", d.src
+
+
+def timeline_from_trace(cluster_trace, *, into: Optional[Tracer] = None
+                        ) -> Tracer:
+    """Render a scheduler ``Trace``'s ledgers as per-worker tracks.
+
+    Accounting contract (asserted by ``export.verify_timeline``): one
+    'X' wire span per ``trace.comm`` Delivery, one quorum-wait span per
+    ``TimeoutRecord``, one instant per ``TraceEvent`` and per remaining
+    fault-ledger record. ``into`` appends to an existing tracer (e.g.
+    one that captured live compute spans during scheduling).
+    """
+    tr = into if into is not None else Tracer()
+    ps = cluster_trace.n_workers
+
+    for d in cluster_trace.comm:
+        lane, owner = _wire_lane_owner(d, ps)
+        status = getattr(d, "status", "ok")
+        tr.sim_span(d.tag, worker=owner, lane=lane, t0=d.t_start,
+                    t1=d.t_end, cat=f"wire,{lane},{status}",
+                    args={"src": d.src, "dst": d.dst, "mb": d.size,
+                          "status": status})
+
+    for e in cluster_trace.events:
+        if e.kind == "update":
+            tr.instant("update", worker=e.worker, lane="compute",
+                       t=e.t_wall, cat="event,update",
+                       args={"step": e.step,
+                             "version_pulled": e.version_pulled,
+                             "version_applied": e.version_applied,
+                             "staleness": e.staleness})
+        elif e.kind == "rejoin":
+            tr.instant("rejoin", worker=e.worker, lane="faults",
+                       t=e.t_wall, cat="event,rejoin",
+                       args={"step": e.step})
+        else:   # sync / gossip barrier markers live on the server track
+            tr.instant(e.kind, worker=PS, lane="compute", t=e.t_wall,
+                       cat=f"event,{e.kind}",
+                       args={"round": e.step,
+                             "version": e.version_applied})
+
+    led = cluster_trace.faults
+    if led is not None:
+        def wtrack(idx: int) -> int:
+            return PS if idx >= ps else idx
+
+        for r in led.drops:
+            tr.instant("drop", worker=wtrack(r.src), lane="faults",
+                       t=r.t, cat="fault,drop",
+                       args={"dst": r.dst, "tag": r.tag,
+                             "attempt": r.attempt})
+        for r in led.retries:
+            tr.instant("retry", worker=wtrack(r.src), lane="faults",
+                       t=r.t, cat="fault,retry",
+                       args={"dst": r.dst, "tag": r.tag,
+                             "attempt": r.attempt})
+        for r in led.duplicates:
+            tr.instant("dup", worker=wtrack(r.src), lane="faults",
+                       t=r.t, cat="fault,dup",
+                       args={"dst": r.dst, "tag": r.tag})
+        for r in led.corrupt:
+            tr.instant("corrupt", worker=wtrack(r.src), lane="faults",
+                       t=r.t, cat="fault,corrupt",
+                       args={"dst": r.dst, "tag": r.tag,
+                             "attempt": r.attempt, "kind": r.kind})
+        for r in led.timeouts:
+            # the quorum wait the straggler lost: [cut, late arrival]
+            tr.sim_span("quorum-late", worker=r.worker, lane="faults",
+                        t0=r.t_cut, t1=r.t_arrival, cat="fault,quorum",
+                        args={"round": r.round})
+        for r in led.shortfalls:
+            tr.instant("quorum-shortfall", worker=PS, lane="faults",
+                       t=0.0, cat="fault,shortfall",
+                       args={"round": r.round, "got": r.n_got,
+                             "wanted": r.n_wanted})
+        for r in led.epochs:
+            tr.instant("membership-epoch", worker=PS, lane="faults",
+                       t=r.t, cat="fault,epoch",
+                       args={"round": r.round,
+                             "alive": list(r.alive),
+                             "birkhoff_terms": r.n_birkhoff_terms})
+        for r in led.rejoins:
+            tr.instant("rejoin-pull", worker=r.worker, lane="faults",
+                       t=r.t, cat="fault,rejoin",
+                       args={"round": r.round, "donor": r.donor})
+        for (w, t) in led.lost_compute:
+            tr.instant("lost-compute", worker=w, lane="faults", t=t,
+                       cat="fault,lost_compute", args={})
+    return tr

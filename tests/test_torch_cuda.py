@@ -610,3 +610,72 @@ def test_rwkv_prefill_on_the_card_runs_k7_and_matches_the_cpu(card):
     torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
     for g, w in zip(pytree.tree_leaves(got_g), pytree.tree_leaves(want_g)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+CLUSTER_CASES = [("sync_ps", {}, None), ("async_ps", {}, None),
+                 ("local_sgd", {"period_h": 2}, None), ("dsgd", {}, None),
+                 ("dcd", {}, None), ("ecd", {}, None), ("laq", {}, None),
+                 ("local_sgd", {"period_h": 2}, "crash"),
+                 ("sync_ps", {"aggregator": "trimmed_mean"}, "byzantine")]
+
+
+@pytest.mark.parametrize("name, kw, fault", CLUSTER_CASES)
+def test_cluster_replay_on_the_card_matches_the_cpu(card, name, kw, fault):
+    """A reduced replay of each protocol (the quadratic, 4 workers, the
+    rq4 wire) on the card equals the CPU's within 1e-5, and launches K1
+    and K4 (the tail bucket only) once per codec call the trace charges:
+    every sync-PS gradient, every async or LAQ update, the present
+    workers' steps and one checkpoint pull per rejoin; ecd's sign1 wire
+    launches none."""
+    import dataclasses
+    from repro_torch import cluster
+    from repro_torch.cluster import execute
+    from repro_torch.core import parallel
+    n = 4
+    spec = cluster.ClusterSpec(
+        n_workers=n, t_compute=1.0,
+        multipliers=cluster.straggler_multipliers(n, factor=4.0),
+        t_lat=1e-2, t_tr=2e-3, size_mb=1.0, codec="rq4")
+    plan = {None: None,
+            "crash": cluster.crash_restart(n, worker=1, t_down=2.0,
+                                           t_up=6.0),
+            "byzantine": cluster.byzantine_workers(n, f=1)}[fault]
+    proto = cluster.make_protocol(name, **kw)
+    tr = (proto.schedule(spec, horizon=12.0, plan=plan)
+          if name == "async_ps" else proto.schedule(spec, rounds=3,
+                                                    plan=plan))
+    prob = parallel.Quadratic.make(prng.PRNGKey(0), d=32, n_workers=n,
+                                   device="cpu")
+    cpu = execute.problem_workload(prob)
+    gpu = execute.problem_workload(dataclasses.replace(
+        prob, a=prob.a.to(card), b=prob.b.to(card)))
+    kernel.reset_launches()
+    got = cluster.replay(tr, gpu, lr=0.1)
+    counts = kernel.launch_counts()
+    want = cluster.replay(tr, cpu, lr=0.1)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    present = tr.extra_or("present") or [range(n)] * 3
+    rejoins = sum(len(r) for r in tr.extra_or("rejoiners", ()))
+    calls = {"sync_ps": 3 * n, "async_ps": tr.n_updates,
+             "laq": tr.n_updates, "dsgd": 3 * n, "dcd": 3 * n, "ecd": 0,
+             "local_sgd": 2 * sum(len(p) for p in present) + rejoins}[name]
+    assert counts["minmax_bucketed"] == calls
+    assert counts["qdq_bucketed"] == calls
+    if fault == "crash":
+        assert rejoins >= 1
+
+
+def test_checked_decode_on_the_card_is_k3_and_refuses_a_flipped_bit(card):
+    from repro_torch.core import compression
+    x = _data(3 * 4096 + 77, seed=4).to(card)
+    cdc = compression.codec("rq4")
+    layout = compression.FlatLayout.from_tree(x)
+    packed, crc = compression.frame(cdc.flat_encode(x, prng.PRNGKey(2),
+                                                    layout,
+                                                    bucket_elems=4096))
+    before = kernel.decode_packed.launches
+    got = compression.checked_decode(cdc, packed, crc)
+    assert kernel.decode_packed.launches - before == 2
+    assert _same_bits(got, cdc.flat_decode(packed))
+    with pytest.raises(compression.WireCorruptionError):
+        compression.checked_decode(cdc, compression.flip_bit(packed, 9), crc)
