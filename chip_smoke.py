@@ -6,8 +6,11 @@ full-width repro-100m with rq4 + error-feedback gradient compression,
 runs the paper's algorithm tier on it (four workers stacked on the card
 exchanging gradients through the partitioned rq4 ring AllReduce),
 prefills full-width qwen1.5-0.5b, repro-100m and granite-8b on the
-flash-attention kernel, and prefills and serves full-width rwkv6-3b on
-the WKV6 scan kernel.
+flash-attention kernel, prefills and serves full-width rwkv6-3b on the
+WKV6 scan kernel, replays the virtual cluster's traces on full-width
+repro-100m, and prefills and serves the hybrid and MoE families
+(recurrentgemma-9b, deepseek-v2-lite-16b) and prefills qwen2.5-14b and
+command-r-35b (bf16) at full width.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -87,7 +90,26 @@ Phases (any failure raises and the script exits non-zero):
      prefill (the recurrent decode loop) on 1 x 320 tokens within 1e-3;
      the Engine serving 8 requests on 4 slots with 0 dropped. Then a
      reduced prefill, train step (loss and gradients, on the chunked
-     scan) and decode on the card against the CPU.
+     scan) and decode on the card against the CPU;
+  9. cluster: eight traces scheduled on the host, replayed on
+     full-width repro-100m (4 workers, rq4: K1 once and K4 twice a codec
+     call), card against CPU on reduced replays;
+ 10. families, at full width and depth with random weights from a seed
+     (fp32 with TF32 off; command-r-35b bf16): recurrentgemma-9b
+     (10,664,163,328 parameters) make_prefill_step(use_flash=True,
+     scan_layers=True, logits_positions="last") on 1 x 8192, K6 once per
+     local-attention layer (12, window 2048), logits within 1e-3 of the
+     non-flash prefill and, on 1 x 320, of the bulk prefill (the decode
+     loop), the Engine serving 8 requests (prompt 32, generation
+     8/16/32, 4 slots, greedy); deepseek-v2-lite-16b (15,647,895,040
+     parameters) prefill 1 x 4096 (one MoE group, capacity 480), peak
+     memory, layer 0's absorbed MLA decode over 64 tokens within 1e-3 of
+     its full-sequence form, 8 served requests through the latent
+     cache; qwen2.5-14b (fp32) and command-r-35b (bf16) flash prefills
+     of 1 x 8192 on K6 against their non-flash prefills (1e-3; bf16
+     0.05), K6 alone at each geometry; then the five configs reduced,
+     prefill and a train step's loss and gradients, card against CPU
+     within 1e-5.
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -194,6 +216,17 @@ FLASH_GEOMETRIES = (
 PREFILL_TOL = 1e-3
 # a reduced prefill on the card against the CPU: the model tests' 1e-5
 REDUCED_TOL = 1e-5
+# bf16: K6 against its plain version (bf16 rounds to 2**-8 relative)
+BF16_TOL = 0.05
+# a bf16 model's flash prefill logits against its non-flash prefill, by
+# relative L2 (|flash - ref| / |ref|): at full width bf16 rounding
+# carried through 40 layers sets correct paths 0.17-0.19 apart in max
+# abs and 0.022 in relative L2 (K6, K6's plain version and the
+# non-flash path, pairwise), while a wrong attention (every layer cut
+# to 4,096 keys) moves them 4.06 and 0.457 (tools/bf16_prefill_probe.py
+# on command-r-35b), so an allclose at 0.05 fails correct paths and this
+# holds them
+BF16_PREFILL_TOL = 0.05
 
 # the rwkv phase: rwkv6-3b at full width and depth (JAX's
 # jax.eval_shape(transformer_scan.init): 3,089,290,240 parameters in 24
@@ -215,20 +248,20 @@ WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 192, 64),
 WKV_CHUNK = 64
 # K7 computes each product as three TF32 products (3xTF32)
 WKV_FP32_PRODUCTS = 3
-# the prefill's last-position logits (K7's chunked scan) against the
-# serving path's bulk prefill (the token-by-token recurrence) at full
-# width on 1 x 320 tokens (five chunks and a padded tail). Both are
-# fp32: they differ by the order of the sums (the chunked form against
-# the recurrence, batched GEMMs against per-token products), rounding
-# of ~1e-7 relative per operation carried through 32 layers of the
-# residual stream, ~1e-5 to 1e-4 on random-weight logits of magnitude
-# O(1-5); a dropped chunk, a wrong state carry or a wrong decay moves
-# them by O(0.1) or more
-RWKV_CHECK_LEN = 320
+# the prefill's last-position logits (K7's chunked scan; recurrentgemma's
+# doubling scan and K6) against the serving path's bulk prefill (the
+# token-by-token recurrence) at full width on 1 x 320 tokens (five
+# chunks and a padded tail). Both are fp32: they differ by the order of
+# the sums (the chunked form against the recurrence, batched GEMMs
+# against per-token products), rounding of ~1e-7 relative per operation
+# carried through 32-38 layers of the residual stream, ~1e-5 to 1e-4 on
+# random-weight logits of magnitude O(1-30); a dropped chunk, a wrong
+# state carry or a wrong decay moves them by O(0.1) or more
+DECODE_CHECK_LEN = 320
+DECODE_LOGITS_TOL = 1e-3
 # the 1 x 32,768 prefill's peak device memory with K7's earlier design
 # (one block per (b, h), no scratch), as this script measured it
 RWKV_ONE_BLOCK_PEAK = 17_462_810_624
-RWKV_LOGITS_TOL = 1e-3
 
 # the cluster phase: the virtual-cluster tier's scheduler on the host,
 # its replays on the card at full width (repro-100m, 4 workers of batch
@@ -244,6 +277,24 @@ CLUSTER_ROUNDS = 3
 # one level, so the LM on the rq4 wire is held at 1e-3)
 CLUSTER_TOL = 1e-5
 CLUSTER_LM_RQ4_TOL = 1e-3
+
+# the families phase: the hybrid and MoE families at full width and
+# depth, fp32 with TF32 off but command-r-35b in bf16; parameter counts
+# are JAX's param_count()
+FAMILY_ARCHS = ("recurrentgemma-9b", "deepseek-v2-lite-16b", "qwen2.5-14b",
+                "command-r-35b", "grok-1-314b")
+FAMILY_PARAMS = {"recurrentgemma-9b": 10_664_163_328,
+                 "deepseek-v2-lite-16b": 15_647_895_040,
+                 "qwen2.5-14b": 14_770_033_664,
+                 "command-r-35b": 30_283_546_624}
+FAMILY_SEQ = 8192
+RG_LOCAL_LAYERS = 12
+DEEPSEEK_SEQ = 4096
+DEEPSEEK_CAPACITY = 480
+FAMILY_GEN = (8, 16, 32)
+# one MLA layer's absorbed decode against its full-sequence form, within
+# DECODE_LOGITS_TOL
+MLA_CHECK_LEN = 64
 
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
 QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
@@ -1624,11 +1675,16 @@ def flash_geometries(torch) -> list:
 
 
 def prefill_model(torch, arch: str, shape_name, b: int, s: int,
-                  n_layers: int, seed: int) -> dict:
+                  n_layers: int, seed: int, *, dtype: str = "float32",
+                  params=None) -> dict:
     """One model at full width and depth: a warm-up and PREFILL_REPS
-    timed flash prefills (the main path, K6 launches counted), K6 alone
-    at the prefill's attention shape, and the same prefill without
-    flash as the reference for the last-position logits."""
+    timed flash prefills (the main path, K6 launches counted: once per
+    attention layer, local ones at the model's window), K6 alone at the
+    prefill's attention shape, and the same prefill without flash as the
+    reference for the last-position logits. ``dtype`` is the weights'
+    (bf16 takes K6's bf16 route, and its logits are held by relative L2,
+    BF16_PREFILL_TOL); ``params``, when given, are the model's weights
+    already on the card."""
     from repro_torch import configs
     from repro_torch.core import prng, pytree
     from repro_torch.data import pipeline
@@ -1640,11 +1696,19 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
     cfg = configs.get_config(arch)
     if cfg.n_layers != n_layers:
         raise AssertionError(f"{arch}: {cfg.n_layers} layers")
+    attn_layers = sum(k in ("attn", "local_attn") for k in cfg.block_pattern)
+    window = cfg.local_window if "local_attn" in cfg.block_pattern else 0
+    fp32 = dtype == "float32"
+    k6_tol, logits_tol = ((2e-5, PREFILL_TOL) if fp32
+                          else (BF16_TOL, BF16_PREFILL_TOL))
     gc.collect()                 # earlier phases' cycles hold card memory
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    params = transformer_scan.init(cfg, transformer_scan.generator(seed,
-                                                                  "cuda"))
+    held = None
+    if params is None:
+        held = torch.cuda.memory_allocated()
+        params = transformer_scan.init(
+            cfg, transformer_scan.generator(seed, "cuda"),
+            dtype=getattr(torch, dtype))
     n_params = sum(t.numel() for t in pytree.tree_leaves(params))
     shape = (INPUT_SHAPES[shape_name] if shape_name else
              InputShape(f"prefill_{s // 1024}k", s, b, "prefill"))
@@ -1671,10 +1735,10 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
     torch.cuda.synchronize()
     launches = fk.flash_attention_bhsd.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != (1 + PREFILL_REPS) * n_layers:
+    if launches != (1 + PREFILL_REPS) * attn_layers:
         raise AssertionError(f"{arch}: K6 launched {launches} times in "
-                             f"{1 + PREFILL_REPS} prefills of {n_layers} "
-                             "layers")
+                             f"{1 + PREFILL_REPS} prefills of "
+                             f"{attn_layers} attention layers")
     if tuple(logits.shape) != (b, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
@@ -1682,29 +1746,39 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
     med = sorted(times)[len(times) // 2]
 
     k6 = check_flash(torch, b, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                     s, True, 0, cfg.logit_softcap, "float32", 2e-5,
+                     s, True, window, cfg.logit_softcap, dtype, k6_tol,
                      seed=seed + 1)
     ref = steps.make_prefill_step(cfg, use_flash=False, scan_layers=True,
                                   logits_positions="last")(params, batch)
-    err = max_abs(logits, ref)
-    if not torch.allclose(logits, ref, rtol=PREFILL_TOL, atol=PREFILL_TOL):
+    got, want = logits.float(), ref.float()
+    err = max_abs(got, want)
+    rel_l2 = float((got - want).norm() / want.norm())
+    if not (torch.allclose(got, want, rtol=logits_tol, atol=logits_tol)
+            if fp32 else rel_l2 <= logits_tol):
         raise AssertionError(f"{arch}: flash prefill logits != non-flash "
-                             f"(max abs err {err}, tolerance {PREFILL_TOL})")
-    out = {"arch": arch, "batch": b, "seq": s, "params": n_params,
-           "layers": n_layers, "prefill_ms": times, "median_ms": med,
+                             f"(max abs err {err}, relative L2 {rel_l2}, "
+                             f"tolerance {logits_tol})")
+    out = {"arch": arch, "dtype": dtype, "batch": b, "seq": s,
+           "params": n_params, "layers": n_layers,
+           "attention_layers": attn_layers, "window": window,
+           "prefill_ms": times, "median_ms": med,
            "tokens_per_s": b * s / (med / 1e3),
            "k6_launches_per_prefill": launches // (1 + PREFILL_REPS),
-           "k6_ms": k6["ms"], "k6_share": k6["ms"] * n_layers / med,
+           "k6_ms": k6["ms"], "k6_share": k6["ms"] * attn_layers / med,
            "max_memory_allocated": peak,
            "allocated_before_init": held,
            "logits_max_abs_err_vs_no_flash": err,
-           "logits_abs_max": float(ref.abs().max()), "k6": k6,
+           "logits_rel_l2_vs_no_flash": rel_l2,
+           "logits_tolerance": logits_tol,
+           "logits_abs_max": float(ref.float().abs().max()), "k6": k6,
            "launches": launches}
-    log(f"[prefill] {arch} {b} x {s}: median {med:.1f} ms of "
+    log(f"[prefill] {arch} ({dtype}) {b} x {s}: median {med:.1f} ms of "
         f"{[round(t, 1) for t in times]}, {out['tokens_per_s']:.1f} "
-        f"tokens/s, K6 {k6['ms']:.3f} ms x {n_layers} = "
+        f"tokens/s, K6 {k6['ms']:.3f} ms x {attn_layers} = "
         f"{100 * out['k6_share']:.1f} % of the prefill, peak "
-        f"{peak} B, flash vs no-flash logits max abs err {err:.3g}")
+        f"{peak} B, flash vs no-flash logits max abs err {err:.3g}, "
+        f"relative L2 {rel_l2:.3g} (tolerance {logits_tol}"
+        + ("" if fp32 else ", relative L2") + ")")
     log("[prefill] " + json.dumps(out))
     del params, batch, logits, ref
     torch.cuda.empty_cache()
@@ -1930,60 +2004,71 @@ def rwkv_prefill(torch, params, cfg, seed: int) -> dict:
             "launches": launches}
 
 
-def rwkv_vs_decode(torch, params, cfg, seed: int) -> dict:
-    """The prefill's last-position logits (K7) against the serving
-    path's bulk prefill (the recurrent decode loop) on 1 x
-    RWKV_CHECK_LEN tokens, within RWKV_LOGITS_TOL."""
+def prefill_vs_decode(torch, params, cfg, seed: int, kernel,
+                      prefill_launches: int) -> dict:
+    """The prefill's last-position logits against the serving path's
+    bulk prefill (the token-by-token decode loop) on 1 x
+    DECODE_CHECK_LEN tokens, within DECODE_LOGITS_TOL. ``kernel`` (a
+    wrapper with a launch count) runs ``prefill_launches`` times in the
+    prefill and never in the decode loop."""
     import numpy as np
-    from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.models import transformer_scan
     from repro_torch.train import steps
 
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, size=(1, RWKV_CHECK_LEN)).astype(np.int32)).cuda()
-    before = wk.wkv6_bhsk.launches
-    pre = steps.make_prefill_step(cfg, scan_layers=True,
+        0, cfg.vocab, size=(1, DECODE_CHECK_LEN)).astype(np.int32)).cuda()
+    before = kernel.launches
+    pre = steps.make_prefill_step(cfg, use_flash=True, scan_layers=True,
                                   logits_positions="last")(
         params, {"tokens": tok})
-    if wk.wkv6_bhsk.launches - before != RWKV_LAYERS:
-        raise AssertionError("the 320-token prefill did not run on K7")
+    if kernel.launches - before != prefill_launches:
+        raise AssertionError(f"{cfg.arch_id}: the {DECODE_CHECK_LEN}-token "
+                             f"prefill launched its kernel "
+                             f"{kernel.launches - before} times")
     state = transformer_scan.init_decode_state(params, cfg, 1,
-                                               RWKV_CHECK_LEN,
+                                               DECODE_CHECK_LEN,
                                                dtype=torch.float32,
                                                device="cuda")
+    before = kernel.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bulk, _ = steps.make_bulk_prefill(cfg)(params, state, tok)
     torch.cuda.synchronize()
     bulk_s = time.perf_counter() - t0
+    if kernel.launches != before:
+        raise AssertionError(f"{cfg.arch_id}: the decode loop launched "
+                             "the prefill's kernel")
     err = max_abs(pre, bulk)
-    if not torch.allclose(pre, bulk, rtol=RWKV_LOGITS_TOL,
-                          atol=RWKV_LOGITS_TOL):
-        raise AssertionError(f"rwkv prefill != bulk prefill (decode) "
-                             f"logits: max abs err {err} (tolerance "
-                             f"{RWKV_LOGITS_TOL})")
-    return {"tokens": RWKV_CHECK_LEN, "logits_max_abs_err": err,
-            "tolerance": RWKV_LOGITS_TOL,
+    if not torch.allclose(pre, bulk, rtol=DECODE_LOGITS_TOL,
+                          atol=DECODE_LOGITS_TOL):
+        raise AssertionError(f"{cfg.arch_id} prefill != bulk prefill "
+                             f"(decode) logits: max abs err {err} "
+                             f"(tolerance {DECODE_LOGITS_TOL})")
+    return {"tokens": DECODE_CHECK_LEN, "logits_max_abs_err": err,
+            "tolerance": DECODE_LOGITS_TOL,
             "logits_abs_max": float(bulk.abs().max()),
             "bulk_prefill_s": bulk_s,
-            "bulk_ms_per_token": bulk_s / RWKV_CHECK_LEN * 1e3}
+            "bulk_ms_per_token": bulk_s / DECODE_CHECK_LEN * 1e3}
 
 
-def rwkv_serve(torch, params) -> dict:
-    """Engine on full-width rwkv6-3b: 4 slots, 8 requests of prompt 32
-    generating 8 and 16 tokens, greedy, to completion with 0 dropped."""
+def serve_model(torch, arch: str, params, mixed_gen, kernel) -> dict:
+    """Engine on a full-width model: 4 slots, 8 requests of prompt 32
+    generating ``mixed_gen`` tokens in turn, greedy, fp32 decode state,
+    to completion with 0 dropped; an MoE layer groups each slot's token
+    alone (the JAX engine's vmapped batch-1 step). ``kernel``'s launches
+    in the run are reported."""
     from repro_torch import serve
-    from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.serve import engine as engine_mod
 
-    cfg = serve.ServeConfig(arch=RWKV_ARCH, reduced=False, slots=4,
-                            n_requests=8, prompt_len=32, mixed_gen=(8, 16),
-                            max_len=49, temperature=0)
+    cfg = serve.ServeConfig(arch=arch, reduced=False, slots=4,
+                            n_requests=8, prompt_len=32,
+                            mixed_gen=mixed_gen,
+                            max_len=32 + max(mixed_gen) + 1, temperature=0)
     eng = serve.Engine(cfg, params=params, device="cuda")
     reqs = serve.synthetic_requests(cfg)
     eng.warmup([cfg.prompt_len])
     torch.cuda.synchronize()
-    before = wk.wkv6_bhsk.launches
+    before = kernel.launches
     eng._t0 = time.monotonic()
     for r in reqs:
         eng.submit(r.tokens, r.max_new_tokens, rid=r.rid)
@@ -1992,21 +2077,21 @@ def rwkv_serve(torch, params) -> dict:
     stats = eng.stats()
     c = eng.counters
     if (c["completed"], c["dropped"]) != (8, 0):
-        raise AssertionError(f"rwkv serve run: {c}")
+        raise AssertionError(f"{arch} serve run: {c}")
     for comp in eng.completions.values():
         if len(comp.tokens) != reqs[comp.rid].max_new_tokens or not all(
                 0 <= t < eng.model_cfg.vocab for t in comp.tokens):
-            raise AssertionError(f"rwkv request {comp.rid}: bad stream")
+            raise AssertionError(f"{arch} request {comp.rid}: bad stream")
     state = engine_mod._clone(eng._state)
-    out = {"completed": c["completed"], "dropped": c["dropped"],
-           "tokens_per_s": stats["tokens_per_s"], "p50_ms": stats["p50_ms"],
-           "p99_ms": stats["p99_ms"], "decode_steps": stats["decode_steps"],
-           "generated_tokens": stats["generated_tokens"],
-           "wall_s": stats["wall_s"],
-           "decode_step_ms": host_ms(torch, lambda: eng._serve_step(
-               eng.params, state, {"tokens": eng._tokens})),
-           "k7_launches": wk.wkv6_bhsk.launches - before}
-    return out
+    return {"completed": c["completed"], "dropped": c["dropped"],
+            "tokens_per_s": stats["tokens_per_s"],
+            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+            "decode_steps": stats["decode_steps"],
+            "generated_tokens": stats["generated_tokens"],
+            "wall_s": stats["wall_s"],
+            "decode_step_ms": host_ms(torch, lambda: eng._serve_step(
+                eng.params, state, {"tokens": eng._tokens})),
+            "kernel_launches": kernel.launches - before}
 
 
 def rwkv_cross_device_check(torch) -> None:
@@ -2121,11 +2206,13 @@ def rwkv_phase(torch) -> dict:
         f"{pre['k7_scratch_bytes']} B of scratch a layer, peak "
         f"{pre['max_memory_allocated']} B (the one-block-per-(b, h) K7: "
         f"{RWKV_ONE_BLOCK_PEAK} B); " + json.dumps(pre))
-    check = rwkv_vs_decode(torch, params, cfg, seed=42)
+    check = prefill_vs_decode(torch, params, cfg, 42, wk.wkv6_bhsk,
+                              RWKV_LAYERS)
     log(f"[rwkv] prefill vs bulk prefill (decode) logits on 1 x "
-        f"{RWKV_CHECK_LEN}: max abs err {check['logits_max_abs_err']:.3g} "
-        f"(tolerance {RWKV_LOGITS_TOL}); " + json.dumps(check))
-    served = rwkv_serve(torch, params)
+        f"{DECODE_CHECK_LEN}: max abs err "
+        f"{check['logits_max_abs_err']:.3g} (tolerance "
+        f"{DECODE_LOGITS_TOL}); " + json.dumps(check))
+    served = serve_model(torch, RWKV_ARCH, params, (8, 16), wk.wkv6_bhsk)
     log("[rwkv] serve " + json.dumps(served))
     del params, leaves
     gc.collect()
@@ -2410,6 +2497,241 @@ def cluster_cross_device_check(torch, traces) -> None:
         + "; the LM's codec stage given the CPU gradient: bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# families phase (the seventh main path: the hybrid and MoE families)
+# ---------------------------------------------------------------------------
+
+
+def family_params(torch, arch: str, seed: int, dtype: str = "float32"):
+    """Full-width, full-depth weights on the card, from a seed; their
+    count against JAX's param_count() (FAMILY_PARAMS)."""
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer_scan
+
+    cfg = configs.get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = transformer_scan.init(
+        cfg, transformer_scan.generator(seed, "cuda"),
+        dtype=getattr(torch, dtype))
+    n = sum(t.numel() for t in pytree.tree_leaves(params))
+    if n != FAMILY_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {n} parameters, JAX counts "
+                             f"{FAMILY_PARAMS[arch]}")
+    return cfg, params
+
+
+def deepseek_prefill(torch, params, cfg, seed: int) -> dict:
+    """make_prefill_step(use_flash=True, scan_layers=True,
+    logits_positions="last") on 1 x 4,096 tokens (one MoE group of
+    MAX_GROUP, capacity 480): a warm-up and PREFILL_REPS timed
+    prefills, no K6 launch (MLA is not on flash, as in JAX), peak
+    memory."""
+    from repro_torch.core import prng
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import moe
+    from repro_torch.models.common import InputShape
+    from repro_torch.train import steps
+
+    s = DEEPSEEK_SEQ
+    if (moe._group_shape(s), moe._capacity(cfg.moe, s)) != \
+            ((1, moe.MAX_GROUP), DEEPSEEK_CAPACITY):
+        raise AssertionError("deepseek prefill grouping")
+    batch = pipeline.synthetic_batch(
+        cfg, InputShape("prefill_4k", s, 1, "prefill"), prng.PRNGKey(seed),
+        device="cuda")
+    step = steps.make_prefill_step(cfg, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    logits = step(params, batch)
+    times = []
+    for _ in range(PREFILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if fk.flash_attention_bhsd.launches:
+        raise AssertionError("the MLA prefill launched K6")
+    if tuple(logits.shape) != (1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("deepseek prefill logits not finite or of "
+                             "the wrong shape")
+    med = sorted(times)[len(times) // 2]
+    return {"arch": cfg.arch_id, "batch": 1, "seq": s, "prefill_ms": times,
+            "median_ms": med, "tokens_per_s": s / (med / 1e3),
+            "moe_group": moe.MAX_GROUP, "moe_capacity": DEEPSEEK_CAPACITY,
+            "max_memory_allocated": peak,
+            "logits_abs_max": float(logits.abs().max())}
+
+
+def mla_decode_check(torch, params, cfg, seed: int) -> dict:
+    """Layer 0's full-width MLA: the absorbed decode, token by token
+    over MLA_CHECK_LEN unit-normal inputs through an fp32 latent cache,
+    against the full-sequence form, within DECODE_LOGITS_TOL."""
+    from repro_torch.models import mla
+
+    p = params["prefix_layers"][0]["mixer"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, MLA_CHECK_LEN, cfg.d_model), generator=g,
+                    device="cuda")
+    pos = torch.arange(MLA_CHECK_LEN, device="cuda")[None]
+    full = mla.mla_attention(p, cfg, x, pos)
+    cache = mla.init_cache(cfg, 1, MLA_CHECK_LEN, dtype=torch.float32,
+                           device="cuda")
+    outs = []
+    for t in range(MLA_CHECK_LEN):
+        out, cache = mla.decode_attention(p, cfg, x[:, t:t + 1], cache)
+        outs.append(out)
+    got = torch.cat(outs, 1)
+    err = max_abs(got, full)
+    if not torch.allclose(got, full, rtol=DECODE_LOGITS_TOL,
+                          atol=DECODE_LOGITS_TOL):
+        raise AssertionError(f"MLA absorbed decode != full sequence: max "
+                             f"abs err {err}")
+    return {"tokens": MLA_CHECK_LEN, "max_abs_err": err,
+            "tolerance": DECODE_LOGITS_TOL,
+            "abs_max": float(full.abs().max())}
+
+
+def reduced_family(arch: str):
+    """The reduced configuration of the CPU tests: recurrentgemma on
+    (rglru, rglru, local_attn, rglru, rglru), deepseek on three layers
+    (the dense prefix and two scanned MoE layers)."""
+    import dataclasses
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if arch == "recurrentgemma-9b":
+        return dataclasses.replace(cfg.reduced(n_layers=5), block_pattern=(
+            "rglru", "rglru", "local_attn", "rglru", "rglru"))
+    if arch == "deepseek-v2-lite-16b":
+        return cfg.reduced(n_layers=3)
+    return cfg.reduced()
+
+
+def families_cross_device_check(torch) -> None:
+    """The five configurations reduced, on the card against the CPU: the
+    flash prefill (K6 on the card, its plain version on the CPU, 2 x 300
+    tokens) and a train step's loss (cross entropy + MoE aux) and every
+    gradient (2 x 32 tokens), within REDUCED_TOL."""
+    import numpy as np
+    from repro_torch.core import pytree
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    errs = {}
+    for arch in FAMILY_ARCHS:
+        mc = reduced_family(arch)
+        params = transformer_scan.init(mc, transformer_scan.generator(5))
+        gparams = pytree.tree_map(lambda t: t.cuda(), params)
+        tok = torch.from_numpy(np.random.default_rng(6).integers(
+            0, mc.vocab, size=(2, 300)).astype(np.int32))
+        step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                       logits_positions="last")
+        pairs = [("prefill", step(params, {"tokens": tok}))]
+        before = fk.flash_attention_bhsd.launches
+        got = step(gparams, {"tokens": tok.cuda()}).cpu()
+        attn = sum(k in ("attn", "local_attn") for k in mc.block_pattern)
+        if fk.flash_attention_bhsd.launches - before != attn:
+            raise AssertionError(f"reduced {arch} prefill: K6 launches")
+        loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+        batch = {"tokens": tok[:, :32], "labels": tok[:, 1:33]}
+        want_l, want_g = steps.value_and_grad(loss, params, batch)
+        got_l, got_g = steps.value_and_grad(
+            loss, gparams, {k: t.cuda() for k, t in batch.items()})
+        checks = [("prefill", pairs[0][1], got), ("loss", want_l,
+                                                  got_l.cpu())]
+        checks += [("grads", w, g.cpu()) for w, g in zip(
+            pytree.tree_leaves(want_g), pytree.tree_leaves(got_g))]
+        for name, a, b in checks:
+            key = f"{arch} {name}"
+            errs[key] = max(errs.get(key, 0.0), max_abs(b, a))
+            if not torch.allclose(b, a, rtol=REDUCED_TOL, atol=REDUCED_TOL):
+                raise AssertionError(f"reduced {arch} {name}: card != CPU "
+                                     f"(max abs err {max_abs(b, a)})")
+    log(f"[check] the five family configs reduced: flash prefill (2 x "
+        f"300), train loss with the MoE aux and every gradient (2 x 32): "
+        f"card == CPU within {REDUCED_TOL}; max abs errs "
+        + json.dumps(errs))
+
+
+def families_phase(torch) -> dict:
+    """recurrentgemma-9b and deepseek-v2-lite-16b at full width and
+    depth: the prefill (the main path), its check against the decode
+    path, serving; qwen2.5-14b (fp32) and command-r-35b (bf16) flash
+    prefills; then the five configs reduced, card against CPU. K6's
+    launches on the phase's main paths (reset before each, read after)
+    are summed in ``launches``."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+
+    t0 = time.perf_counter()
+    k6 = 0
+    out = {}
+
+    cfg, params = family_params(torch, "recurrentgemma-9b", seed=50)
+    rg = prefill_model(torch, "recurrentgemma-9b", None, 1, FAMILY_SEQ,
+                       cfg.n_layers, seed=51, params=params)
+    k6 += rg["launches"]
+    if rg["k6_launches_per_prefill"] != RG_LOCAL_LAYERS:
+        raise AssertionError("recurrentgemma-9b: K6 not once per local "
+                             "attention layer")
+    rg["vs_decode"] = prefill_vs_decode(torch, params, cfg, 52,
+                                        fk.flash_attention_bhsd,
+                                        RG_LOCAL_LAYERS)
+    log(f"[families] recurrentgemma-9b prefill vs bulk prefill (decode) "
+        f"logits on 1 x {DECODE_CHECK_LEN}: max abs err "
+        f"{rg['vs_decode']['logits_max_abs_err']:.3g} (tolerance "
+        f"{DECODE_LOGITS_TOL}); " + json.dumps(rg["vs_decode"]))
+    rg["serve"] = serve_model(torch, "recurrentgemma-9b", params,
+                              FAMILY_GEN, fk.flash_attention_bhsd)
+    log("[families] recurrentgemma-9b serve " + json.dumps(rg["serve"]))
+    out["recurrentgemma-9b"] = rg
+    del params
+
+    cfg, params = family_params(torch, "deepseek-v2-lite-16b", seed=53)
+    ds = deepseek_prefill(torch, params, cfg, seed=54)
+    log(f"[families] deepseek-v2-lite-16b prefill 1 x {DEEPSEEK_SEQ}: "
+        f"median {ds['median_ms']:.1f} ms, {ds['tokens_per_s']:.1f} "
+        f"tokens/s, peak {ds['max_memory_allocated']} B; "
+        + json.dumps(ds))
+    ds["mla_decode"] = mla_decode_check(torch, params, cfg, seed=55)
+    log(f"[families] deepseek-v2-lite-16b layer 0 MLA absorbed decode vs "
+        f"full sequence over {MLA_CHECK_LEN} tokens: max abs err "
+        f"{ds['mla_decode']['max_abs_err']:.3g} (tolerance "
+        f"{DECODE_LOGITS_TOL})")
+    ds["serve"] = serve_model(torch, "deepseek-v2-lite-16b", params,
+                              FAMILY_GEN, fk.flash_attention_bhsd)
+    log("[families] deepseek-v2-lite-16b serve " + json.dumps(ds["serve"]))
+    out["deepseek-v2-lite-16b"] = ds
+    del params
+
+    for arch, dtype, seed in (("qwen2.5-14b", "float32", 56),
+                              ("command-r-35b", "bfloat16", 58)):
+        cfg, params = family_params(torch, arch, seed=seed, dtype=dtype)
+        run = prefill_model(torch, arch, None, 1, FAMILY_SEQ, cfg.n_layers,
+                            seed=seed + 1, dtype=dtype, params=params)
+        del params
+        k6 += run["launches"]
+        out[arch] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_cross_device_check(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention_bhsd": k6}
+    log(f"[families] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2445,6 +2767,7 @@ def main() -> int:
     rwkv = rwkv_phase(torch)
     timing["wkv6_bhsk"] = rwkv["k7"]
     clustered = cluster_phase(torch)
+    families = families_phase(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -2456,7 +2779,8 @@ def main() -> int:
                                     "ring": ringed["launches"],
                                     "prefill": prefilled["launches"],
                                     "rwkv": rwkv["launches"],
-                                    "cluster": clustered["launches"]}))
+                                    "cluster": clustered["launches"],
+                                    "families": families["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
@@ -2464,8 +2788,11 @@ def main() -> int:
                 if name in RING_KERNELS else prefilled
                 if name in PREFILL_KERNELS else rwkv
                 if name in RWKV_KERNELS else trained)
+        launches = path["launches"][name]
+        if name in PREFILL_KERNELS:      # K6 also runs the families' path
+            launches += families["launches"][name]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": path["launches"][name],
+               "replaces": replaces, "launches": launches,
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": bound_by or t["bound_by"],

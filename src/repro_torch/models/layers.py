@@ -1,12 +1,13 @@
 """Shared layer primitives (plain functions over parameter dicts).
 
 The port of ``repro.models.layers``' dense / RMSNorm / LayerNorm / RoPE /
-SiLU-MLP pieces (GELU and M-RoPE come with the models slice). Parameters are nested dicts of tensors with the JAX package's
-keys and shapes (a dense weight is (d_in, d_out), applied as ``x @ w``),
-so a JAX parameter tree converts leaf for leaf (``interop``). Random
-init draws from an explicit ``torch.Generator``; it gives other numbers
-than ``jax.random`` from the same seed, by design — the tests carry JAX's
-parameters across instead.
+SiLU- and GELU-MLP pieces (M-RoPE comes with the vlm slice). Parameters
+are nested dicts of tensors with the JAX package's keys and shapes (a
+dense weight is (d_in, d_out), applied as ``x @ w``), so a JAX parameter
+tree converts leaf for leaf (``interop``). Random init draws from an
+explicit ``torch.Generator``; it gives other numbers than ``jax.random``
+from the same seed, by design — the tests carry JAX's parameters across
+instead.
 """
 from __future__ import annotations
 
@@ -18,11 +19,27 @@ import torch
 import torch.nn.functional as F
 
 
-def normal(gen: torch.Generator, shape: tuple, *, dtype=torch.float32
-           ) -> torch.Tensor:
-    """Standard normal draw on the generator's device."""
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32).to(dtype)
+def _draw(gen: torch.Generator, shape: tuple, scale: float
+          ) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x if scale == 1.0 else x.mul_(scale)
+
+
+def normal(gen: torch.Generator, shape: tuple, *, scale: float = 1.0,
+           dtype=torch.float32) -> torch.Tensor:
+    """Normal draw times ``scale`` on the generator's device, in
+    ``dtype``, with no full-size temporary: an fp32 draw is scaled in
+    place (the same values as ``randn(...) * scale``); a narrower leaf
+    with a stacking dim is drawn one slice of that dim at a time, in
+    fp32, into the preallocated result (a (40, 8192, 22528) bf16 leaf
+    would otherwise pass through 29.5 GB of fp32)."""
+    if dtype == torch.float32 or len(shape) < 3:
+        return _draw(gen, shape, scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = _draw(gen, shape[1:], scale)
+    return out
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -30,7 +47,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                lead: tuple = (), dtype=torch.float32) -> dict:
     """``lead`` prepends stacking dims (the scanned layers' n_rep)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": (normal(gen, lead + (d_in, d_out)) * scale).to(dtype)}
+    p = {"w": normal(gen, lead + (d_in, d_out), scale=scale, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=gen.device)
     return p
@@ -108,10 +125,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, glu: bool,
     return p
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTS = {"silu": F.silu, "gelu": gelu}
+
+
 def mlp(p: dict, x: torch.Tensor, *, act: str, glu: bool) -> torch.Tensor:
-    if act != "silu":
-        raise NotImplementedError(f"activation '{act}' is not ported yet")
-    a = F.silu
+    a = ACTS[act]
     up = dense(p["up"], x)
     h = a(dense(p["gate"], x)) * up if glu else a(up)
     return dense(p["down"], h)

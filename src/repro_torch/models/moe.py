@@ -1,0 +1,138 @@
+"""Mixture-of-Experts layer (GShard/Mixtral-style grouped capacity
+dispatch).
+
+The port of ``repro.models.moe``, with JAX's routing exactly: tokens
+are split into GROUPS of at most ``MAX_GROUP`` consecutive tokens of the
+flattened (B * S) batch (a group may span batch rows); within a group
+each token picks its top-k experts, the gates are renormalised over the
+k, and a (token, choice) takes the next free slot of its expert,
+counted over (token, choice) pairs in token-major order; a choice past
+the expert's capacity ``max(1, min(g, int(g * k * cf / E)))`` is dropped
+and contributes nothing. The router aux loss is
+``w * E * mean_G sum_e frac_tokens_e * mean_prob_e``.
+
+Where JAX builds a (G, g, k, E, C) one-hot and dispatches and combines
+through einsums with it (3 GB at a 4,096-token group of deepseek), the
+port moves rows by index: each (expert, slot) names the token that
+fills it, the tokens are gathered into an (E, G * C, d) block, the
+experts run as batched matmuls over the expert axis, and each kept
+choice gathers its expert's output row back. The values are the same
+(a one-hot contraction adds exact zeros); the combine's k-term sum may
+round in another order. ``rows=True`` makes every batch row its own
+groups, as the JAX serve engine's vmapped batch-1 step groups them.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models.common import ModelConfig, MoEConfig
+
+MAX_GROUP = 4096
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple = (),
+             dtype=torch.float32) -> dict:
+    """Router (fp32, as JAX keeps it), fused expert banks (E, d, f) x2 +
+    (E, f, d), and the shared experts' gated MLPs; ``lead`` prepends
+    the scanned layers' n_rep dim."""
+    mcfg = cfg.moe
+    d, f, e = cfg.d_model, mcfg.d_ff_expert, mcfg.n_experts
+    p = {
+        "router": layers.dense_init(gen, d, e, lead=lead,
+                                    dtype=torch.float32),
+        "w_gate": layers.normal(gen, lead + (e, d, f), scale=1.0 / d**0.5,
+                                dtype=dtype),
+        "w_up": layers.normal(gen, lead + (e, d, f), scale=1.0 / d**0.5,
+                              dtype=dtype),
+        "w_down": layers.normal(gen, lead + (e, f, d), scale=1.0 / f**0.5,
+                                dtype=dtype),
+    }
+    for i in range(mcfg.n_shared):
+        p[f"shared_{i}"] = layers.mlp_init(gen, d, f, glu=True, lead=lead,
+                                           dtype=dtype)
+    return p
+
+
+def _group_shape(n_tokens: int) -> tuple[int, int]:
+    """(n_groups, group_size) with group_size <= MAX_GROUP dividing T."""
+    g = min(n_tokens, MAX_GROUP)
+    while n_tokens % g:
+        g -= 1
+    return n_tokens // g, g
+
+
+def _capacity(mcfg: MoEConfig, group_size: int) -> int:
+    cap = int(group_size * mcfg.top_k * mcfg.capacity_factor
+              / mcfg.n_experts)
+    return max(1, min(group_size, cap))
+
+
+def route(p: dict, cfg: ModelConfig, xg: torch.Tensor) -> tuple:
+    """Routing of (G, g, d) groups: (probs (G, g, E), gates (G, g, k)
+    renormalised, expert ids (G, g, k), slot of each choice within its
+    expert (G, g, k), kept (G, g, k) bool)."""
+    mcfg = cfg.moe
+    n_groups, g, _ = xg.shape
+    k = mcfg.top_k
+    logits = layers.dense(p["router"], xg.float())
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = ids.reshape(n_groups, g * k)
+    onehot = F.one_hot(flat, mcfg.n_experts)
+    pos = (onehot.cumsum(1) - onehot).gather(-1, flat[..., None])
+    pos = pos.reshape(n_groups, g, k)
+    return probs, gates, ids, pos, pos < _capacity(mcfg, g)
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              act: str = "silu", rows: bool = False) -> tuple:
+    """x: (B, S, d). Returns (out, aux_loss)."""
+    mcfg = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    if rows:
+        per_row, g = _group_shape(s)
+        n_groups = b * per_row
+    else:
+        n_groups, g = _group_shape(t)
+    cap = _capacity(mcfg, g)
+    e = mcfg.n_experts
+    xt = x.reshape(t, d)
+    probs, gates, ids, pos, keep = route(p, cfg, xt.view(n_groups, g, d))
+
+    # slot (e, group, c) of each kept choice in the (E, G * C) block; a
+    # dropped choice points one past the block (a row of zeros)
+    dev = x.device
+    grp = torch.arange(n_groups, device=dev)[:, None, None]
+    slot = torch.where(keep, (ids * n_groups + grp) * cap + pos,
+                       e * n_groups * cap)
+    tok = torch.arange(t, device=dev).view(n_groups, g, 1).expand_as(slot)
+    # the token that fills each slot; t (a zero row) where none does
+    src = torch.full((e * n_groups * cap + 1,), t, dtype=torch.long,
+                     device=dev)
+    src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+    x_pad = torch.cat([xt, xt.new_zeros((1, d))])
+    xe = x_pad.index_select(0, src[:-1]).view(e, n_groups * cap, d)
+    a = layers.ACTS[act]
+    h = a(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).reshape(-1, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    picked = ye.index_select(0, slot.reshape(-1)).view(t, -1, d).float()
+    w = (gates * keep).reshape(t, -1, 1)
+    out = (picked * w).sum(1).reshape(b, s, d)
+
+    for i in range(mcfg.n_shared):
+        out = out + layers.mlp(p[f"shared_{i}"], xt, act=act,
+                               glu=True).float().reshape(b, s, d)
+
+    # load-balance auxiliary loss (mean over groups)
+    kept = torch.zeros((n_groups, e), dtype=torch.float32, device=dev)
+    kept.scatter_add_(1, ids.reshape(n_groups, -1),
+                      keep.reshape(n_groups, -1).float())
+    frac_tokens = kept / max(1.0, float(g))
+    aux = mcfg.router_aux_weight * e * (frac_tokens * probs.mean(1)
+                                        ).sum(-1).mean()
+    return out.to(x.dtype), aux

@@ -50,8 +50,8 @@ def time_mix_init(gen: torch.Generator, cfg: ModelConfig, *,
     # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
     p["w0"] = torch.full(lead + (d,), -6.0, dtype=dtype, device=dev)
     p["wA"] = layers.dense_init(gen, d, lora, **kw)
-    p["wB"] = (layers.normal(gen, lead + (lora, d)) * 0.01).to(dtype)
-    p["u"] = (layers.normal(gen, lead + (h, hd)) * 0.1).to(dtype)
+    p["wB"] = layers.normal(gen, lead + (lora, d), scale=0.01, dtype=dtype)
+    p["u"] = layers.normal(gen, lead + (h, hd), scale=0.1, dtype=dtype)
     # a LayerNorm over all of d (JAX's comment calls it a per-head
     # groupnorm; time_mix applies a layernorm)
     p["ln_x"] = layers.norm_init(d, "layernorm", lead=lead, dtype=dtype,

@@ -1,20 +1,30 @@
 """Model assembly (unrolled ``layers`` list) and the blocks shared with
 ``transformer_scan``.
 
-The port of ``repro.models.transformer`` for attention and RWKV6
-stacks: block init, norm, dense FFN, token embedding, (tied or untied)
-LM head, the full-sequence forward ``apply`` over the unrolled tree
-(``{"embed", "final_norm", "lm_head"?, "layers": [block, ...]}`` — the
-JAX package's default training tree, whose flat layout the trainer
-quantizes), ``sharded_cross_entropy`` and ``loss_fn``. ``remat=True``
-checkpoints each block (``torch.utils.checkpoint``); ``use_flash=True``
-runs every attention block on the flash-attention kernel (forward only:
-the unrolled prefill). An ``rwkv`` block (layernorm, time-mix, its own
-channel-mix FFN) runs its WKV6 scan on the kernel K7 when its input is
-on the card and on the plain chunked scan on the CPU (``rwkv``). MoE
-FFNs, the MLA / RG-LRU mixers, enc-dec stacks and the unrolled
-``decode_step`` come with later slices (serving runs the scanned
-layout).
+The port of ``repro.models.transformer`` for every decoder block kind of
+the JAX package: block init, norm, dense or MoE FFN, token embedding,
+(tied or untied) LM head, the full-sequence forward ``apply`` over the
+unrolled tree (``{"embed", "final_norm", "lm_head"?, "layers": [block,
+...]}`` — the JAX package's default training tree, whose flat layout the
+trainer quantizes), ``sharded_cross_entropy``, ``loss_fn`` (cross
+entropy plus the MoE router's aux loss) and ``count_params``.
+``remat=True`` checkpoints each block (``torch.utils.checkpoint``);
+``use_flash=True`` runs every ``attn`` / ``local_attn`` block on the
+flash-attention kernel (forward only: the prefill). The mixers:
+
+  attn        full-causal GQA          local_attn  sliding-window GQA
+  mla         multi-head latent attention (``mla``)
+  rwkv        RWKV6 time-mix with its own channel-mix FFN (``rwkv``; its
+              scan on the kernel K7 for an input on the card)
+  rglru       Griffin RG-LRU recurrent block (``rglru``)
+
+and the FFN is a gated or plain MLP (SiLU or GELU), or the MoE layer
+(``moe``) when ``cfg.moe`` is set, except deepseek's dense layer 0.
+``block_apply`` returns (x, aux) as JAX's ``_block_apply`` does, and
+``apply(..., with_aux=True)`` returns (logits, aux) as JAX's ``apply``;
+without it the port's ``apply`` returns the logits alone. Enc-dec
+stacks and the unrolled ``decode_step`` come with later slices (serving
+runs the scanned layout).
 """
 from __future__ import annotations
 
@@ -23,20 +33,22 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.core import pytree
+from repro_torch.models import attention, layers, mla, moe, rglru, rwkv
 from repro_torch.models.common import ModelConfig
 
 ATTN_KINDS = ("attn", "local_attn")
-BLOCK_KINDS = ATTN_KINDS + ("rwkv",)
+BLOCK_KINDS = ATTN_KINDS + ("mla", "rwkv", "rglru")
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (models slice: MoE, MLA, "
-        "RG-LRU and enc-dec stacks)")
+        f"{what} is not ported to repro_torch yet (later slices: M-RoPE "
+        "and enc-dec stacks)")
 
 
 def _moe_skipped(cfg: ModelConfig, layer_idx: int) -> bool:
+    # DeepSeek-V2 keeps its first layer dense
     return cfg.arch_id.startswith("deepseek") and layer_idx == 0
 
 
@@ -45,30 +57,34 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 ) -> dict:
     """One block's params; ``lead`` stacks n_rep copies."""
     if kind not in BLOCK_KINDS:
-        raise not_ported(f"block kind '{kind}'")
+        raise ValueError(f"unknown block kind {kind}")
     dev = gen.device
+    kw = dict(lead=lead, dtype=dtype)
     if kind == "rwkv":
         ln = lambda: layers.norm_init(cfg.d_model, "layernorm",  # noqa: E731
                                       lead=lead, dtype=dtype, device=dev)
         return {"ln1": ln(),
-                "mixer": rwkv.time_mix_init(gen, cfg, lead=lead, dtype=dtype),
+                "mixer": rwkv.time_mix_init(gen, cfg, **kw),
                 "ln2": ln(),
-                "ffn": rwkv.channel_mix_init(gen, cfg, lead=lead,
-                                             dtype=dtype)}
-    if cfg.moe is not None and not _moe_skipped(cfg, layer_idx):
-        raise not_ported("the MoE FFN")
+                "ffn": rwkv.channel_mix_init(gen, cfg, **kw)}
     if cfg.is_encdec:
         raise not_ported("cross attention")
+    mixer_init = {"mla": mla.mla_init,
+                  "rglru": rglru.rglru_block_init}.get(kind,
+                                                       attention.attn_init)
     p: dict = {
         "ln1": layers.norm_init(cfg.d_model, cfg.norm, lead=lead,
                                 dtype=dtype, device=dev),
-        "mixer": attention.attn_init(gen, cfg, lead=lead, dtype=dtype),
+        "mixer": mixer_init(gen, cfg, **kw),
     }
     if not cfg.parallel_block:
         p["ln2"] = layers.norm_init(cfg.d_model, cfg.norm, lead=lead,
                                     dtype=dtype, device=dev)
-    p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, glu=cfg.glu,
-                               lead=lead, dtype=dtype)
+    if cfg.moe is not None and not _moe_skipped(cfg, layer_idx):
+        p["ffn"] = moe.moe_init(gen, cfg, **kw)
+    else:
+        p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, glu=cfg.glu,
+                                   **kw)
     return p
 
 
@@ -77,10 +93,13 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-               layer_idx: int) -> torch.Tensor:
-    if "router" in p:
-        raise not_ported("the MoE FFN")
-    return layers.mlp(p, x, act=cfg.act, glu=cfg.glu)
+               layer_idx: int, *, moe_rows: bool = False) -> tuple:
+    """(out, aux): the MoE layer's (``moe_rows``: each batch row its own
+    groups), or the dense MLP's with aux 0.0."""
+    if cfg.moe is not None and not _moe_skipped(cfg, layer_idx) \
+            and "router" in p:
+        return moe.moe_apply(p, cfg, x, act=cfg.act, rows=moe_rows)
+    return layers.mlp(p, x, act=cfg.act, glu=cfg.glu), 0.0
 
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
@@ -105,8 +124,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
          ) -> dict:
     """Random parameters on ``gen``'s device, in JAX's unrolled tree."""
     params: dict = {
-        "embed": (layers.normal(gen, (cfg.vocab, cfg.d_model)) * 0.02
-                  ).to(dtype),
+        "embed": layers.normal(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                               dtype=dtype),
         "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dtype=dtype,
                                        device=gen.device),
     }
@@ -125,28 +144,43 @@ def _positions(cfg: ModelConfig, b: int, s: int, batch: dict,
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def _block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
-                 x: torch.Tensor, positions: torch.Tensor, *,
-                 use_flash: bool = False) -> torch.Tensor:
-    """One pre-norm block over the full sequence (the JAX function's
-    ``aux`` is 0.0 for every ported block kind, so only x is returned)."""
+def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
+                x: torch.Tensor, positions: torch.Tensor, *,
+                use_flash: bool = False) -> tuple:
+    """One pre-norm block over the full sequence -> (x, aux), aux the
+    MoE FFN's router loss (0.0 for a dense FFN)."""
     if kind not in BLOCK_KINDS:
-        raise not_ported(f"block kind '{kind}'")
+        raise ValueError(kind)
     if kind == "rwkv":
         mix, _ = rwkv.time_mix(p["mixer"], cfg, _norm(cfg, p["ln1"], x))
         x = x + mix
         ffn_out, _ = rwkv.channel_mix(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
-        return x + ffn_out
+        return x + ffn_out, 0.0
     h = _norm(cfg, p["ln1"], x)
-    window = cfg.local_window if kind == "local_attn" else 0
-    mixer_out = attention.attention(p["mixer"], cfg, h, positions,
-                                    causal=True, window=window,
-                                    use_flash=use_flash)
+    if kind == "mla":
+        mixer_out = mla.mla_attention(p["mixer"], cfg, h, positions)
+    elif kind == "rglru":
+        mixer_out, _ = rglru.rglru_block(p["mixer"], cfg, h)
+    else:
+        window = cfg.local_window if kind == "local_attn" else 0
+        mixer_out = attention.attention(p["mixer"], cfg, h, positions,
+                                        causal=True, window=window,
+                                        use_flash=use_flash)
     if cfg.parallel_block:
-        return x + mixer_out + _ffn_apply(p["ffn"], cfg, h, layer_idx)
+        ffn_out, aux = _ffn_apply(p["ffn"], cfg, h, layer_idx)
+        return x + mixer_out + ffn_out, aux
     x = x + mixer_out
     h2 = _norm(cfg, p["ln2"], x)
-    return x + _ffn_apply(p["ffn"], cfg, h2, layer_idx)
+    ffn_out, aux = _ffn_apply(p["ffn"], cfg, h2, layer_idx)
+    return x + ffn_out, aux
+
+
+def _block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
+                 x: torch.Tensor, positions: torch.Tensor, *,
+                 use_flash: bool = False) -> torch.Tensor:
+    """``block_apply``'s x alone."""
+    return block_apply(p, cfg, kind, layer_idx, x, positions,
+                       use_flash=use_flash)[0]
 
 
 def run_block(fn, remat: bool, *args, context_fn=None):
@@ -160,22 +194,27 @@ def run_block(fn, remat: bool, *args, context_fn=None):
 
 
 def apply(params: dict, cfg: ModelConfig, batch: dict, *,
-          use_flash: bool = False, remat: bool = False) -> torch.Tensor:
-    """Full-sequence forward over the unrolled tree -> logits (B, S, V).
-    (The JAX function also returns the MoE aux loss, 0.0 here.)"""
+          use_flash: bool = False, remat: bool = False,
+          with_aux: bool = False):
+    """Full-sequence forward over the unrolled tree -> logits (B, S, V),
+    or (logits, aux) with ``with_aux`` (JAX's return: aux is the summed
+    MoE router loss, 0.0 without MoE layers)."""
     if cfg.is_encdec:
         raise not_ported("the encoder-decoder stack")
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, batch, x.device)
+    aux_total = 0.0
     for i, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
         def block(p_, x_, i=i, kind=kind):
-            return _block_apply(p_, cfg, kind, i, x_, positions,
-                                use_flash=use_flash)
+            return block_apply(p_, cfg, kind, i, x_, positions,
+                               use_flash=use_flash)
 
-        x = run_block(block, remat, p, x)
+        x, aux = run_block(block, remat, p, x)
+        aux_total = aux_total + aux
     x = _norm(cfg, params["final_norm"], x)
-    return _lm_head(params, cfg, x)
+    logits = _lm_head(params, cfg, x)
+    return (logits, aux_total) if with_aux else logits
 
 
 def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -195,6 +234,26 @@ def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             use_flash: bool = False, remat: bool = False) -> torch.Tensor:
-    logits = apply(params, cfg, batch, use_flash=use_flash, remat=remat)
+    logits, aux = apply(params, cfg, batch, use_flash=use_flash,
+                        remat=remat, with_aux=True)
     return sharded_cross_entropy(logits, batch["labels"],
-                                 softcap=cfg.logit_softcap)
+                                 softcap=cfg.logit_softcap) + aux
+
+
+def count_params(cfg: ModelConfig, *, active_only: bool = False) -> int:
+    """Parameters of the unrolled tree, from its shapes (built under
+    ``FakeTensorMode``, which allocates nothing, as JAX's count uses
+    ``jax.eval_shape``); ``active_only`` leaves out the routed experts a
+    token does not use (top-k of n_experts in each MoE layer)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = init(cfg, torch.Generator())
+        total = sum(t.numel() for t in pytree.tree_leaves(tree))
+    if not active_only or cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = sum(1 for i in range(cfg.n_layers)
+                       if not _moe_skipped(cfg, i))
+    return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
+

@@ -1,26 +1,31 @@
 """Scan-over-layers model assembly: init, the full-sequence forward and
 loss (training with ``--scan-layers``), and the cached decode step.
 
-The port of ``repro.models.transformer_scan`` for attention and RWKV6
-stacks. It keeps the JAX package's parameter tree exactly — ``embed``,
-``final_norm``, ``lm_head`` (untied only), ``prefix_layers``,
-``scan_blocks`` (one block per position of the repeating unit, every
-leaf with a leading ``n_rep`` dim) and ``suffix_layers`` — so the flat
-wire layout of a checkpoint, and a JAX parameter tree carried across
+The port of ``repro.models.transformer_scan`` for every decoder block
+kind (attn, local_attn, mla, rwkv, rglru; dense or MoE FFN). It keeps
+the JAX package's parameter tree exactly — ``embed``, ``final_norm``,
+``lm_head`` (untied only), ``prefix_layers`` (deepseek's dense layer
+0), ``scan_blocks`` (one block per position of the repeating unit, every
+leaf with a leading ``n_rep`` dim) and ``suffix_layers`` (e.g.
+recurrentgemma's trailing two) — so the flat wire layout of a
+checkpoint, and a JAX parameter tree carried across
 (``interop.params_from_jax``), line up leaf for leaf. The ``lax.scan``
 over layers becomes a loop over the layer index of the stacked leaves;
 ``remat`` checkpoints each repetition of the unit, keeping nothing
 (``remat_policy="full"``) or the dense projections' matmul outputs
 (``"dots"``, JAX's ``dots_with_no_batch_dims_saveable``) through torch's
-selective activation checkpointing.
+selective activation checkpointing. The MoE router's aux loss is summed
+over the layers as JAX's scan carries it.
 
 The decode state mirrors JAX's ``{prefix, scan, suffix}`` with the batch
-axis written out: an attention block's KV cache with a per-row cursor
-(see ``attention``), an rwkv block's fp32 ``prev_x``, ``wkv`` (B, H, K, K)
-and ``prev_x_ffn``. ``decode_step`` updates it in place — a block writes
-its new state into the views ``_at`` hands it — and returns it. The
-other block kinds raise ``NotImplementedError`` naming the models
-slice.
+axis written out: an attention block's KV cache and an mla block's
+latent cache with a per-row cursor (see ``attention``, ``mla``), an
+rwkv block's fp32 ``prev_x``, ``wkv`` (B, H, K, K) and ``prev_x_ffn``,
+an rglru block's ``conv`` window and fp32 ``h``. ``decode_step`` updates
+it in place — a block writes its new state into the views ``_at`` hands
+it — and returns it. Its MoE layers group the B tokens of a step
+together, as JAX's batch-B step does, or each row alone with
+``moe_rows=True``, as the JAX engine's vmapped batch-1 step does.
 """
 from __future__ import annotations
 
@@ -30,12 +35,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, mla, rglru, rwkv
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (ATTN_KINDS, _block_apply,
-                                            _block_init, _ffn_apply,
-                                            _lm_head, _moe_skipped, _norm,
-                                            _positions, embed_inputs,
+from repro_torch.models.transformer import (ATTN_KINDS, _block_init,
+                                            _ffn_apply, _lm_head,
+                                            _moe_skipped, _norm, _positions,
+                                            block_apply, embed_inputs,
                                             not_ported, run_block,
                                             sharded_cross_entropy)
 
@@ -69,8 +74,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     dev = gen.device
     params: dict = {
-        "embed": (layers.normal(gen, (cfg.vocab, cfg.d_model)) * 0.02
-                  ).to(dtype),
+        "embed": layers.normal(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                               dtype=dtype),
         "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dtype=dtype,
                                        device=dev),
     }
@@ -110,14 +115,15 @@ def _remat_context(remat_policy: str):
 
 def apply(params: dict, cfg: ModelConfig, batch: dict, *,
           use_flash: bool = False, remat: bool = False,
-          logits_positions: str = "all",
-          remat_policy: str = "full") -> torch.Tensor:
+          logits_positions: str = "all", remat_policy: str = "full",
+          with_aux: bool = False):
     """Full-sequence forward over the stacked tree -> logits (B, S, V),
     or (B, 1, V) with ``logits_positions="last"``: only the final
     position goes through the final norm and the LM head (the serving
     prefill's path: a 32k-token prefill otherwise computes a
-    (B, 32768, V) logits tensor to keep one row). (The JAX function also
-    returns the MoE aux loss, 0.0 here.)"""
+    (B, 32768, V) logits tensor to keep one row). ``with_aux`` returns
+    (logits, aux) as JAX's function does, aux the summed MoE router
+    loss (0.0 without MoE layers)."""
     if logits_positions not in ("all", "last"):
         raise ValueError(f"logits_positions must be 'all' or 'last', got "
                          f"'{logits_positions}'")
@@ -128,46 +134,62 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, batch, x.device)
+    aux_total = 0.0
     for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
-        x = _block_apply(p, cfg, kind, i, x, positions, use_flash=use_flash)
+        x, aux = block_apply(p, cfg, kind, i, x, positions,
+                             use_flash=use_flash)
+        aux_total = aux_total + aux
 
     def body(x_, *ps):
+        aux_ = 0.0
         for j, (p_j, kind) in enumerate(zip(ps, unit)):
-            x_ = _block_apply(p_j, cfg, kind, len(prefix) + j, x_,
-                              positions, use_flash=use_flash)
-        return x_
+            x_, a = block_apply(p_j, cfg, kind, len(prefix) + j, x_,
+                                positions, use_flash=use_flash)
+            aux_ = aux_ + a
+        return x_, aux_
 
     for r in range(n_rep):
-        x = run_block(body, remat, x,
-                      *[_at(sp, r) for sp in params["scan_blocks"]],
-                      context_fn=context_fn)
+        x, aux = run_block(body, remat, x,
+                           *[_at(sp, r) for sp in params["scan_blocks"]],
+                           context_fn=context_fn)
+        aux_total = aux_total + aux
     off = len(prefix) + n_rep * len(unit)
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
-        x = _block_apply(p, cfg, kind, off + i, x, positions,
-                         use_flash=use_flash)
+        x, aux = block_apply(p, cfg, kind, off + i, x, positions,
+                             use_flash=use_flash)
+        aux_total = aux_total + aux
     if logits_positions == "last":
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
-    return _lm_head(params, cfg, x)
+    logits = _lm_head(params, cfg, x)
+    return (logits, aux_total) if with_aux else logits
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             use_flash: bool = False, remat: bool = False,
             remat_policy: str = "full") -> torch.Tensor:
-    logits = apply(params, cfg, batch, use_flash=use_flash, remat=remat,
-                   remat_policy=remat_policy)
+    logits, aux = apply(params, cfg, batch, use_flash=use_flash, remat=remat,
+                        remat_policy=remat_policy, with_aux=True)
     return sharded_cross_entropy(logits, batch["labels"],
-                                 softcap=cfg.logit_softcap)
+                                 softcap=cfg.logit_softcap) + aux
 
 
 def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                 window: int, dtype, device, lead: tuple = ()) -> dict:
+                 window: int, dtype, device, lead: tuple = (),
+                 param_dtype=torch.float32) -> dict:
     if kind == "rwkv":
         st = rwkv.init_state(cfg, batch, lead=lead, device=device)
         st["prev_x_ffn"] = torch.zeros_like(st["prev_x"])
         return st
+    if kind == "rglru":
+        return rglru.init_state(cfg, batch, dtype=dtype,
+                                param_dtype=param_dtype, lead=lead,
+                                device=device)
+    if kind == "mla":
+        return mla.init_cache(cfg, batch, seq_len, window=window,
+                              dtype=dtype, device=device, lead=lead)
     if kind not in ATTN_KINDS:
-        raise not_ported(f"block kind '{kind}'")
+        raise ValueError(kind)
     w = cfg.local_window if kind == "local_attn" else window
     return attention.init_cache(cfg, batch, seq_len, window=w, dtype=dtype,
                                 device=device, lead=lead)
@@ -179,8 +201,9 @@ def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     if device is None:
         device = params["embed"].device
-    mk = lambda k, lead=(): _block_state(cfg, k, batch, seq_len, window,  # noqa: E731
-                                         dtype, device, lead)
+    mk = lambda k, lead=(): _block_state(  # noqa: E731
+        cfg, k, batch, seq_len, window, dtype, device, lead,
+        params["embed"].dtype)
     return {
         "prefix": [mk(k) for k in prefix],
         "scan": [mk(k, (n_rep,)) for k in unit] if n_rep else [],
@@ -197,7 +220,8 @@ def _at(tree, i: int):
 
 
 def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
-                  x: torch.Tensor, st: dict) -> torch.Tensor:
+                  x: torch.Tensor, st: dict, moe_rows: bool = False
+                  ) -> torch.Tensor:
     if kind == "rwkv":
         h = _norm(cfg, p["ln1"], x)
         mix, tm = rwkv.time_mix_decode(p["mixer"], cfg, h, st)
@@ -211,29 +235,43 @@ def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
         st["prev_x_ffn"].copy_(prev_ffn)
         return x + ffn_out
     h = _norm(cfg, p["ln1"], x)
-    mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
+    if kind == "mla":
+        mix, _ = mla.decode_attention(p["mixer"], cfg, h, st)
+    elif kind == "rglru":
+        mix, new = rglru.rglru_block_decode(p["mixer"], cfg, h, st)
+        st["conv"].copy_(new["conv"])
+        st["h"].copy_(new["h"])
+    else:
+        mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
     if cfg.parallel_block:
-        return x + mix + _ffn_apply(p["ffn"], cfg, h, layer_idx)
+        ffn_out, _ = _ffn_apply(p["ffn"], cfg, h, layer_idx,
+                                moe_rows=moe_rows)
+        return x + mix + ffn_out
     x = x + mix
     h2 = _norm(cfg, p["ln2"], x)
-    return x + _ffn_apply(p["ffn"], cfg, h2, layer_idx)
+    ffn_out, _ = _ffn_apply(p["ffn"], cfg, h2, layer_idx, moe_rows=moe_rows)
+    return x + ffn_out
 
 
 def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
-                state: dict) -> tuple:
+                state: dict, *, moe_rows: bool = False) -> tuple:
     """One token for the whole stack. inputs: {"tokens": (B, 1)}.
-    Returns (logits (B, 1, V), state) — ``state`` updated in place."""
+    Returns (logits (B, 1, V), state) — ``state`` updated in place.
+    ``moe_rows``: each row's token is its own MoE group (the serve
+    engine's slots), else the B tokens are one group (JAX's batch-B
+    step)."""
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     x = embed_inputs(params, cfg, inputs)
     for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
-        x = _block_decode(p, cfg, kind, i, x, state["prefix"][i])
+        x = _block_decode(p, cfg, kind, i, x, state["prefix"][i], moe_rows)
     for r in range(n_rep):
         for j, kind in enumerate(unit):
             x = _block_decode(_at(params["scan_blocks"][j], r), cfg, kind,
                               len(prefix) + j, x,
-                              _at(state["scan"][j], r))
+                              _at(state["scan"][j], r), moe_rows)
     off = len(prefix) + n_rep * len(unit)
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
-        x = _block_decode(p, cfg, kind, off + i, x, state["suffix"][i])
+        x = _block_decode(p, cfg, kind, off + i, x, state["suffix"][i],
+                          moe_rows)
     x = _norm(cfg, params["final_norm"], x)
     return _lm_head(params, cfg, x), state

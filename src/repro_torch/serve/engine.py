@@ -151,7 +151,9 @@ class Engine:
                        else transformer_scan.init(
                            mc, transformer_scan.generator(cfg.seed,
                                                           self.device)))
-        self._serve_step = steps.make_serve_step(mc)
+        # each slot its own MoE group, as the JAX engine's vmapped
+        # batch-1 step groups it
+        self._serve_step = steps.make_serve_step(mc, moe_rows=True)
         self._bulk_prefill = steps.make_bulk_prefill(mc)
 
         # slot plane: one decode state whose batch rows are the slots;

@@ -12,6 +12,7 @@ The port of ``repro.train.steps`` on one card, with no mesh:
     ``fold_in(state["rng"], step)`` — then the optimizer update.
     ``metrics`` holds ``loss``, ``grad_norm``, ``step`` and
     ``comm_bytes`` (the measured wire bytes of the one fused message).
+    The loss is the cross entropy plus the MoE router's aux loss.
   * ``make_serve_step`` / ``make_bulk_prefill``: the scanned layout's
     decode step and prompt loop (``transformer_scan``).
   * ``make_prefill_step``: the full-sequence forward returning the
@@ -178,13 +179,16 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, moe_rows: bool = False):
     """decode: (params, decode_state, inputs) -> (next_token_logits,
-    state). The state is updated in place."""
+    state). The state is updated in place. ``moe_rows``: each row's
+    token is its own MoE group (the serve engine's slots, as the JAX
+    engine's vmapped batch-1 step), else the rows are one group (JAX's
+    batch-B step)."""
 
     def serve_step(params, decode_state, inputs):
-        logits, state = transformer_scan.decode_step(params, cfg, inputs,
-                                                     decode_state)
+        logits, state = transformer_scan.decode_step(
+            params, cfg, inputs, decode_state, moe_rows=moe_rows)
         return logits[:, -1], state
 
     return serve_step

@@ -679,3 +679,80 @@ def test_checked_decode_on_the_card_is_k3_and_refuses_a_flipped_bit(card):
     assert _same_bits(got, cdc.flat_decode(packed))
     with pytest.raises(compression.WireCorruptionError):
         compression.checked_decode(cdc, compression.flip_bit(packed, 9), crc)
+
+
+FAMILY_ARCHS = ("recurrentgemma-9b", "deepseek-v2-lite-16b", "qwen2.5-14b",
+                "command-r-35b", "grok-1-314b")
+
+
+def _reduced_family(arch):
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    if arch == "recurrentgemma-9b":
+        return dataclasses.replace(cfg.reduced(n_layers=5), block_pattern=(
+            "rglru", "rglru", "local_attn", "rglru", "rglru"))
+    if arch == "deepseek-v2-lite-16b":
+        return cfg.reduced(n_layers=3)
+    return cfg.reduced()
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_train_step_on_the_card_match_the_cpu(card,
+                                                                 arch):
+    """The hybrid and MoE families reduced: the flash prefill launches
+    K6 once per attention layer (none for MLA or RG-LRU) and equals the
+    CPU's plain version within 1e-5; a train step's loss (with the MoE
+    aux) and gradients equal the CPU's within 1e-5."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.train import steps
+    mc = _reduced_family(arch)
+    params = tts.init(mc, tts.generator(5))
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mc.vocab, size=(2, 300)).astype(np.int32))
+    step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    want = step(params, {"tokens": tok})
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    fk.reset_launches()
+    got = step(gparams, {"tokens": tok.to(card)})
+    assert fk.flash_attention_bhsd.launches == sum(
+        k in ("attn", "local_attn") for k in mc.block_pattern)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+    batch = {"tokens": tok[:, :32], "labels": tok[:, 1:33]}
+    want_l, want_g = steps.value_and_grad(loss, params, batch)
+    got_l, got_g = steps.value_and_grad(
+        loss, gparams, {k: t.to(card) for k, t in batch.items()})
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
+    for g, w in zip(pytree.tree_leaves(got_g), pytree.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b",
+                                  "deepseek-v2-lite-16b"])
+def test_family_decode_on_the_card_matches_the_cpu(card, arch):
+    """A 12-token bulk prefill (the decode loop) of the reduced model on
+    fp32 caches, then one step with the engine's slot grouping: logits
+    and every state leaf equal the CPU's within 1e-5."""
+    from repro_torch.train import steps
+    mc = _reduced_family(arch)
+    params = tts.init(mc, tts.generator(7))
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        0, mc.vocab, size=(3, 12)).astype(np.int32))
+    bulk = steps.make_bulk_prefill(mc)
+    f32 = dict(dtype=torch.float32)
+    lc, sc = bulk(params, tts.init_decode_state(params, mc, 3, 16, **f32),
+                  tok)
+    lg, sg = bulk(gparams, tts.init_decode_state(gparams, mc, 3, 16, **f32),
+                  tok.to(card))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(pytree.tree_leaves(sg), pytree.tree_leaves(sc)):
+        if isinstance(a, torch.Tensor):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    step = steps.make_serve_step(mc, moe_rows=True)
+    nxt = tok[:, :1]
+    lc, _ = step(params, sc, {"tokens": nxt})
+    lg, _ = step(gparams, sg, {"tokens": nxt.to(card)})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)

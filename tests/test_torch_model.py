@@ -53,15 +53,15 @@ def test_config_copy_matches_jax():
 
 def test_other_architectures_are_not_ported_yet():
     with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("qwen2.5-14b")
+        configs.get_config("qwen2-vl-72b")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
-    mc = jconfigs.get_config("recurrentgemma-9b").reduced()
+    mc = jconfigs.get_config("seamless-m4t-large-v2").reduced()
     from repro_torch.models.common import ModelConfig
     import dataclasses
     tmc = ModelConfig(**{f.name: getattr(mc, f.name)
                          for f in dataclasses.fields(mc)})
-    with pytest.raises(NotImplementedError, match="models slice"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         tts.init(tmc, tts.generator(0))
 
 
@@ -169,13 +169,13 @@ def test_rows_keep_their_own_cursor(model):
 
 
 def test_unported_norm_and_activation_raise(model):
-    """GELU stacks come with the models slice, and a norm kind outside
+    """M-RoPE comes with the vlm slice, and a norm kind outside
     rmsnorm / layernorm (LayerNorm came with the rwkv slice) has no JAX
     counterpart; the port refuses both instead of computing something
     else."""
     import dataclasses
     _, tmc, _, _ = model
-    for change in ({"norm": "groupnorm"}, {"act": "gelu"}):
+    for change in ({"norm": "groupnorm"}, {"rope_variant": "mrope"}):
         mc = dataclasses.replace(tmc, **change)
         with pytest.raises(NotImplementedError, match="not ported"):
             p = tts.init(mc, tts.generator(0))
