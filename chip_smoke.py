@@ -10,7 +10,10 @@ flash-attention kernel, prefills and serves full-width rwkv6-3b on the
 WKV6 scan kernel, replays the virtual cluster's traces on full-width
 repro-100m, and prefills and serves the hybrid and MoE families
 (recurrentgemma-9b, deepseek-v2-lite-16b) and prefills qwen2.5-14b and
-command-r-35b (bf16) at full width.
+command-r-35b (bf16) at full width, exchanges full-width repro-100m
+gradients per leaf (the per-leaf codec tier), and decodes full-width
+qwen1.5-0.5b and granite-8b on the unrolled tree with and without the
+int8 KV cache.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -109,7 +112,35 @@ Phases (any failure raises and the script exits non-zero):
      of 1 x 8192 on K6 against their non-flash prefills (1e-3; bf16
      0.05), K6 alone at each geometry; then the five configs reduced,
      prefill and a train step's loss and gradients, card against CPU
-     within 1e-5.
+     within 1e-5;
+ 11. leaf, the per-leaf codec tier: K4, K2 and K3 launched on leaf
+     messages (JAX's per-leaf qdq, encode_packed and decode_packed)
+     against their plain versions, bit for bit (values, payload,
+     params), over two workers' leaves at repro-100m's five leaf sizes
+     and 1,000 elements, bits 8/4/2, with and without Inf/NaN; their
+     rq4 times at the 25,165,824-element leaf beside the bytes bound,
+     and at 768 elements (the launch floor). Then run_distributed on
+     full-width repro-100m (the unrolled tree, 110 leaves), 4 stacked
+     workers of 2 x 256, plain SGD, 3 steps each with
+     CSGDRingExchange("rq4", flat=False), CSGDPSExchange("rq8",
+     flat=False) and ECSGDExchange("rq4", flat=False): finite losses,
+     consensus exactly 0 for the PS and ECSGD (the per-leaf ring is the
+     monolithic chain: each worker ends with its own nesting order), the
+     per-leaf launches a step as the arithmetic gives them, comm bytes
+     from the geometry; step time, tokens/s, peak memory, a breakdown,
+     the per-leaf ring step beside the partitioned flat ring's; a reduced
+     per-leaf ring and the entry points on an Inf/NaN leaf, card against
+     CPU bit for bit;
+ 12. kv, the unrolled decode and the int8 KV cache: full-width
+     qwen1.5-0.5b (fp32 weights) bulk prefill of 4 x 64 tokens into a
+     4,096-slot cache and 32 greedy steps on the bf16 cache, the int8
+     cache fed the same tokens (JAX's rule: 1e-5 < max|d logits| /
+     max|logits| < 0.05) and the scanned form on the same weights
+     (within 1e-5); full-width granite-8b's 32,768-slot caches holding
+     exactly 4,831,838,208 B of K/V (bf16) and 2,491,416,576 B (int8 +
+     scales), a 64-token bulk prefill and 16 steps on each; then the
+     five families reduced on the unrolled tree, card against CPU (fp32
+     cache 1e-5, int8 cache 2e-3 of the logits' scale).
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -296,6 +327,37 @@ FAMILY_GEN = (8, 16, 32)
 # DECODE_LOGITS_TOL
 MLA_CHECK_LEN = 64
 
+# leaf phase: the per-leaf codec tier. repro-100m's five distinct leaf
+# sizes (norm scales; the attention's k/v; its q/o; the MLP's; the
+# embedding, vocab x d), checked at bits 8/4/2 with an odd size and an
+# Inf/NaN leaf; 4 stacked workers of the full-width unrolled tree (110
+# leaves) exchange per leaf for LEAF_STEPS steps of plain SGD
+LEAF_SIZES = (768, 196_608, 589_824, 2_359_296, 25_165_824)
+LEAF_ODD = 1000
+LEAF_LEAVES = 110
+LEAF_STEPS = 3
+LEAF_RUNS = (("csgd_ring", "rq4"), ("csgd_ps", "rq8"), ("ecsgd", "rq4"))
+# bytes a leaf element moves at rq4 (each input read once, each output
+# written once): qdq x, u in and out fp32; encode x, u in, half a byte
+# out; decode half a byte in, fp32 out
+LEAF_BYTES_PER_ELEM = {"leaf_qdq": 12.0, "leaf_encode_packed": 8.5,
+                       "leaf_decode_packed": 4.5}
+# kv phase: the unrolled decode with and without the int8 KV cache
+KV_ARCH = "qwen1.5-0.5b"
+KV_BATCH, KV_PROMPT, KV_SLOTS, KV_GEN = 4, 64, 4096, 32
+KV_UNROLL_TOL = 1e-5          # unrolled against scanned, bf16 cache
+KV_INT8_REL = 0.05            # int8 against bf16 cache: JAX's own rule,
+KV_INT8_FLOOR = 1e-5          # tests/test_models.py (and not identical)
+GRANITE_ARCH = "granite-8b"
+GRANITE_SLOTS, GRANITE_PROMPT, GRANITE_GEN = 32_768, 64, 16
+# K/V (+ scale) bytes of granite-8b's 36 layers x 8 kv heads x D 128 at
+# 32,768 slots: bf16 2 x 128 x 2 B a head-slot, int8 2 x (128 + 4) B
+GRANITE_KV_BYTES = {False: 4_831_838_208, True: 2_491_416_576}
+KV_REDUCED_ARCHS = ("qwen1.5-0.5b", "rwkv6-3b", "recurrentgemma-9b",
+                    "deepseek-v2-lite-16b", "grok-1-314b")
+KV_REDUCED_INT8_REL = 2e-3    # card vs CPU on the int8 cache (a code at a
+                              # rounding half may flip by one)
+
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
 QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
 # name -> (the TPU kernel it replaces (its bucketed form), source, bound;
@@ -311,6 +373,10 @@ KERNELS = {
                              "operations"),
     "wkv6_bhsk": ("src/repro/kernels/wkv6/kernel.py:77",
                   "src/repro_torch/csrc/wkv6.cu", None),
+    # the per-leaf Pallas calls: K4, K2, K3 launched on leaf messages
+    "leaf_qdq": (f"{QUANT_TPU}:77", QUANT_SOURCE, "bytes"),
+    "leaf_encode_packed": (f"{QUANT_TPU}:96", QUANT_SOURCE, "bytes"),
+    "leaf_decode_packed": (f"{QUANT_TPU}:117", QUANT_SOURCE, "bytes"),
 }
 SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
 TRAIN_KERNELS = ("minmax_bucketed", "qdq_bucketed")
@@ -318,6 +384,7 @@ RING_KERNELS = ("decode_add_encode_bucketed",)
 PREFILL_KERNELS = ("flash_attention_bhsd",)
 RWKV_KERNELS = ("wkv6_bhsk",)
 CLUSTER_KERNELS = ("minmax_bucketed", "qdq_bucketed")
+LEAF_KERNELS = ("leaf_qdq", "leaf_encode_packed", "leaf_decode_packed")
 
 
 def log(msg: str) -> None:
@@ -2032,7 +2099,8 @@ def prefill_vs_decode(torch, params, cfg, seed: int, kernel,
     before = kernel.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bulk, _ = steps.make_bulk_prefill(cfg)(params, state, tok)
+    bulk, _ = steps.make_bulk_prefill(cfg, scan_layers=True)(
+        params, state, tok)
     torch.cuda.synchronize()
     bulk_s = time.perf_counter() - t0
     if kernel.launches != before:
@@ -2138,7 +2206,7 @@ def rwkv_cross_device_check(torch) -> None:
         if not torch.allclose(b, a, rtol=REDUCED_TOL, atol=REDUCED_TOL):
             raise AssertionError(f"reduced rwkv {name}: card != CPU (max "
                                  f"abs err {max_abs(b, a)})")
-    bulk = steps.make_bulk_prefill(mc)
+    bulk = steps.make_bulk_prefill(mc, scan_layers=True)
     lc, sc = bulk(params, transformer_scan.init_decode_state(
         params, mc, 2, 16, dtype=torch.float32), tok[:, :12])
     lg, sg = bulk(gparams, transformer_scan.init_decode_state(
@@ -2732,6 +2800,548 @@ def families_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# leaf phase (the eighth main path: the per-leaf codec tier)
+# ---------------------------------------------------------------------------
+
+
+def check_leaf(torch, n: int, bits: int, seed: int, *, rows: int = 2,
+               special: bool = False) -> dict:
+    """K4, K2 and K3 as per-leaf launches over ``rows`` workers' leaves of
+    n elements, against their plain versions on the same card tensors
+    (and the params against the plain per-leaf ``ref.quant_params``),
+    bit for bit; returns max_abs_err per kernel."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, n), generator=g, device="cuda") * 0.02
+    if special:
+        x[0, 3], x[0, n - 2] = math.inf, -math.inf
+        x[rows - 1, 5] = math.nan
+    keys = [prng.PRNGKey(seed + i) for i in range(rows)]
+    x4, u4, params = ops._leaf_rows(x, keys, bits=bits)
+    for i in range(rows):
+        lo, scale = ref.quant_params(x[i], bits)
+        if not same_bits(params[i], torch.stack([lo, scale])):
+            raise AssertionError(f"leaf params != ref.quant_params (n={n})")
+    lo, scale = params[:, 0], params[:, 1]
+    q = kernel.leaf_qdq(x4, u4, params, bits=bits)
+    want_q = ref.qdq_bucketed(x4, u4, lo, scale, bits=bits)
+    pay = kernel.leaf_encode_packed(x4, u4, params, bits=bits)
+    want_pay = ref.encode_packed_bucketed(x4, u4, lo, scale, bits=bits)
+    dec = kernel.leaf_decode_packed(pay, params, bits=bits)
+    want_dec = ref.decode_packed_bucketed(pay, lo, scale, bits=bits)
+    if not (same_bits(q, want_q) and bits_equal(pay, want_pay)
+            and same_bits(dec, want_dec) and same_bits(dec, q)):
+        raise AssertionError(f"per-leaf K2/K3/K4 != plain (n={n}, "
+                             f"bits={bits}, special={special})")
+    return {"leaf_qdq": max_abs(q, want_q),
+            "leaf_encode_packed": max_abs(pay.float(), want_pay.float()),
+            "leaf_decode_packed": max_abs(dec, want_dec)}
+
+
+def time_leaf(torch, n: int, seed: int) -> dict:
+    """rq4 CUDA-event times of the three per-leaf launches on ONE leaf of
+    n elements (B = 1) beside their plain versions and the bytes bound
+    (LEAF_BYTES_PER_ELEM over the zero-padded leaf, plus the params)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.quant import kernel, ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, n), generator=g, device="cuda") * 0.02
+    x4, u4, params = ops._leaf_rows(x, [prng.PRNGKey(seed)], bits=4)
+    lo, scale = params[:, 0], params[:, 1]
+    pay = kernel.leaf_encode_packed(x4, u4, params, bits=4)
+    fns = {"leaf_qdq": (lambda: kernel.leaf_qdq(x4, u4, params, bits=4),
+                        lambda: ref.qdq_bucketed(x4, u4, lo, scale, bits=4)),
+           "leaf_encode_packed": (
+               lambda: kernel.leaf_encode_packed(x4, u4, params, bits=4),
+               lambda: ref.encode_packed_bucketed(x4, u4, lo, scale,
+                                                  bits=4)),
+           "leaf_decode_packed": (
+               lambda: kernel.leaf_decode_packed(pay, params, bits=4),
+               lambda: ref.decode_packed_bucketed(pay, lo, scale, bits=4))}
+    out = {}
+    for name, (k, plain) in fns.items():
+        out[name] = {
+            "ms": time_ms(k), "plain_ms": time_ms(plain), "library_ms": None,
+            "bound_ms": (x4.numel() * LEAF_BYTES_PER_ELEM[name] + 8)
+            / HBM_BYTES_PER_S * 1e3, "elems": n, "padded": x4.numel()}
+    return out
+
+
+def leaf_geometry_bytes(layout, bits: int) -> float:
+    """One worker's per-leaf message bytes of the whole tree, from the
+    geometry: each leaf ceil(n / (pack * 512)) payload rows of 512 bytes
+    plus its 8-byte params row (JAX's tree_wire_bytes)."""
+    from repro_torch.kernels.quant import ops
+    return float(sum(ops.leaf_payload_rows(n, bits=bits) * ops.LANES + 8
+                     for n in layout.sizes))
+
+
+def leaf_run(torch, name: str, compressor: str, params0, loss_fn,
+             make_batch, eval_batch, n_leaves: int) -> dict:
+    """LEAF_STEPS steps of run_distributed over RING_WORKERS stacked
+    full-width workers with ``name`` at flat=False: finite losses, the
+    per-leaf launches a step as the arithmetic gives them (the ring N L
+    K2 and N L K3; the PS and ECSGD 2 L K4; nothing else of the codec),
+    comm bytes from the geometry, step time, tokens/s, peak memory."""
+    from repro_torch.core import communicators, compression, parallel
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.train import steps
+
+    n = RING_WORKERS
+    inner = communicators.make_exchange(name, compressor=compressor,
+                                        flat=False)
+    bits = compression.codec(compressor).bits
+    layout = compression.FlatLayout.from_tree(params0)
+    hops = n - 1 if name == "csgd_ring" else 2
+    comm = inner.message_bytes(params0, n_workers=n)
+    if comm != hops * leaf_geometry_bytes(layout, bits):
+        raise AssertionError(f"{name}: message_bytes {comm}")
+    if name == "csgd_ring":
+        want = {"leaf_encode_packed": n * n_leaves,
+                "leaf_decode_packed": n * n_leaves}
+    else:
+        want = {"leaf_qdq": 2 * n_leaves}
+    ex = CountingExchange(inner)
+    marks = []
+
+    def sample_batch(key, worker):
+        if worker == 0:
+            torch.cuda.synchronize()
+            marks.append(["start", time.perf_counter()])
+        return make_batch(key)
+
+    def full_loss(p):
+        torch.cuda.synchronize()
+        marks.append(["end", time.perf_counter()])
+        return loss_fn(p, eval_batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    res = parallel.run_distributed(
+        loss_fn, full_loss,
+        lambda p: steps.value_and_grad(loss_fn, p, eval_batch)[1], params0,
+        sample_batch, n_workers=n, steps=LEAF_STEPS, lr=RING_LR,
+        exchange=ex, seed=RING_SEED, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in kernel.launch_counts().items() if v}
+    for t, (per, _) in enumerate(ex.calls):
+        got = {k: v for k, v in per.items() if v}
+        if got != want:
+            raise AssertionError(f"{name} step {t}: launches {got}, the "
+                                 f"arithmetic gives {want}")
+    losses = [float(v) for v in res.losses]
+    cons = [float(v) for v in res.consensus]
+    if not all(math.isfinite(v) for v in losses + cons):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if name != "csgd_ring" and any(c != 0.0 for c in cons):
+        raise AssertionError(f"{name}: consensus {cons}")
+    step_ms = [(e[1] - s[1]) * 1e3 for s, e in zip(marks[0::2], marks[1::2])]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out = {"exchange": name, "compressor": compressor, "flat": False,
+           "workers": n, "steps": LEAF_STEPS, "losses": losses,
+           "consensus": cons, "step_ms": step_ms, "median_step_ms": med,
+           "exchange_ms": [ms for _, ms in ex.calls],
+           "tokens_per_s": n * RING_BATCH * RING_SEQ / (med / 1e3),
+           "max_memory_allocated": peak, "comm_bytes_per_step": comm,
+           "launches_per_step": want, "launches": launches}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_breakdown(torch, loss_fn, params0, make_batch) -> dict:
+    """Where a per-leaf step's time goes, each piece timed alone on the
+    host clock around a synchronize: one worker's forward + backward,
+    one worker's uniform draws for the whole tree (plain torch threefry,
+    a gradient's worth), and each per-leaf kernel launched over every
+    leaf for the 4 workers on pre-drawn uniforms."""
+    from repro_torch.core import prng, pytree
+    from repro_torch.kernels.quant import kernel, ops
+    from repro_torch.train import steps
+
+    n = RING_WORKERS
+    batch = make_batch(prng.PRNGKey(78))
+    g = steps.value_and_grad(loss_fn, params0, batch)[1]
+    leaves = pytree.tree_leaves(g)
+    keys = prng.split(prng.PRNGKey(79), len(leaves))
+    views = [ops._leaf_rows(leaf.unsqueeze(0).expand((n,) + tuple(
+        leaf.shape)), [prng.fold_in(keys[j], i) for i in range(n)], bits=4)
+        for j, leaf in enumerate(leaves)]
+    pays = [kernel.leaf_encode_packed(x4, u4, p, bits=4)
+            for x4, u4, p in views]
+
+    def draws():
+        for j, (x4, _, _) in enumerate(views):
+            prng.uniform(keys[j], tuple(x4.shape[1:]), device="cuda")
+
+    out = {
+        "fwd_bwd_per_worker_ms": host_ms(torch, lambda: steps.value_and_grad(
+            loss_fn, params0, batch), reps=3),
+        "draws_per_gradient_ms": host_ms(torch, draws, reps=3),
+        "k4_all_leaves_ms": host_ms(torch, lambda: [
+            kernel.leaf_qdq(x4, u4, p, bits=4) for x4, u4, p in views]),
+        "k2_all_leaves_ms": host_ms(torch, lambda: [
+            kernel.leaf_encode_packed(x4, u4, p, bits=4)
+            for x4, u4, p in views]),
+        "k3_all_leaves_ms": host_ms(torch, lambda: [
+            kernel.leaf_decode_packed(pay, p, bits=4)
+            for pay, (_, _, p) in zip(pays, views)]),
+        "params_all_leaves_ms": host_ms(torch, lambda: [
+            ops.leaf_params(leaf.reshape(1, -1).expand(n, -1), bits=4)
+            for leaf in leaves]),
+        "leaves": len(leaves),
+        # gradient-sized draws a step: the ring N (1 + (N - 1)) encodes;
+        # the PS N workers + 1 server; ECSGD N workers + 1 (the server's
+        # shared key draws once)
+        "draws_per_step": {"csgd_ring": n * n, "csgd_ps": n + 1,
+                           "ecsgd": n + 1},
+    }
+    del views, pays, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_cross_device_check(torch) -> None:
+    """A reduced per-leaf rq4 ring (N = 4) on the card equals the CPU's
+    bit for bit, as does one odd-sized leaf's encode and an Inf/NaN
+    leaf's qdq through the ops entry points (draws and params included)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import communicators, prng, pytree
+    from repro_torch.kernels.quant import ops
+    from repro_torch.models import transformer
+
+    mc = configs.get_config(TRAIN_ARCH).reduced(n_layers=2, d_model=128,
+                                                vocab=512)
+    p = transformer.init(mc, torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    g = pytree.tree_map(lambda t: torch.from_numpy(
+        (rng.normal(size=(4,) + tuple(t.shape)) * 0.01).astype(np.float32)),
+        p)
+    ring = communicators.CSGDRingExchange(compressor="rq4", flat=False)
+    want, _ = ring(g, (), prng.PRNGKey(6))
+    got, _ = ring(pytree.tree_map(lambda t: t.cuda(), g), (),
+                  prng.PRNGKey(6))
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        if not bits_equal(a.cpu(), b):
+            raise AssertionError("reduced per-leaf ring: card != CPU")
+    x = torch.from_numpy((rng.normal(size=LEAF_ODD) * 0.1).astype(
+        np.float32))
+    x[7], x[100] = math.inf, math.nan
+    for bits in (8, 4, 2):
+        pc, qc = ops.encode(x.cuda(), prng.PRNGKey(bits), bits=bits)
+        pw, qw = ops.encode(x, prng.PRNGKey(bits), bits=bits)
+        if not (torch.equal(pc.cpu(), pw) and same_bits(qc.cpu(), qw)
+                and same_bits(ops.quantize_dequantize(
+                    x.cuda(), prng.PRNGKey(bits), bits=bits).cpu(),
+                    ops.quantize_dequantize(x, prng.PRNGKey(bits),
+                                            bits=bits))):
+            raise AssertionError(f"per-leaf entry points bits={bits}: "
+                                 "card != CPU")
+    log(f"[check] reduced per-leaf rq4 ring (N = 4, "
+        f"{len(pytree.tree_leaves(g))} leaves) and a {LEAF_ODD}-element "
+        "Inf/NaN leaf's encode and qdq at bits 8/4/2: card == CPU bit for "
+        "bit")
+
+
+def leaf_phase(torch, flat_ring_ms: float) -> dict:
+    """The per-leaf kernels against their plain versions at repro-100m's
+    leaf sizes, an odd size and an Inf/NaN leaf; their times at rq4;
+    then the per-leaf ring, PS and ECSGD on 4 stacked full-width
+    workers (the main path), a breakdown, and a reduced card vs CPU
+    check. ``flat_ring_ms`` is the ring phase's partitioned flat ring
+    step, printed beside the per-leaf ring's."""
+    from repro_torch import configs
+    from repro_torch.core import compression, prng
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    t0 = time.perf_counter()
+    errs: dict = {}
+    for n in LEAF_SIZES + (LEAF_ODD,):
+        for bits in (8, 4, 2):
+            for special in (False, True):
+                res = check_leaf(torch, n, bits, seed=n % 997 + bits,
+                                 special=special)
+                for k, v in res.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+    log(f"[leaf] K4, K2, K3 as per-leaf launches over 2 workers' leaves at "
+        f"{list(LEAF_SIZES)} and {LEAF_ODD} elements, bits 8/4/2, with and "
+        "without Inf/NaN: bit-identical to plain")
+    timing = time_leaf(torch, LEAF_SIZES[-1], seed=41)
+    floor = time_leaf(torch, LEAF_SIZES[0], seed=42)
+    for name in LEAF_KERNELS:
+        timing[name]["max_abs_err"] = errs[name]
+        timing[name]["launch_floor_ms"] = floor[name]["ms"]
+        timing[name]["launch_floor_plain_ms"] = floor[name]["plain_ms"]
+    log(f"[leaf] rq4 times at the {LEAF_SIZES[-1]}-element leaf (and the "
+        f"{LEAF_SIZES[0]}-element leaf's, the launch floor) "
+        + json.dumps(timing))
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    params0 = transformer.init(
+        cfg, torch.Generator(device="cuda").manual_seed(RING_SEED))
+    layout = compression.FlatLayout.from_tree(params0)
+    if (layout.total, len(layout.sizes), sorted(set(layout.sizes))) != \
+            (TRAIN_TOTAL, LEAF_LEAVES, sorted(LEAF_SIZES)):
+        raise AssertionError(f"{TRAIN_ARCH}: {layout.total} parameters in "
+                             f"{len(layout.sizes)} leaves of sizes "
+                             f"{sorted(set(layout.sizes))}")
+    loss_fn = steps.make_loss_fn(cfg)
+
+    def make_batch(key):
+        tok = prng.randint(key, (RING_BATCH, RING_SEQ + 1), 0, cfg.vocab,
+                           device="cuda")
+        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    eval_batch = make_batch(prng.PRNGKey(RING_SEED + 1))
+    runs = {}
+    launches: dict = {}
+    for name, compressor in LEAF_RUNS:
+        run = leaf_run(torch, name, compressor, params0, loss_fn,
+                       make_batch, eval_batch, LEAF_LEAVES)
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = run
+        log(f"[leaf] {name} {compressor} flat=False: median step "
+            f"{run['median_step_ms']:.1f} ms, tokens/s "
+            f"{run['tokens_per_s']:.1f}, consensus {run['consensus']}, "
+            f"peak {run['max_memory_allocated']} B; " + json.dumps(run))
+    log(f"[leaf] the ring step at full width, 4 workers: per-leaf rq4 "
+        f"({LEAF_LEAVES} leaves, {runs['csgd_ring']['median_step_ms']:.1f} "
+        f"ms) "
+        f"against the partitioned flat ring ({flat_ring_ms:.1f} ms, ring "
+        f"phase): x{runs['csgd_ring']['median_step_ms'] / flat_ring_ms:.2f}")
+    log("[leaf] breakdown " + json.dumps(leaf_breakdown(
+        torch, loss_fn, params0, make_batch)))
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaf_cross_device_check(torch)
+    for name in LEAF_KERNELS:
+        launches.setdefault(name, 0)
+    out = {"timing": timing, "runs": runs, "launches": launches,
+           "flat_ring_ms": flat_ring_ms,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[leaf] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kv phase (the ninth main path: the unrolled decode and the int8 KV cache)
+# ---------------------------------------------------------------------------
+
+
+def stacked_like_scan(torch, params, cfg) -> dict:
+    """An unrolled parameter tree as the scanned one: the repeating
+    unit's layers stacked on a leading n_rep dim (the same weights)."""
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer_scan
+
+    prefix, unit, n_rep, suffix = transformer_scan.pattern_segments(cfg)
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["prefix_layers"] = layers[:len(prefix)]
+    out["scan_blocks"] = [
+        pytree.tree_map(lambda *xs: torch.stack(xs),
+                        *[layers[len(prefix) + r * len(unit) + j]
+                          for r in range(n_rep)])
+        for j in range(len(unit))] if n_rep else []
+    out["suffix_layers"] = layers[len(prefix) + n_rep * len(unit):]
+    return out
+
+
+def kv_decode(torch, impl, params, cfg, tokens, *, batch: int, slots: int,
+              gen: int, quantize_kv: bool, feed=None) -> dict:
+    """A bulk prefill of ``tokens`` into a fresh decode state of ``slots``
+    (bf16 K/V, or int8 with ``quantize_kv``) and ``gen`` steps, greedy or
+    fed the tokens of ``feed``: the logits of every step, the tokens,
+    the prefill and per-step host times (synchronized), and the state's
+    K/V (+ scale) bytes and allocated-memory delta."""
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    scan = impl is transformer_scan
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = impl.init_decode_state(params, cfg, batch, slots,
+                                   quantize_kv=quantize_kv)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    blocks = state["layers"] if "layers" in state else \
+        state["prefix"] + state["scan"] + state["suffix"]
+    kv_bytes = sum(b[k].numel() * b[k].element_size() for b in blocks
+                   for k in ("k", "v", "k_scale", "v_scale") if k in b)
+    bulk = steps.make_bulk_prefill(cfg, scan_layers=scan)
+    step = steps.make_serve_step(cfg, scan_layers=scan)
+    t0 = time.perf_counter()
+    logits, state = bulk(params, state, tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    all_logits, toks, step_ms = [logits], [], []
+    for i in range(gen):
+        nxt = feed[i] if feed is not None else logits.argmax(-1, keepdim=True)
+        toks.append(nxt)
+        t0 = time.perf_counter()
+        logits, state = step(params, state, {"tokens": nxt})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        all_logits.append(logits)
+    if not all(bool(torch.isfinite(x).all()) for x in all_logits):
+        raise AssertionError(f"{cfg.arch_id}: non-finite decode logits")
+    del state
+    return {"logits": all_logits, "tokens": toks, "prefill_ms": prefill_ms,
+            "step_ms": step_ms,
+            "median_step_ms": sorted(step_ms)[len(step_ms) // 2],
+            "kv_bytes": kv_bytes, "alloc_delta": delta}
+
+
+def kv_summary(run: dict) -> dict:
+    return {k: run[k] for k in ("prefill_ms", "median_step_ms", "kv_bytes",
+                                "alloc_delta")}
+
+
+def kv_cross_device_check(torch) -> None:
+    """The five families reduced on the unrolled tree, card against
+    CPU: an 8-token bulk prefill and 4 steps on the fp32 cache within
+    REDUCED_TOL and on the int8 cache within KV_REDUCED_INT8_REL of the
+    logits' scale, over every block kind (attn, local_attn, mla, rglru,
+    rwkv; dense and MoE FFN)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    errs = {}
+    for arch in KV_REDUCED_ARCHS:
+        mc = (reduced_family(arch) if arch in FAMILY_ARCHS
+              else configs.get_config(arch).reduced())
+        params = transformer.init(mc, torch.Generator().manual_seed(8))
+        gparams = pytree.tree_map(lambda t: t.cuda(), params)
+        tok = torch.from_numpy(np.random.default_rng(9).integers(
+            0, mc.vocab, size=(2, 12)).astype(np.int32))
+        bulk, step = steps.make_bulk_prefill(mc), steps.make_serve_step(mc)
+        for q in (False, True):
+            mk = lambda p: transformer.init_decode_state(  # noqa: E731
+                p, mc, 2, 16, dtype=torch.float32, quantize_kv=q)
+            lc, sc = bulk(params, mk(params), tok[:, :8])
+            lg, sg = bulk(gparams, mk(gparams), tok[:, :8].cuda())
+            pairs = [(lg, lc)]
+            for i in range(8, 12):
+                lc, sc = step(params, sc, {"tokens": tok[:, i:i + 1]})
+                lg, sg = step(gparams, sg, {"tokens": tok[:, i:i + 1].cuda()})
+                pairs.append((lg, lc))
+            err = max(max_abs(g.cpu(), c) for g, c in pairs)
+            scale = max(float(c.abs().max()) for _, c in pairs)
+            errs[f"{arch} {'int8' if q else 'fp32'}"] = err
+            ok = err <= KV_REDUCED_INT8_REL * scale if q else all(
+                torch.allclose(g.cpu(), c, rtol=REDUCED_TOL, atol=REDUCED_TOL)
+                for g, c in pairs)
+            if not ok:
+                raise AssertionError(f"reduced {arch} unrolled decode "
+                                     f"(int8 {q}): card != CPU, max abs err "
+                                     f"{err}")
+    log(f"[check] the five families reduced, unrolled decode (8-token bulk "
+        f"prefill + 4 steps): card == CPU within {REDUCED_TOL} (fp32 cache) "
+        f"and {KV_REDUCED_INT8_REL} of the logits' scale (int8 cache); max "
+        "abs errs " + json.dumps(errs))
+
+
+def kv_phase(torch) -> dict:
+    """Full-width qwen1.5-0.5b on the unrolled tree: bulk prefill and
+    greedy decode on the bf16 and the int8 cache, and the scanned form on
+    the same weights; full-width granite-8b's 32,768-slot caches and
+    their bytes; then the reduced families card vs CPU."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer, transformer_scan
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = configs.get_config(KV_ARCH)
+    params = transformer.init(cfg, transformer_scan.generator(60, "cuda"))
+    tok = torch.from_numpy(np.random.default_rng(61).integers(
+        0, cfg.vocab, size=(KV_BATCH, KV_PROMPT)).astype(np.int32)).cuda()
+    kw = dict(batch=KV_BATCH, slots=KV_SLOTS, gen=KV_GEN)
+    bf16 = kv_decode(torch, transformer, params, cfg, tok, quantize_kv=False,
+                     **kw)
+    int8 = kv_decode(torch, transformer, params, cfg, tok, quantize_kv=True,
+                     feed=bf16["tokens"], **kw)
+    sparams = stacked_like_scan(torch, params, cfg)
+    del params
+    scan = kv_decode(torch, transformer_scan, sparams, cfg, tok,
+                     quantize_kv=False, feed=bf16["tokens"], **kw)
+    del sparams
+    unroll_err = max(max_abs(a, b) for a, b in zip(bf16["logits"],
+                                                   scan["logits"]))
+    if not all(torch.allclose(a, b, rtol=KV_UNROLL_TOL, atol=KV_UNROLL_TOL)
+               for a, b in zip(bf16["logits"], scan["logits"])):
+        raise AssertionError(f"{KV_ARCH}: unrolled != scanned decode logits "
+                             f"(max abs err {unroll_err})")
+    rel = max(float((a - b).abs().max() / a.abs().max())
+              for a, b in zip(bf16["logits"], int8["logits"]))
+    if not KV_INT8_FLOOR < rel < KV_INT8_REL:
+        raise AssertionError(f"{KV_ARCH}: int8 cache logits {rel} relative "
+                             f"from the bf16 cache's")
+    agree = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all())
+                           for a, b in zip(bf16["logits"], int8["logits"])]))
+    out[KV_ARCH] = {"batch": KV_BATCH, "prompt": KV_PROMPT,
+                    "slots": KV_SLOTS, "gen": KV_GEN,
+                    "bf16": kv_summary(bf16), "int8": kv_summary(int8),
+                    "scan_bf16": kv_summary(scan),
+                    "unrolled_vs_scan_max_abs_err": unroll_err,
+                    "int8_vs_bf16_rel": rel,
+                    "int8_greedy_agreement": agree}
+    log(f"[kv] {KV_ARCH} unrolled {KV_BATCH} x {KV_PROMPT} prompt, "
+        f"{KV_GEN} steps: decode step {bf16['median_step_ms']:.1f} ms "
+        f"(bf16 cache), {int8['median_step_ms']:.1f} ms (int8), scanned "
+        f"{scan['median_step_ms']:.1f} ms; unrolled vs scanned max abs err "
+        f"{unroll_err:.3g}; int8 vs bf16 {rel:.4g} of the logits' scale; "
+        + json.dumps(out[KV_ARCH]))
+    del bf16, int8, scan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config(GRANITE_ARCH)
+    params = transformer.init(cfg, transformer_scan.generator(62, "cuda"))
+    tok = torch.from_numpy(np.random.default_rng(63).integers(
+        0, cfg.vocab, size=(1, GRANITE_PROMPT)).astype(np.int32)).cuda()
+    runs = {}
+    for q in (False, True):
+        run = kv_decode(torch, transformer, params, cfg, tok, batch=1,
+                        slots=GRANITE_SLOTS, gen=GRANITE_GEN, quantize_kv=q)
+        if run["kv_bytes"] != GRANITE_KV_BYTES[q]:
+            raise AssertionError(f"{GRANITE_ARCH} (int8 {q}): K/V bytes "
+                                 f"{run['kv_bytes']}, the geometry gives "
+                                 f"{GRANITE_KV_BYTES[q]}")
+        runs["int8" if q else "bf16"] = kv_summary(run)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[GRANITE_ARCH] = {"slots": GRANITE_SLOTS, "prompt": GRANITE_PROMPT,
+                         "gen": GRANITE_GEN, **runs}
+    log(f"[kv] {GRANITE_ARCH} 1 x {GRANITE_SLOTS} slots: K/V bytes "
+        f"{runs['bf16']['kv_bytes']} (bf16) and {runs['int8']['kv_bytes']} "
+        f"(int8 + scales); " + json.dumps(out[GRANITE_ARCH]))
+    kv_cross_device_check(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[kv] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2768,6 +3378,9 @@ def main() -> int:
     timing["wkv6_bhsk"] = rwkv["k7"]
     clustered = cluster_phase(torch)
     families = families_phase(torch)
+    leafed = leaf_phase(torch, ringed["median_step_ms"])
+    timing.update(leafed["timing"])
+    kv = kv_phase(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -2780,14 +3393,16 @@ def main() -> int:
                                     "prefill": prefilled["launches"],
                                     "rwkv": rwkv["launches"],
                                     "cluster": clustered["launches"],
-                                    "families": families["launches"]}))
+                                    "families": families["launches"],
+                                    "leaf": leafed["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
         path = (served if name in SERVE_KERNELS else ringed
                 if name in RING_KERNELS else prefilled
                 if name in PREFILL_KERNELS else rwkv
-                if name in RWKV_KERNELS else trained)
+                if name in RWKV_KERNELS else leafed
+                if name in LEAF_KERNELS else trained)
         launches = path["launches"][name]
         if name in PREFILL_KERNELS:      # K6 also runs the families' path
             launches += families["launches"][name]

@@ -25,12 +25,20 @@ draw the same bits and the ring's chains are bit-identical to JAX's.
   DCDGossipExchange  difference-compressed DSGD             compressed gossip
   ECDGossipExchange  error-compensated DCD variant          + flat residual
 
-Only the fused flat tier is ported (``flat=True``, the JAX default);
-``flat=False`` (the per-leaf reference tier) raises. Every exchange
-reports the wire bytes one worker sends per iteration via
-``message_bytes``. Exchanges return new tensors and leave their inputs
-as they are, except where a docstring says a state buffer is updated in
-place.
+``flat=True`` (the JAX default) runs the fused flat tier: one message
+per exchange step. ``flat=False`` runs the per-leaf reference tier, one
+message per leaf: the PS forms and ECSGD (with per-leaf error trees)
+through ``tree_qdq``, the ring through a chain of per-leaf ``Packed``
+messages (``tree_encode`` / ``tree_decode``) for a packable codec. The
+codec launches each leaf once over the N stacked workers' messages
+(``Codec.tree_qdq_rows``, ``QuantCodec.tree_encode_rows`` /
+``tree_decode_rows``); a step of L leaves and N workers launches K4
+(``leaf_qdq``) 2L times on the PS forms and ECSGD, and K2
+(``leaf_encode_packed``) and K3 (``leaf_decode_packed``) NL times each
+on the ring. Every exchange reports the wire bytes one worker sends per
+iteration via ``message_bytes``. Exchanges return new tensors and leave
+their inputs as they are, except where a docstring says a state buffer
+is updated in place.
 """
 from __future__ import annotations
 
@@ -124,10 +132,13 @@ def _fp32_bytes(tree) -> float:
     return compression.codec("none").tree_wire_bytes_flat(tree)
 
 
-def _per_leaf(name: str):
-    return NotImplementedError(
-        f"{name}(flat=False): the per-leaf tier is not ported to "
-        "repro_torch yet; use the fused flat tier (flat=True)")
+def _add(a, b):
+    return pytree.tree_map(torch.add, a, b)
+
+
+def _sub_(a, b):
+    """a - b into a's own leaves."""
+    return pytree.tree_map(torch.Tensor.sub_, a, b)
 
 
 # `message_bytes(tree, n_workers=...)` on every exchange reports the wire
@@ -172,16 +183,23 @@ class CSGDPSExchange:
         return ()
 
     def __call__(self, grad, state, key):
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
         cdc = compression.codec(self.compressor)
+        n = _n_workers(grad)
+        skey = prng.fold_in(key, 0x5E4E4)
+        if not self.flat:
+            local_q = cdc.tree_qdq_rows(grad, [_worker_key(key, i)
+                                               for i in range(n)])
+            mean_q = pytree.tree_map(lambda a: a.mean(dim=0), local_q)
+            out = cdc.tree_qdq(mean_q, skey)
+            return pytree.tree_map(
+                lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape)),
+                out), state
         layout = _layout_w(grad)
         local_q = _flatten_w(layout, grad)
         for i in range(local_q.shape[0]):
             local_q[i] = cdc.flat_qdq(local_q[i], _worker_key(key, i),
                                       donate=True)
-        out = cdc.flat_qdq(local_q.mean(dim=0), prng.fold_in(key, 0x5E4E4),
-                           donate=True)
+        out = cdc.flat_qdq(local_q.mean(dim=0), skey, donate=True)
         return _unflatten_w(layout, out.expand_as(local_q)), state
 
     @_sized
@@ -189,10 +207,10 @@ class CSGDPSExchange:
         """One worker->server message + this worker's share of the
         broadcast."""
         del n_workers
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
-        return 2.0 * compression.codec(self.compressor).tree_wire_bytes_flat(
-            tree)
+        cdc = compression.codec(self.compressor)
+        if self.flat:
+            return 2.0 * cdc.tree_wire_bytes_flat(tree)
+        return 2.0 * cdc.tree_wire_bytes(tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,10 +251,10 @@ class CSGDRingExchange:
         return ()
 
     def __call__(self, grad, state, key):
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
         cdc = compression.codec(self.compressor)
         n = _n_workers(grad)
+        if not self.flat:
+            return self._per_leaf_chain(grad, state, key, cdc, n)
         if self.partitioned and cdc.packable and n > 1:
             return self._partitioned_allreduce(grad, state, key, cdc, n)
         layout = _layout_w(grad)
@@ -264,6 +282,32 @@ class CSGDRingExchange:
                     shifted[i] + gflat[i], prng.fold_in(wkeys[i], h),
                     bucket_elems=be, donate=True) for i in range(n)])
         return _unflatten_w(layout, out.div_(n)), state
+
+    def _per_leaf_chain(self, grad, state, key, cdc, n: int):
+        """The per-leaf reference chains: a tree of Packed messages moves
+        one step right a hop (the packable codecs), or the qdq'd tree
+        (the others); the one division by N comes after the last
+        decode."""
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        wkeys = [_worker_key(key, i) for i in range(n)]
+        if cdc.packable and n > 1:
+            layout = _layout_w(grad)
+            acc = cdc.tree_encode_rows(grad, wkeys)
+            for h in range(1, n):
+                shifted = [(_ppermute(pay, perm), _ppermute(par, perm))
+                           for pay, par in acc]
+                summed = _add(cdc.tree_decode_rows(shifted, layout), grad)
+                acc = cdc.tree_encode_rows(
+                    summed, [prng.fold_in(k, h) for k in wkeys])
+            out = cdc.tree_decode_rows(acc, layout)
+        else:
+            out = cdc.tree_qdq_rows(grad, wkeys)
+            for h in range(1, n):
+                summed = _add(pytree.tree_map(
+                    lambda a: _ppermute(a, perm), out), grad)
+                out = cdc.tree_qdq_rows(summed,
+                                        [prng.fold_in(k, h) for k in wkeys])
+        return pytree.tree_map(lambda a: a / n, out), state
 
     def _partitioned_allreduce(self, grad, state, key, cdc, n: int):
         """Reduce-scatter + all-gather over the N-way partition view."""
@@ -321,12 +365,13 @@ class CSGDRingExchange:
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 2) -> float:
         """Partitioned: 2(n-1) partition messages per iteration;
-        monolithic: n-1 hops of one whole-tree message each."""
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
+        monolithic: n-1 hops of one whole-tree message each (per leaf
+        with ``flat=False``)."""
         cdc = compression.codec(self.compressor)
         hops = max(n_workers - 1, 1)
         be = compression.DEFAULT_BUCKET_ELEMS
+        if not self.flat:
+            return hops * cdc.tree_wire_bytes(tree)
         if self.partitioned and cdc.packable and n_workers > 1:
             return 2.0 * hops * cdc.tree_wire_bytes_partitioned(
                 tree, n_workers, bucket_elems=be)
@@ -349,9 +394,11 @@ class ECSGDExchange:
     Worker side:  v_n = g_n + delta_n ; send Q(v_n) ; delta_n = v_n - Q(v_n)
     Server side:  v = mean_n Q(v_n) + delta ; bcast Q(v) ; delta = v - Q(v)
 
-    Works with ANY codec, biased ones included (Section 3.3). Both error
-    buffers are single flat fp32 residuals per worker, stacked: state
-    ``{"worker_err": (N, total), "server_err": (N, total)}``.
+    Works with ANY codec, biased ones included (Section 3.3). With
+    ``flat=True`` both error buffers are single flat fp32 residuals per
+    worker, stacked: state ``{"worker_err": (N, total), "server_err":
+    (N, total)}``; with ``flat=False`` they are per-leaf error trees
+    shaped like the stacked parameters (the reference formulation).
     """
 
     compressor: str = "sign1"
@@ -360,19 +407,28 @@ class ECSGDExchange:
 
     def init(self, params_w: PyTree) -> PyTree:
         if not self.flat:
-            raise _per_leaf(type(self).__name__)
+            z = pytree.tree_map(torch.zeros_like, params_w)
+            return {"worker_err": z,
+                    "server_err": pytree.tree_map(torch.zeros_like, z)}
         n, total = _n_workers(params_w), _layout_w(params_w).total
         dev = pytree.tree_leaves(params_w)[0].device
         return {"worker_err": torch.zeros((n, total), device=dev),
                 "server_err": torch.zeros((n, total), device=dev)}
 
     def __call__(self, grad, state, key):
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
         cdc = compression.codec(self.compressor)
         skey = prng.fold_in(key, 0x5E4E4)
-        layout = _layout_w(grad)
         n = _n_workers(grad)
+        if not self.flat:
+            v_n = _add(grad, state["worker_err"])
+            q_n = cdc.tree_qdq_rows(v_n, [_worker_key(key, i)
+                                          for i in range(n)])
+            v = _add(pytree.tree_map(_pmean, q_n), state["server_err"])
+            out = cdc.tree_qdq_rows(v, [skey] * n)
+            # v_n and v are this call's own: the residuals overwrite them
+            return out, {"worker_err": _sub_(v_n, q_n),
+                         "server_err": _sub_(v, out)}
+        layout = _layout_w(grad)
         # worker side (Eqs. 3.8-3.9) on the flat residual buffers
         v_n = _flatten_w(layout, grad).add_(state["worker_err"])
         q_n = torch.stack([cdc.flat_qdq(v_n[i], _worker_key(key, i))
@@ -387,10 +443,10 @@ class ECSGDExchange:
     def message_bytes(self, tree, *, n_workers: int = 1) -> float:
         """As CSGDPSExchange: worker->server + broadcast share."""
         del n_workers
-        if not self.flat:
-            raise _per_leaf(type(self).__name__)
-        return 2.0 * compression.codec(self.compressor).tree_wire_bytes_flat(
-            tree)
+        cdc = compression.codec(self.compressor)
+        if self.flat:
+            return 2.0 * cdc.tree_wire_bytes_flat(tree)
+        return 2.0 * cdc.tree_wire_bytes(tree)
 
 
 @dataclasses.dataclass(frozen=True)

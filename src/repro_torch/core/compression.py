@@ -1,19 +1,30 @@
 """Compression codecs Q(.) of Section 3 of the paper: the rq8/rq4/rq2
-quantizers with their fused flat-buffer and partitioned wire objects,
-the qdq-only operators, and CRC32 framing.
+quantizers with their per-leaf, fused flat-buffer and partitioned wire
+objects, the qdq-only operators, and CRC32 framing.
 
-The port of ``repro.core.compression`` without its per-leaf tier:
-``CompressionSpec``, ``FlatLayout``, ``FlatPacked``,
-``PartitionedFlatPacked``, ``QuantCodec``'s fused flat tier
-(``flat_encode`` / ``flat_decode`` / ``flat_qdq`` and their tree forms)
-and partitioned tier (the ring AllReduce's partitions and its fused hop,
-K5), the qdq-only ``QdqCodec`` operators (``none``, ``sign1``,
-``clip16``, ``topk_1``, ``rand_sparse_10``, plus the reference
-``randomized_quantize``), the ``codec()`` registry and the
-wire-integrity helpers (CRC framing, ``checked_decode``). The per-leaf
-``Packed`` tier (one message per leaf) is not ported: ``QuantCodec.qdq``
-says so; only its size is (``Codec.wire_bytes_for``, which the event
-simulator and the cluster scheduler charge).
+The port of ``repro.core.compression``: ``CompressionSpec``,
+``FlatLayout``, the per-leaf tier (``Packed``, one message per leaf:
+``Codec.qdq`` / ``encode`` / ``decode`` / ``wire_bytes`` and their tree
+forms, the paper's reference form of a compressed message),
+``FlatPacked``, ``PartitionedFlatPacked``, ``QuantCodec``'s fused flat
+tier (``flat_encode`` / ``flat_decode`` / ``flat_qdq`` and their tree
+forms) and partitioned tier (the ring AllReduce's partitions and its
+fused hop, K5), the qdq-only ``QdqCodec`` operators (``none``,
+``sign1``, ``clip16``, ``topk_1``, ``rand_sparse_10``, plus the
+reference ``randomized_quantize``), the ``codec()`` registry with the
+function-form ``REGISTRY`` / ``get`` / ``tree_compress`` /
+``tree_bytes``, and the wire-integrity helpers (CRC framing,
+``checked_decode``) over any wire object.
+
+A ``QuantCodec`` leaf goes through the per-leaf kernels (K4, K2, K3
+launched on leaf messages, ``kernels.quant.ops``), with
+``decode(encode(x, k)) == qdq(x, k)`` bit for bit. The exchanges hold
+their workers stacked, so the codec also takes a stacked tree with one
+key per worker (``tree_qdq_rows`` and, for QuantCodec,
+``tree_encode_rows`` / ``tree_decode_rows``): worker i's leaf l is
+drawn under ``split(keys[i], n_leaves)[l]``, as ``tree_qdq(row_i,
+keys[i])`` draws it, and each leaf is ONE kernel launch over the N
+workers' messages.
 
 A ``FlatLayout`` flattens a parameter tree onto ONE contiguous fp32
 buffer in JAX's leaf order (dict keys sorted, ``core.pytree``), so the
@@ -24,6 +35,7 @@ bytes, then the params bytes: equal bytes, equal CRC.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from functools import lru_cache, partial
 from typing import Any, Callable, Optional
@@ -62,6 +74,10 @@ class CompressionSpec:
             # sparse formats also ship indices (4 bytes each)
             payload += n_elements * self.density * 4.0
         return payload + self.overhead_bytes
+
+    def ratio(self, n_elements: int) -> float:
+        """Compression ratio eta < 1 relative to fp32 (Table 1.1)."""
+        return self.compressed_bytes(n_elements) / (4.0 * n_elements)
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +147,29 @@ def _cached_layout(treedef, shapes: tuple, dtypes: tuple) -> FlatLayout:
 # ---------------------------------------------------------------------------
 # The wire objects
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Packed:
+    """ONE compressed leaf as it travels on the wire.
+
+    payload: (R, 512) uint8 — the packed codes (the bulk bytes).
+    params:  (1, 2) fp32 — [lo, scale] (the header).
+    shape / dtype: the leaf's, restored on decode.
+    codec:   registry name of the codec that produced it.
+    """
+
+    payload: torch.Tensor
+    params: torch.Tensor
+    shape: tuple
+    dtype: Any
+    codec: str
+
+    @property
+    def wire_bytes(self) -> int:
+        """Measured size: payload bytes + header (params) bytes."""
+        return int(self.payload.numel() * self.payload.element_size()
+                   + self.params.numel() * self.params.element_size())
 
 
 @dataclasses.dataclass
@@ -208,11 +247,10 @@ class PartitionedFlatPacked:
 
 
 class Codec:
-    """One compression operator: the fused qdq over a flat buffer, and
-    the wire bytes of a message. Subclasses set ``spec`` and implement
-    ``qdq``; the packable ``QuantCodec`` adds the packed wire format.
-    The per-leaf tier of the JAX package (``encode`` / ``decode`` /
-    ``tree_qdq`` on each leaf) is not ported."""
+    """One compression operator: packed wire format + fused qdq, per leaf
+    and over a flat buffer. Subclasses set ``spec`` and implement
+    ``qdq``; packable codecs also implement ``encode`` / ``decode`` with
+    ``decode(encode(x, k)) == qdq(x, k)``."""
 
     spec: CompressionSpec
     packable: bool = False
@@ -221,8 +259,22 @@ class Codec:
     def name(self) -> str:
         return self.spec.name
 
+    # -- single leaf ------------------------------------------------------
+
     def qdq(self, x: torch.Tensor, key) -> torch.Tensor:
         raise NotImplementedError
+
+    def encode(self, x: torch.Tensor, key) -> Packed:
+        raise NotImplementedError(
+            f"codec '{self.name}' has no packed wire format; use qdq")
+
+    def decode(self, packed: Packed) -> torch.Tensor:
+        raise NotImplementedError(
+            f"codec '{self.name}' has no packed wire format; use qdq")
+
+    def wire_bytes(self, x) -> float:
+        """Wire bytes of one leaf (anything with a ``shape``)."""
+        return self.wire_bytes_for(math.prod(tuple(x.shape)))
 
     def _leaf_wire_bytes(self, n_elements: int) -> float:
         return self.spec.compressed_bytes(n_elements)
@@ -272,6 +324,33 @@ class Codec:
         del bucket_elems
         total = FlatLayout.from_tree(tree).total
         return self.spec.compressed_bytes(-(-total // n_parts))
+
+    # -- trees, leaf by leaf ------------------------------------------------
+
+    def tree_qdq(self, tree, key):
+        return tree_compress(tree, key, self.qdq)
+
+    def tree_encode(self, tree, key):
+        """Leaf-wise encode with independent keys -> tree of Packed."""
+        leaves, treedef = pytree.tree_flatten(tree)
+        keys = prng.split(key, len(leaves))
+        return pytree.tree_unflatten(
+            treedef, [self.encode(leaf, k) for leaf, k in zip(leaves, keys)])
+
+    def tree_decode(self, tree):
+        """Inverse of tree_encode (tree of Packed -> tree of tensors)."""
+        return pytree.tree_map(self.decode, tree)
+
+    def tree_wire_bytes(self, tree) -> float:
+        return sum(self.wire_bytes(leaf) for leaf in pytree.tree_leaves(tree))
+
+    def tree_qdq_rows(self, tree_w, keys):
+        """``tree_qdq`` of each worker's tree in a stacked tree (leading
+        worker dim N on every leaf), worker i under ``keys[i]``."""
+        n = len(keys)
+        rows = [self.tree_qdq(pytree.tree_map(lambda a: a[i], tree_w),
+                              keys[i]) for i in range(n)]
+        return pytree.tree_map(lambda *xs: torch.stack(xs), *rows)
 
     def _observe_wire(self, wire_b: float, n_elements: int, *,
                       tier: str) -> None:
@@ -324,10 +403,45 @@ class QuantCodec(Codec):
                      * ops.LANES + 8)
 
     def qdq(self, x, key):
-        raise NotImplementedError(
-            f"codec '{self.name}': the per-leaf tier (qdq / encode / "
-            "decode of one leaf) is not ported to repro_torch yet; use the "
-            "flat tier (flat_qdq, flat_encode, flat_decode)")
+        return ops.quantize_dequantize(x, key, bits=self.bits)
+
+    def encode(self, x, key) -> Packed:
+        payload, params = ops.encode(x, key, bits=self.bits)
+        return Packed(payload, params, tuple(x.shape), x.dtype, self.name)
+
+    def decode(self, packed: Packed):
+        return ops.decode(packed.payload, packed.params, shape=packed.shape,
+                          bits=self.bits, dtype=packed.dtype)
+
+    # per-leaf, stacked workers: one launch a leaf over the N messages
+
+    def tree_qdq_rows(self, tree_w, keys):
+        leaves, treedef = pytree.tree_flatten(tree_w)
+        lkeys = [prng.split(k, len(leaves)) for k in keys]
+        return pytree.tree_unflatten(treedef, [
+            ops.quantize_dequantize_rows(leaf, [lk[j] for lk in lkeys],
+                                         bits=self.bits)
+            for j, leaf in enumerate(leaves)])
+
+    def tree_encode_rows(self, tree_w, keys) -> list:
+        """``tree_encode`` of each worker's tree in a stacked tree ->
+        one (payload (N, R, 512), params (N, 2)) pair a leaf, in leaf
+        order: row i of leaf l is worker i's Packed payload and params."""
+        leaves = pytree.tree_leaves(tree_w)
+        lkeys = [prng.split(k, len(leaves)) for k in keys]
+        return [ops.encode_rows(leaf, [lk[j] for lk in lkeys],
+                                bits=self.bits)
+                for j, leaf in enumerate(leaves)]
+
+    def tree_decode_rows(self, msgs: list, layout: FlatLayout):
+        """Inverse of ``tree_encode_rows``; ``layout`` is one worker's
+        tree's (it gives the leaf shapes, dtypes and tree) -> the stacked
+        tree."""
+        return pytree.tree_unflatten(layout.treedef, [
+            ops.decode_rows(pay, par, shape=shape, bits=self.bits,
+                            dtype=dtype)
+            for (pay, par), shape, dtype in zip(msgs, layout.shapes,
+                                                layout.dtypes)])
 
     def flat_encode(self, flat: torch.Tensor, key, layout: FlatLayout, *,
                     bucket_elems: int = DEFAULT_BUCKET_ELEMS) -> FlatPacked:
@@ -595,6 +709,33 @@ def codec(name: str) -> Codec:
     return CODECS.get(name)
 
 
+# The function form: name -> (fn(x, key) -> x_hat, CompressionSpec), for
+# callers that hold the raw operator; the exchanges go through codec().
+REGISTRY: dict = {name: (c.qdq, c.spec) for name, c in CODECS.items()}
+
+
+def get(name: str) -> tuple:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown compression '{name}'; have "
+                       f"{sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def tree_compress(tree, key, fn: Callable):
+    """Apply Q leaf-wise with independent keys (``split(key, n_leaves)``
+    in the JAX leaf order)."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    keys = prng.split(key, len(leaves))
+    return pytree.tree_unflatten(
+        treedef, [fn(leaf, k) for leaf, k in zip(leaves, keys)])
+
+
+def tree_bytes(tree, spec: CompressionSpec) -> float:
+    """Total wire bytes of a tree message under a static ``spec``."""
+    return sum(spec.compressed_bytes(leaf.numel())
+               for leaf in pytree.tree_leaves(tree))
+
+
 # ---------------------------------------------------------------------------
 # Wire integrity: CRC32 framing over packed codes + params
 # ---------------------------------------------------------------------------
@@ -604,31 +745,30 @@ class WireCorruptionError(ValueError):
     """A packed wire message failed its integrity check on receive."""
 
 
-def _wire_children(packed: FlatPacked) -> tuple:
-    """(payload, params) as host numpy arrays."""
+def _wire_children(packed) -> tuple:
+    """(payload, params) as host numpy arrays, any wire class."""
     return (np.ascontiguousarray(packed.payload.detach().cpu().numpy()),
             np.ascontiguousarray(packed.params.detach().cpu().numpy()))
 
 
-def wire_crc32(packed: FlatPacked) -> int:
+def wire_crc32(packed) -> int:
     """CRC32 over the packed codes then the dequantization params (the
     contiguous host arrays are read in place, not copied to bytes)."""
     pay, par = _wire_children(packed)
     return zlib.crc32(par, zlib.crc32(pay)) & 0xFFFFFFFF
 
 
-def wire_bits(packed: FlatPacked) -> int:
+def wire_bits(packed) -> int:
     """Total framed bits (payload + params) — the bit-flip domain."""
     return packed.wire_bytes * 8
 
 
-def frame(packed: FlatPacked) -> tuple:
+def frame(packed) -> tuple:
     """``(packed, crc)`` — what a framed send puts on the wire."""
     return packed, wire_crc32(packed)
 
 
-def verify_wire(packed: FlatPacked, crc: int, *, where: str = "wire"
-                ) -> None:
+def verify_wire(packed, crc: int, *, where: str = "wire") -> None:
     """Raise ``WireCorruptionError`` unless the frame checks out."""
     got = wire_crc32(packed)
     want = int(crc) & 0xFFFFFFFF
@@ -639,16 +779,19 @@ def verify_wire(packed: FlatPacked, crc: int, *, where: str = "wire"
             "params corrupted in flight")
 
 
-def checked_decode(cdc: Codec, packed: FlatPacked, crc: int, *,
+def checked_decode(cdc: Codec, packed, crc: int, *,
                    where: str = "wire") -> torch.Tensor:
-    """Verify the frame, then decode; the receive edge in one call."""
+    """Verify the frame, then decode (a FlatPacked through the flat
+    tier, a Packed leaf through ``decode``); the receive edge in one
+    call."""
     verify_wire(packed, crc, where=where)
-    out = cdc.flat_decode(packed)
+    out = (cdc.flat_decode(packed) if isinstance(packed, FlatPacked)
+           else cdc.decode(packed))
     guard_finite(out, where=where)
     return out
 
 
-def flip_bit(packed: FlatPacked, bit: int) -> FlatPacked:
+def flip_bit(packed, bit: int):
     """A copy of the wire message with exactly one bit flipped —
     payload bits first, then params bits."""
     pay, par = _wire_children(packed)

@@ -161,8 +161,9 @@ unsigned k1_blocks(long long n4, long long n_buckets) {
 
 // ---------------------------------------------------------------------------
 // K2 encode_packed. Replaces repro/kernels/quant/kernel.py
-// encode_packed_bucketed (full buckets) and encode_packed (the tail, run
-// here as B = 1). One thread per output byte: it reads the pack segment
+// encode_packed_bucketed (full buckets; the flat tier's tail as B = 1) and
+// encode_packed (:96, the per-leaf message: B leaves of B stacked workers,
+// one params row each; a leaf of 25,165,824 elements is one bucket). One thread per output byte: it reads the pack segment
 // values and uniforms of its byte position, rounds each stochastically
 // and ORs code << k*bits. The division is __fdiv_rn, the correctly
 // rounded fp32 quotient XLA computes for (x - lo) / scale.
@@ -198,8 +199,8 @@ __global__ void encode_packed_kernel(const float* __restrict__ x,
 
 // ---------------------------------------------------------------------------
 // K3 decode_packed. Replaces repro/kernels/quant/kernel.py
-// decode_packed_bucketed (full buckets) and decode_packed (the tail, as
-// B = 1). One thread per payload byte writes its pack dequantized values,
+// decode_packed_bucketed (full buckets; the flat tier's tail as B = 1) and
+// decode_packed (:117, the per-leaf message, B leaves as for K2). One thread per payload byte writes its pack dequantized values,
 // code * scale + lo as ONE fused multiply-add (__fmaf_rn): XLA contracts
 // the reference's multiply and add into an FMA, so a separate multiply
 // and add would differ in the last bit.
@@ -228,8 +229,9 @@ __global__ void decode_packed_kernel(const uint8_t* __restrict__ payload,
 
 // ---------------------------------------------------------------------------
 // K4 qdq_bucketed. Replaces repro/kernels/quant/kernel.py qdq_bucketed
-// (:187, the full buckets of the training step's qdq_flat) and qdq (:77,
-// the tail, run here as B = 1). Elementwise: the segment layout only
+// (:187, the full buckets of the training step's qdq_flat, its tail as
+// B = 1) and qdq (:77, the per-leaf qdq: B leaves of B stacked workers,
+// one params row each). Elementwise: the segment layout only
 // orders the uniforms, and that order is flat element order, so a bucket
 // is seen as one run of `elems` values and grid.y picks its params row.
 // Per element, as the reference rounds:

@@ -15,10 +15,16 @@ this module needs neither jax nor ``repro``:
     are the JAX package's.
   * ``quadratic_from_jax``: a JAX ``parallel.Quadratic`` -> the port's,
     on the same (a, b) arrays.
+  * ``packed_from_jax``: a JAX per-leaf ``Packed`` (payload, params,
+    shape, dtype, codec) -> the port's ``Packed``.
   * ``exchange_state_from_jax``: the stacked (vmapped) state of a JAX
-    exchange or gossip operator — ECSGD residuals, DCD/ECD replicas and
+    exchange or gossip operator — ECSGD residuals (flat buffers, or the
+    per-leaf error trees of ``flat=False``), DCD/ECD replicas and
     residuals, ``DelayedExchange`` buffers and heads — -> the port's
     stacked state, so both packages can start from identical state.
+
+A bf16 leaf (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+crosses bit for bit as its 16-bit pattern viewed as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ def _tensor(a) -> torch.Tensor:
     arr = np.array(a, copy=True)
     if arr.dtype == np.uint32:        # threefry key words (core.prng)
         arr = arr.astype(np.int64)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
 
@@ -59,6 +67,16 @@ def wire_from_jax(payload, params, *, tree, codec: str = "rq8",
         _tensor(np.asarray(payload, np.uint8)),
         _tensor(np.asarray(params, np.float32)),
         compression.FlatLayout.from_tree(tree), codec, bucket_elems)
+
+
+def packed_from_jax(packed) -> compression.Packed:
+    """A JAX ``Packed`` -> the port's: the same payload and params bytes,
+    shape and codec, the dtype as the torch dtype of the same name."""
+    return compression.Packed(
+        _tensor(np.asarray(packed.payload, np.uint8)),
+        _tensor(np.asarray(packed.params, np.float32)),
+        tuple(packed.shape), getattr(torch, np.dtype(packed.dtype).name),
+        packed.codec)
 
 
 def quadratic_from_jax(prob, device=None) -> parallel.Quadratic:

@@ -9,11 +9,14 @@
                                      its own uniforms: N x ((rows, 512) u8
                                      + (pack * rows * 512,) f32) -> (N, rows, 512) u8
 
-K1-K4 each replace a pair of the JAX package's Pallas kernels: the
-bucketed form on the full buckets, and the per-leaf form as B = 1 on the
-tail. K5 replaces the fused ring hop and the uniform draws beside it, for
-every worker's full buckets and tail in one call; its plain version
-is ``ref.decode_add_encode_hop``.
+K2-K4 each replace a pair of the JAX package's Pallas kernels: the
+bucketed form (the full buckets of the flat tier, and its tail bucket as
+B = 1) and the per-leaf form, launched through ``leaf_encode_packed``,
+``leaf_decode_packed`` and ``leaf_qdq`` on B leaf messages (a leaf of
+each of B stacked workers) and counted apart. K5 replaces the fused
+ring hop and the uniform draws beside it, for every worker's full
+buckets and tail in one call; its plain version is
+``ref.decode_add_encode_hop``.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version in
 ``ref.py``; a CUDA tensor launches the kernel on PyTorch's current
@@ -178,17 +181,17 @@ def minmax_bucketed(x3: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def encode_packed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
-                  *, bits: int, out: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-    """K2: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
-    (B, R, 512) uint8 payload (into ``out`` when given)."""
+def _encode_packed(count, x4: torch.Tensor, u4: torch.Tensor,
+                   params: torch.Tensor, bits: int,
+                   out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K2's dispatch; a launch is counted on ``count``."""
+    what = count.__name__
     pack = _bits_ok(bits)
     if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
-        raise ValueError(f"encode_packed: need (B, {pack}, R, {LANES}) for "
+        raise ValueError(f"{what}: need (B, {pack}, R, {LANES}) for "
                          f"bits={bits}, got {tuple(x4.shape)}")
     b, _, r, _ = x4.shape
-    if not _on_cuda(x4, "encode_packed"):
+    if not _on_cuda(x4, what):
         res = ref.encode_packed_bucketed(x4, u4, params[:, 0], params[:, 1],
                                          bits=bits)
         if out is None:
@@ -196,29 +199,37 @@ def encode_packed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
         out.copy_(res)
         return out
     dev = x4.device
-    _require(x4, "encode_packed x", torch.float32, (b, pack, r, LANES), dev)
-    _require(u4, "encode_packed u", torch.float32, (b, pack, r, LANES), dev)
-    _require(params, "encode_packed params", torch.float32, (b, 2), dev)
+    _require(x4, f"{what} x", torch.float32, (b, pack, r, LANES), dev)
+    _require(u4, f"{what} u", torch.float32, (b, pack, r, LANES), dev)
+    _require(params, f"{what} params", torch.float32, (b, 2), dev)
     if out is None:
         out = torch.empty((b, r, LANES), dtype=torch.uint8, device=dev)
-    _require(out, "encode_packed out", torch.uint8, (b, r, LANES), dev)
+    _require(out, f"{what} out", torch.uint8, (b, r, LANES), dev)
     _check(_load().quant_encode_packed(x4.data_ptr(), u4.data_ptr(),
                                        params.data_ptr(), out.data_ptr(), b,
-                                       r, bits, _stream()), "encode_packed")
-    encode_packed.launches += 1
+                                       r, bits, _stream()), what)
+    count.launches += 1
     return out
 
 
-def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3: (B, R, 512) uint8 + params (B, 2) [lo, scale] ->
-    (B, pack, R, 512) fp32 (into ``out`` when given)."""
+def encode_packed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
+                  *, bits: int, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """K2: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
+    (B, R, 512) uint8 payload (into ``out`` when given)."""
+    return _encode_packed(encode_packed, x4, u4, params, bits, out)
+
+
+def _decode_packed(count, payload: torch.Tensor, params: torch.Tensor,
+                   bits: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K3's dispatch; a launch is counted on ``count``."""
+    what = count.__name__
     pack = _bits_ok(bits)
     if payload.dim() != 3 or payload.shape[2] != LANES:
-        raise ValueError(f"decode_packed: need (B, R, {LANES}), got "
+        raise ValueError(f"{what}: need (B, R, {LANES}), got "
                          f"{tuple(payload.shape)}")
     b, r, _ = payload.shape
-    if not _on_cuda(payload, "decode_packed"):
+    if not _on_cuda(payload, what):
         res = ref.decode_packed_bucketed(payload, params[:, 0],
                                          params[:, 1], bits=bits)
         if out is None:
@@ -226,18 +237,55 @@ def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
         out.copy_(res)
         return out
     dev = payload.device
-    _require(payload, "decode_packed payload", torch.uint8, (b, r, LANES),
-             dev)
-    _require(params, "decode_packed params", torch.float32, (b, 2), dev)
+    _require(payload, f"{what} payload", torch.uint8, (b, r, LANES), dev)
+    _require(params, f"{what} params", torch.float32, (b, 2), dev)
     if out is None:
         out = torch.empty((b, pack, r, LANES), dtype=torch.float32,
                           device=dev)
-    _require(out, "decode_packed out", torch.float32, (b, pack, r, LANES),
-             dev)
+    _require(out, f"{what} out", torch.float32, (b, pack, r, LANES), dev)
     _check(_load().quant_decode_packed(payload.data_ptr(), params.data_ptr(),
                                        out.data_ptr(), b, r, bits,
-                                       _stream()), "decode_packed")
-    decode_packed.launches += 1
+                                       _stream()), what)
+    count.launches += 1
+    return out
+
+
+def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: (B, R, 512) uint8 + params (B, 2) [lo, scale] ->
+    (B, pack, R, 512) fp32 (into ``out`` when given)."""
+    return _decode_packed(decode_packed, payload, params, bits, out)
+
+
+def _qdq(count, x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
+         bits: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4's dispatch; a launch is counted on ``count``."""
+    what = count.__name__
+    pack = _bits_ok(bits)
+    if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
+        raise ValueError(f"{what}: need (B, {pack}, R, {LANES}) for "
+                         f"bits={bits}, got {tuple(x4.shape)}")
+    b, _, r, _ = x4.shape
+    if not _on_cuda(x4, what):
+        res = ref.qdq_bucketed(x4, u4, params[:, 0], params[:, 1],
+                               bits=bits)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    dev = x4.device
+    shape = (b, pack, r, LANES)
+    _require(x4, f"{what} x", torch.float32, shape, dev)
+    _require(u4, f"{what} u", torch.float32, shape, dev)
+    _require(params, f"{what} params", torch.float32, (b, 2), dev)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    _require(out, f"{what} out", torch.float32, shape, dev)
+    _check(_load().quant_qdq_bucketed(x4.data_ptr(), u4.data_ptr(),
+                                      params.data_ptr(), out.data_ptr(), b,
+                                      pack * r * LANES, bits, _stream()),
+           what)
+    count.launches += 1
     return out
 
 
@@ -247,32 +295,36 @@ def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
     """K4: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
     the stochastically quantized and dequantized x4, same shape, fp32
     (into ``out`` when given; ``out`` may be ``x4`` itself)."""
-    pack = _bits_ok(bits)
-    if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
-        raise ValueError(f"qdq_bucketed: need (B, {pack}, R, {LANES}) for "
-                         f"bits={bits}, got {tuple(x4.shape)}")
-    b, _, r, _ = x4.shape
-    if not _on_cuda(x4, "qdq_bucketed"):
-        res = ref.qdq_bucketed(x4, u4, params[:, 0], params[:, 1],
-                               bits=bits)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    dev = x4.device
-    shape = (b, pack, r, LANES)
-    _require(x4, "qdq_bucketed x", torch.float32, shape, dev)
-    _require(u4, "qdq_bucketed u", torch.float32, shape, dev)
-    _require(params, "qdq_bucketed params", torch.float32, (b, 2), dev)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=dev)
-    _require(out, "qdq_bucketed out", torch.float32, shape, dev)
-    _check(_load().quant_qdq_bucketed(x4.data_ptr(), u4.data_ptr(),
-                                      params.data_ptr(), out.data_ptr(), b,
-                                      pack * r * LANES, bits, _stream()),
-           "qdq_bucketed")
-    qdq_bucketed.launches += 1
-    return out
+    return _qdq(qdq_bucketed, x4, u4, params, bits, out)
+
+
+# The per-leaf forms: the same kernels launched on B leaf messages (one
+# zero-padded leaf of each of B workers, one [lo, scale] row each), the
+# ported forms of the JAX package's per-leaf Pallas calls, counted apart
+# from the bucketed launches above.
+
+
+def leaf_qdq(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor, *,
+             bits: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4 as the per-leaf ``qdq`` (``repro/kernels/quant/kernel.py:77``):
+    B leaves, each (pack, R, 512) with its own params row."""
+    return _qdq(leaf_qdq, x4, u4, params, bits, out)
+
+
+def leaf_encode_packed(x4: torch.Tensor, u4: torch.Tensor,
+                       params: torch.Tensor, *, bits: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 as the per-leaf ``encode_packed`` (``kernel.py:96``): B leaves
+    -> B (R, 512) payloads."""
+    return _encode_packed(leaf_encode_packed, x4, u4, params, bits, out)
+
+
+def leaf_decode_packed(payload: torch.Tensor, params: torch.Tensor, *,
+                       bits: int, out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """K3 as the per-leaf ``decode_packed`` (``kernel.py:117``): B (R,
+    512) payloads -> B (pack, R, 512) leaves."""
+    return _decode_packed(leaf_decode_packed, payload, params, bits, out)
 
 
 def hop_keys(keys, n_buckets: int) -> np.ndarray:
@@ -432,7 +484,8 @@ def threefry(key, offset: int, count: int, *,
 
 
 KERNELS = (minmax_bucketed, encode_packed, decode_packed, qdq_bucketed,
-           decode_add_encode_bucketed)
+           decode_add_encode_bucketed, leaf_qdq, leaf_encode_packed,
+           leaf_decode_packed)
 
 
 def reset_launches() -> None:

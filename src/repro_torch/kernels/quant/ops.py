@@ -1,11 +1,14 @@
-"""Bucketed flat-buffer codec: geometry, uniform draws and kernel dispatch.
+"""The codec's geometry, uniform draws and kernel dispatch: the per-leaf
+tier (one message per leaf) and the bucketed flat-buffer tier.
 
-The port of the parts of ``repro.kernels.quant.ops`` on the checkpoint
-wire's path (``encode_flat`` / ``decode_flat`` and their geometry), on
-the training step's (``qdq_flat``) and on the ring AllReduce's
+The port of ``repro.kernels.quant.ops``: the per-leaf
+``quantize_dequantize`` / ``encode`` / ``decode`` (see their section
+below), and the bucketed tier on the checkpoint wire's path
+(``encode_flat`` / ``decode_flat`` and their geometry), on the training
+step's (``qdq_flat``) and on the ring AllReduce's
 (``partition_geometry``, the fused hop ``decode_add_encode_flat`` and
-its N-worker form ``decode_add_encode_partitions``). The wire layout is
-the JAX package's, byte for byte:
+its N-worker form ``decode_add_encode_partitions``). The bucketed wire
+layout is the JAX package's, byte for byte:
 
   * the flat fp32 buffer is cut into buckets of ``cap`` elements (a
     granule-aligned cap on ``bucket_elems``); bucket b owns elements
@@ -26,6 +29,7 @@ kernels for a CUDA buffer, the plain versions for a CPU one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -73,9 +77,128 @@ def leaf_payload_rows(n: int, *, bits: int) -> int:
     """Payload rows of ONE leaf of ``n`` elements in the per-leaf packed
     format (one message per leaf, params (1, 2)): the leaf is zero-padded
     to the pack*512 granule and packs ``pack`` codes a byte, so it takes
-    ceil(n / granule) rows of 512 bytes. Only the size is ported: the
-    per-leaf encode itself is not."""
+    ceil(n / granule) rows of 512 bytes."""
     return -(-int(n) // ((8 // bits) * LANES))
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf tier: one message per leaf, the JAX package's
+# ``quantize_dequantize`` / ``encode`` / ``decode``. Its geometry is not the
+# fused tier's:
+#   * the leaf is ZERO-padded to a multiple of pack*512 (``_to_2d``), not
+#     edge-padded;
+#   * (lo, scale) come from the UNPADDED leaf, the scale as ``ref.scale_of``;
+#   * ONE draw ``uniform(key, (pack * R, 512))``, whose flat order is both
+#     qdq's (R*pack, 512) view and encode's (pack, R, 512) view, so
+#     decode(encode(x, k)) == quantize_dequantize(x, k) bit for bit.
+# The ``*_rows`` forms take one leaf of each of N stacked workers (a leading
+# dim N, one key each) and launch ONE kernel over the N leaf messages, as N
+# buckets of the bucketed kernel with a params row each; the single-leaf
+# forms are N = 1.
+# ---------------------------------------------------------------------------
+
+
+def leaf_params(x2: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """(N, 2) [lo, scale] of each row of an (N, n) fp32 view, over its n
+    real elements. The JAX package takes them outside any Pallas kernel
+    (``ref.quant_params``, a jnp reduction), so they come from one
+    ``torch.aminmax`` pass here, on either device; NaN propagates into
+    lo and hi, as ``jnp.minimum``'s reduction propagates it."""
+    lo, hi = torch.aminmax(x2, dim=1)
+    return torch.stack([lo, ref.scale_of(lo, hi, bits)], dim=1)
+
+
+def _leaf_rows(x_w: torch.Tensor, keys, *, bits: int):
+    """A stacked leaf (N, ...) -> (x4, u4) (N, pack, R, 512): each row
+    zero-padded, in fp32, with its uniforms drawn under its key (drawn
+    once for keys that repeat), and (N, 2) params from the unpadded
+    rows."""
+    nw = x_w.shape[0]
+    if len(keys) != nw:
+        raise ValueError(f"{nw} rows but {len(keys)} keys")
+    n = x_w[0].numel()
+    pack = 8 // bits
+    rows = leaf_payload_rows(n, bits=bits)
+    dev = x_w.device
+    x4 = torch.zeros((nw, pack, rows, LANES), dtype=torch.float32,
+                     device=dev)
+    xf = x4.view(nw, -1)
+    xf[:, :n] = x_w.reshape(nw, n)
+    params = leaf_params(xf[:, :n], bits=bits)
+    u4 = torch.empty_like(x4)
+    drawn: dict = {}
+    for i, key in enumerate(keys):
+        words = prng.key_words(key)
+        if words in drawn:
+            u4[i] = u4[drawn[words]]
+        else:
+            u4[i] = prng.uniform(key, (pack, rows, LANES), device=dev)
+            drawn[words] = i
+    return x4, u4, params
+
+
+def _leaf_out(out4: torch.Tensor, shape: tuple, dtype) -> torch.Tensor:
+    """(N, pack, R, 512) fp32 -> (N, *shape) in ``dtype``, pad dropped."""
+    nw = out4.shape[0]
+    n = math.prod(shape)
+    return out4.reshape(nw, -1)[:, :n].reshape((nw,) + tuple(shape)).to(
+        dtype)
+
+
+@obs_flight.kernel_annotation("quant.qdq")
+def quantize_dequantize_rows(x_w: torch.Tensor, keys, *, bits: int = 8
+                             ) -> torch.Tensor:
+    """Per-leaf stochastic quantize -> dequantize of each row of a
+    stacked leaf (N, ...) under its key: ONE K4 launch (``leaf_qdq``)
+    over the N leaf messages. Same shape and dtype as ``x_w``."""
+    x4, u4, params = _leaf_rows(x_w, keys, bits=bits)
+    out = kernel.leaf_qdq(x4, u4, params, bits=bits, out=x4)
+    return _leaf_out(out, tuple(x_w.shape[1:]), x_w.dtype)
+
+
+@obs_flight.kernel_annotation("quant.encode")
+def encode_rows(x_w: torch.Tensor, keys, *, bits: int = 8):
+    """Per-leaf encode of each row of a stacked leaf: ONE K2 launch
+    (``leaf_encode_packed``) -> (payload (N, R, 512) uint8, params
+    (N, 2))."""
+    x4, u4, params = _leaf_rows(x_w, keys, bits=bits)
+    return kernel.leaf_encode_packed(x4, u4, params, bits=bits), params
+
+
+@obs_flight.kernel_annotation("quant.decode")
+def decode_rows(payload: torch.Tensor, params: torch.Tensor, *,
+                shape: tuple, bits: int = 8, dtype=torch.float32
+                ) -> torch.Tensor:
+    """Inverse of ``encode_rows``: ONE K3 launch (``leaf_decode_packed``)
+    over the (N, R, 512) payloads -> (N, *shape) in ``dtype``."""
+    rows = leaf_payload_rows(math.prod(shape), bits=bits)
+    if payload.dim() != 3 or tuple(payload.shape[1:]) != (rows, LANES):
+        raise ValueError(f"payload {tuple(payload.shape)} does not hold a "
+                         f"leaf of shape {tuple(shape)} at bits={bits}: "
+                         f"need (N, {rows}, {LANES})")
+    out = kernel.leaf_decode_packed(payload, params, bits=bits)
+    return _leaf_out(out, tuple(shape), dtype)
+
+
+def quantize_dequantize(x: torch.Tensor, key, *, bits: int = 8
+                        ) -> torch.Tensor:
+    """Fused per-leaf Q(x) with stochastic rounding (JAX's
+    ``ops.quantize_dequantize``); same shape and dtype as x."""
+    return quantize_dequantize_rows(x[None], [key], bits=bits)[0]
+
+
+def encode(x: torch.Tensor, key, *, bits: int = 8):
+    """-> (payload uint8 (R, 512), params (1, 2)), JAX's ``ops.encode``.
+    Wire bytes = payload.nbytes + params.nbytes."""
+    payload, params = encode_rows(x[None], [key], bits=bits)
+    return payload[0], params
+
+
+def decode(payload: torch.Tensor, params: torch.Tensor, *, shape: tuple,
+           bits: int = 8, dtype=torch.float32) -> torch.Tensor:
+    """Unpack + dequantize a per-leaf payload back to ``shape``."""
+    return decode_rows(payload[None], params.reshape(1, 2), shape=shape,
+                       bits=bits, dtype=dtype)[0]
 
 
 def partition_geometry(total: int, n_parts: int, *, bits: int,

@@ -71,42 +71,53 @@ def decode(codes: torch.Tensor, lo, scale) -> torch.Tensor:
     return (codes.double() * scale + lo).float()
 
 
-def encode_packed_bucketed(x4: torch.Tensor, u4: torch.Tensor,
-                           lo: torch.Tensor, scale: torch.Tensor, *,
-                           bits: int) -> torch.Tensor:
-    """(B, pack, R, C) segments + per-bucket (B,) params -> (B, R, C)."""
-    codes = encode(x4, u4, _bcast(lo), _bcast(scale), bits=bits)
-    pack = codes.shape[1]
+def pack_codes(codes: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """(..., pack, R, C) codes -> (..., R, C) uint8 payload: byte (r, c)
+    holds ``code_k << k * bits`` over the segments k."""
+    pack = codes.shape[-3]
     if pack != 8 // bits:
         raise ValueError(f"pack {pack} does not match bits {bits}")
-    acc = torch.zeros(codes.shape[:1] + codes.shape[2:], dtype=torch.int32,
+    acc = torch.zeros(codes.shape[:-3] + codes.shape[-2:], dtype=torch.int32,
                       device=codes.device)
     for k in range(pack):
-        acc |= codes[:, k].to(torch.int32) << (k * bits)
+        acc |= codes.select(-3, k).to(torch.int32) << (k * bits)
     return acc.to(torch.uint8)
 
 
 def unpack_codes(payload: torch.Tensor, *, bits: int) -> torch.Tensor:
-    """(B, R, C) uint8 payload -> (B, pack, R, C) codes."""
+    """(..., R, C) uint8 payload -> (..., pack, R, C) codes."""
     pack = 8 // bits
     shifts = (torch.arange(pack, dtype=torch.int32, device=payload.device)
-              * bits).reshape(1, pack, 1, 1)
-    return (payload.to(torch.int32).unsqueeze(1) >> shifts) \
+              * bits).reshape(pack, 1, 1)
+    return (payload.to(torch.int32).unsqueeze(-3) >> shifts) \
         & levels_of(bits)
+
+
+def qdq(x: torch.Tensor, u: torch.Tensor, lo, scale, *,
+        bits: int) -> torch.Tensor:
+    """Quantize and dequantize, fused: ``decode(encode(...))`` for finite
+    inputs (the codes are small exact integers), with the codes kept in
+    fp32 instead of uint8 so that a NaN stays NaN, as in the reference's
+    ``clip``; one rounding for ``q * scale + lo`` (see the module note)."""
+    norm = (x.float() - lo) / scale
+    floor = torch.floor(norm)
+    q = floor + (u < (norm - floor)).float()
+    return decode(torch.clamp(q, 0.0, float(levels_of(bits))), lo, scale)
+
+
+def encode_packed_bucketed(x4: torch.Tensor, u4: torch.Tensor,
+                           lo: torch.Tensor, scale: torch.Tensor, *,
+                           bits: int) -> torch.Tensor:
+    """(B, pack, R, C) segments + per-bucket (B,) params -> (B, R, C)."""
+    return pack_codes(encode(x4, u4, _bcast(lo), _bcast(scale), bits=bits),
+                      bits=bits)
 
 
 def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, lo: torch.Tensor,
                  scale: torch.Tensor, *, bits: int) -> torch.Tensor:
     """(B, pack, R, C) segments + per-bucket (B,) params -> the same
-    shape, quantized and dequantized: ``decode(encode(...))`` for finite
-    inputs (the codes are small exact integers), with the codes kept in
-    fp32 instead of uint8 so that a NaN stays NaN, as in the reference's
-    ``clip``; one rounding for ``q * scale + lo`` (see the module note)."""
-    lo4, scale4 = _bcast(lo), _bcast(scale)
-    norm = (x4.float() - lo4) / scale4
-    floor = torch.floor(norm)
-    q = floor + (u4 < (norm - floor)).float()
-    return decode(torch.clamp(q, 0.0, float(levels_of(bits))), lo4, scale4)
+    shape, quantized and dequantized (``qdq`` per bucket)."""
+    return qdq(x4, u4, _bcast(lo), _bcast(scale), bits=bits)
 
 
 def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
@@ -115,6 +126,38 @@ def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
     """(B, R, C) payload + per-bucket (B,) params -> (B, pack, R, C)."""
     return decode(unpack_codes(payload, bits=bits), _bcast(lo),
                   _bcast(scale))
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf forms (one message per leaf, one (lo, scale) over the whole
+# leaf): the JAX package's ``ref.quant_params`` .. ``quantize_dequantize``.
+# The uniforms ``u`` come in the caller's view of the zero-padded leaf.
+# ---------------------------------------------------------------------------
+
+
+def quant_params(x: torch.Tensor, bits: int) -> tuple:
+    """(lo, scale) over the whole of ``x`` (NaN propagates into both)."""
+    lo, hi = minmax_bucketed(x.reshape(1, -1))
+    return lo[0], scale_of(lo, hi, bits)[0]
+
+
+def encode_packed(x3: torch.Tensor, u3: torch.Tensor, lo, scale, *,
+                  bits: int) -> torch.Tensor:
+    """(pack, R, C) segments -> (R, C) uint8 payload."""
+    return pack_codes(encode(x3, u3, lo, scale, bits=bits), bits=bits)
+
+
+def decode_packed(payload: torch.Tensor, lo, scale, *,
+                  bits: int) -> torch.Tensor:
+    """(R, C) uint8 payload -> (pack, R, C) dequantized fp32 segments."""
+    return decode(unpack_codes(payload, bits=bits), lo, scale)
+
+
+def quantize_dequantize(x: torch.Tensor, u: torch.Tensor, *,
+                        bits: int) -> torch.Tensor:
+    """``qdq`` under the leaf's own (lo, scale), cast back to x's dtype."""
+    lo, scale = quant_params(x, bits)
+    return qdq(x, u, lo, scale, bits=bits).to(x.dtype)
 
 
 def decode_add_encode_bucketed(payload: torch.Tensor, params: torch.Tensor,

@@ -4,13 +4,13 @@ decode path.
 The port of ``repro.models.attention``'s parameter init, RoPE, the
 reference grouped-query SDPA (fp32 softmax), the q-chunked exact path
 for long sequences, the full-sequence ``attention`` of training, and the
-KV cache (full, or a ring buffer of ``window`` slots), in fp32 or bf16.
-All of it is plain torch, safe under autograd. ``use_flash=True``
-routes prefill through the flash-attention kernel
-(``kernels.flash_attn``: K6 on the card, its plain version on the CPU),
-which is forward-only: a backward through it raises, as the JAX
-package's has no gradient. The int8 KV cache, M-RoPE and cross
-attention come with later slices.
+KV cache (full, or a ring buffer of ``window`` slots), in fp32 or bf16,
+or int8 with a per-(slot, head) fp32 scale (``quantize=True``). All of
+it is plain torch, safe under autograd. ``use_flash=True`` routes
+prefill through the flash-attention kernel (``kernels.flash_attn``: K6
+on the card, its plain version on the CPU), which is forward-only: a
+backward through it raises, as the JAX package's has no gradient.
+M-RoPE and cross attention come with later slices.
 
 The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
 with ``jax.vmap``. Here the slot axis is a batch dimension written out:
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -151,14 +152,18 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                window: int = 0, dtype=torch.bfloat16, device=None,
-               lead: tuple = ()) -> dict:
+               lead: tuple = (), quantize: bool = False) -> dict:
     """window > 0 -> ring buffer of ``window`` slots; else seq_len slots.
-    ``lead`` prepends stacking dims (the scanned layers' n_rep)."""
+    ``lead`` prepends stacking dims (the scanned layers' n_rep).
+    ``quantize`` stores int8 K/V with a per-(slot, head) fp32 scale
+    (``k_scale`` / ``v_scale``, (..., slots, H_kv, 1)): the paper's
+    quantization applied to serving memory, half the bytes of bf16."""
     slots = min(window, seq_len) if window > 0 else seq_len
     shape = lead + (batch, slots, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quantize else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         # absolute position held by each slot (-1 = empty)
         "slot_pos": torch.full(lead + (batch, slots), -1, dtype=torch.long,
                                device=device),
@@ -167,6 +172,31 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                               device=device),
         "window": window if window > 0 else 0,
     }
+    if quantize:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+# 1/127 as XLA folds ``max|kv| / 127.0`` under jit: a multiply by the
+# constant's fp32 reciprocal (JAX serves through the jitted step)
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def _quantize_kv(kv: torch.Tensor) -> tuple:
+    """(B, 1, H, D) -> int8 codes and the per-(slot, head) fp32 scale
+    (symmetric max-abs). The scale is the jitted form's reciprocal
+    multiply; the codes a true division, rounded half to even."""
+    kf = kv.float()
+    scale = (kf.abs().amax(-1, keepdim=True) * _INV_127).clamp_min(1e-8)
+    q = torch.clamp(torch.round(kf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype
+                   ) -> torch.Tensor:
+    return (codes.float() * scale).to(dtype)
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -187,15 +217,24 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     window = cache["window"]
     slot = pos % slots if window > 0 else pos.clamp(max=slots - 1)
     rows = torch.arange(b, device=x.device)
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = _quantize_kv(t)
+            cache[name][rows, slot] = codes[:, 0]
+            cache[name + "_scale"][rows, slot] = scale[:, 0]
+        k_eff = _dequantize_kv(ck, cache["k_scale"], q.dtype)
+        v_eff = _dequantize_kv(cv, cache["v_scale"], q.dtype)
+    else:
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        k_eff, v_eff = ck.to(q.dtype), cv.to(q.dtype)
     spos[rows, slot] = pos
 
     # valid slots: filled AND (no window OR within window of pos)
     valid = spos >= 0
     if window > 0:
         valid &= spos > (pos - window)[:, None]
-    out = sdpa_reference(q, ck.to(q.dtype), cv.to(q.dtype), valid[:, None, :],
+    out = sdpa_reference(q, k_eff, v_eff, valid[:, None, :],
                          softcap=cfg.logit_softcap)
     pos += 1
     return layers.dense(p["o"], out.reshape(b, 1, cfg.q_dim)), cache

@@ -22,9 +22,12 @@ and the FFN is a gated or plain MLP (SiLU or GELU), or the MoE layer
 (``moe``) when ``cfg.moe`` is set, except deepseek's dense layer 0.
 ``block_apply`` returns (x, aux) as JAX's ``_block_apply`` does, and
 ``apply(..., with_aux=True)`` returns (logits, aux) as JAX's ``apply``;
-without it the port's ``apply`` returns the logits alone. Enc-dec
-stacks and the unrolled ``decode_step`` come with later slices (serving
-runs the scanned layout).
+without it the port's ``apply`` returns the logits alone. The cached
+decode over the unrolled tree, ``init_decode_state`` / ``decode_step``
+(``{"layers": [...]}``, with the int8 KV cache under ``quantize_kv``),
+shares its per-block state and step (``_block_state``,
+``_block_decode``) with ``transformer_scan``. Enc-dec stacks come with
+a later slice.
 """
 from __future__ import annotations
 
@@ -215,6 +218,102 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     x = _norm(cfg, params["final_norm"], x)
     logits = _lm_head(params, cfg, x)
     return (logits, aux_total) if with_aux else logits
+
+
+def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                 window: int, dtype, device, lead: tuple = (),
+                 param_dtype=torch.float32, quantize_kv: bool = False
+                 ) -> dict:
+    """One block's decode state (``lead`` stacks n_rep copies): the KV
+    cache of an attention block (int8 with ``quantize_kv``), an mla
+    block's latent cache, an rwkv block's recurrent state, an rglru
+    block's window and hidden state."""
+    if kind == "rwkv":
+        st = rwkv.init_state(cfg, batch, lead=lead, device=device)
+        st["prev_x_ffn"] = torch.zeros_like(st["prev_x"])
+        return st
+    if kind == "rglru":
+        return rglru.init_state(cfg, batch, dtype=dtype,
+                                param_dtype=param_dtype, lead=lead,
+                                device=device)
+    if kind == "mla":
+        return mla.init_cache(cfg, batch, seq_len, window=window,
+                              dtype=dtype, device=device, lead=lead)
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
+    w = cfg.local_window if kind == "local_attn" else window
+    return attention.init_cache(cfg, batch, seq_len, window=w, dtype=dtype,
+                                device=device, lead=lead,
+                                quantize=quantize_kv)
+
+
+def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
+                  x: torch.Tensor, st: dict, moe_rows: bool = False
+                  ) -> torch.Tensor:
+    """One block's decode of x (B, 1, d); the block's new state is
+    written into ``st``'s own tensors."""
+    if kind == "rwkv":
+        h = _norm(cfg, p["ln1"], x)
+        mix, tm = rwkv.time_mix_decode(p["mixer"], cfg, h, st)
+        x = x + mix
+        h2 = _norm(cfg, p["ln2"], x)
+        ffn_out, prev_ffn = rwkv.channel_mix_decode(p["ffn"], cfg, h2,
+                                                    st["prev_x_ffn"])
+        # into the state's own tensors (views of the stacked leaves)
+        st["prev_x"].copy_(tm["prev_x"])
+        st["wkv"].copy_(tm["wkv"])
+        st["prev_x_ffn"].copy_(prev_ffn)
+        return x + ffn_out
+    h = _norm(cfg, p["ln1"], x)
+    if kind == "mla":
+        mix, _ = mla.decode_attention(p["mixer"], cfg, h, st)
+    elif kind == "rglru":
+        mix, new = rglru.rglru_block_decode(p["mixer"], cfg, h, st)
+        st["conv"].copy_(new["conv"])
+        st["h"].copy_(new["h"])
+    else:
+        mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
+    if cfg.parallel_block:
+        ffn_out, _ = _ffn_apply(p["ffn"], cfg, h, layer_idx,
+                                moe_rows=moe_rows)
+        return x + mix + ffn_out
+    x = x + mix
+    h2 = _norm(cfg, p["ln2"], x)
+    ffn_out, _ = _ffn_apply(p["ffn"], cfg, h2, layer_idx, moe_rows=moe_rows)
+    return x + ffn_out
+
+
+def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
+                      seq_len: int, *, window: int = 0,
+                      dtype=torch.bfloat16, device=None,
+                      quantize_kv: bool = False) -> dict:
+    """``{"layers": [state, ...]}``, one block state per layer of the
+    unrolled tree (JAX's ``transformer.init_decode_state``): ``window``
+    > 0 makes the attn blocks' caches ring buffers, local_attn always
+    uses ``cfg.local_window``; ``quantize_kv`` stores K/V in int8 with
+    fp32 scales."""
+    if cfg.is_encdec:
+        raise not_ported("the encoder-decoder decode")
+    if device is None:
+        device = params["embed"].device
+    return {"layers": [
+        _block_state(cfg, kind, batch, seq_len, window, dtype, device,
+                     param_dtype=params["embed"].dtype,
+                     quantize_kv=quantize_kv)
+        for kind in cfg.block_pattern]}
+
+
+def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
+                state: dict, *, moe_rows: bool = False) -> tuple:
+    """One token through the unrolled stack. inputs: {"tokens": (B, 1)}.
+    Returns (logits (B, 1, V), state) — ``state`` updated in place.
+    ``moe_rows``: each row's token is its own MoE group, else the B
+    tokens are one group (JAX's batch-B step)."""
+    x = embed_inputs(params, cfg, inputs)
+    for i, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
+        x = _block_decode(p, cfg, kind, i, x, state["layers"][i], moe_rows)
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_head(params, cfg, x), state
 
 
 def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,

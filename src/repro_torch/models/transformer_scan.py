@@ -35,10 +35,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, layers, mla, rglru, rwkv
+from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (ATTN_KINDS, _block_init,
-                                            _ffn_apply, _lm_head,
+from repro_torch.models.transformer import (_block_decode, _block_init,
+                                            _block_state, _lm_head,
                                             _moe_skipped, _norm, _positions,
                                             block_apply, embed_inputs,
                                             not_ported, run_block,
@@ -174,36 +174,18 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
                                  softcap=cfg.logit_softcap) + aux
 
 
-def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                 window: int, dtype, device, lead: tuple = (),
-                 param_dtype=torch.float32) -> dict:
-    if kind == "rwkv":
-        st = rwkv.init_state(cfg, batch, lead=lead, device=device)
-        st["prev_x_ffn"] = torch.zeros_like(st["prev_x"])
-        return st
-    if kind == "rglru":
-        return rglru.init_state(cfg, batch, dtype=dtype,
-                                param_dtype=param_dtype, lead=lead,
-                                device=device)
-    if kind == "mla":
-        return mla.init_cache(cfg, batch, seq_len, window=window,
-                              dtype=dtype, device=device, lead=lead)
-    if kind not in ATTN_KINDS:
-        raise ValueError(kind)
-    w = cfg.local_window if kind == "local_attn" else window
-    return attention.init_cache(cfg, batch, seq_len, window=w, dtype=dtype,
-                                device=device, lead=lead)
-
-
 def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                       seq_len: int, *, window: int = 0,
-                      dtype=torch.bfloat16, device=None) -> dict:
+                      dtype=torch.bfloat16, device=None,
+                      quantize_kv: bool = False) -> dict:
+    """The stacked decode state; ``quantize_kv`` stores the attention
+    blocks' K/V in int8 with fp32 scales (``attention.init_cache``)."""
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     if device is None:
         device = params["embed"].device
     mk = lambda k, lead=(): _block_state(  # noqa: E731
         cfg, k, batch, seq_len, window, dtype, device, lead,
-        params["embed"].dtype)
+        params["embed"].dtype, quantize_kv)
     return {
         "prefix": [mk(k) for k in prefix],
         "scan": [mk(k, (n_rep,)) for k in unit] if n_rep else [],
@@ -217,40 +199,6 @@ def _at(tree, i: int):
     if isinstance(tree, dict):
         return {k: _at(v, i) for k, v in tree.items()}
     return tree[i] if isinstance(tree, torch.Tensor) else tree
-
-
-def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
-                  x: torch.Tensor, st: dict, moe_rows: bool = False
-                  ) -> torch.Tensor:
-    if kind == "rwkv":
-        h = _norm(cfg, p["ln1"], x)
-        mix, tm = rwkv.time_mix_decode(p["mixer"], cfg, h, st)
-        x = x + mix
-        h2 = _norm(cfg, p["ln2"], x)
-        ffn_out, prev_ffn = rwkv.channel_mix_decode(p["ffn"], cfg, h2,
-                                                    st["prev_x_ffn"])
-        # into the state's own tensors (views of the stacked leaves)
-        st["prev_x"].copy_(tm["prev_x"])
-        st["wkv"].copy_(tm["wkv"])
-        st["prev_x_ffn"].copy_(prev_ffn)
-        return x + ffn_out
-    h = _norm(cfg, p["ln1"], x)
-    if kind == "mla":
-        mix, _ = mla.decode_attention(p["mixer"], cfg, h, st)
-    elif kind == "rglru":
-        mix, new = rglru.rglru_block_decode(p["mixer"], cfg, h, st)
-        st["conv"].copy_(new["conv"])
-        st["h"].copy_(new["h"])
-    else:
-        mix, _ = attention.decode_attention(p["mixer"], cfg, h, st)
-    if cfg.parallel_block:
-        ffn_out, _ = _ffn_apply(p["ffn"], cfg, h, layer_idx,
-                                moe_rows=moe_rows)
-        return x + mix + ffn_out
-    x = x + mix
-    h2 = _norm(cfg, p["ln2"], x)
-    ffn_out, _ = _ffn_apply(p["ffn"], cfg, h2, layer_idx, moe_rows=moe_rows)
-    return x + ffn_out
 
 
 def decode_step(params: dict, cfg: ModelConfig, inputs: dict,

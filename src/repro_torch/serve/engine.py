@@ -153,8 +153,9 @@ class Engine:
                                                           self.device)))
         # each slot its own MoE group, as the JAX engine's vmapped
         # batch-1 step groups it
-        self._serve_step = steps.make_serve_step(mc, moe_rows=True)
-        self._bulk_prefill = steps.make_bulk_prefill(mc)
+        self._serve_step = steps.make_serve_step(mc, scan_layers=True,
+                                                 moe_rows=True)
+        self._bulk_prefill = steps.make_bulk_prefill(mc, scan_layers=True)
 
         # slot plane: one decode state whose batch rows are the slots;
         # _fresh is the batch=1 template a prefill starts from

@@ -13,8 +13,11 @@ The port of ``repro.train.steps`` on one card, with no mesh:
     ``metrics`` holds ``loss``, ``grad_norm``, ``step`` and
     ``comm_bytes`` (the measured wire bytes of the one fused message).
     The loss is the cross entropy plus the MoE router's aux loss.
-  * ``make_serve_step`` / ``make_bulk_prefill``: the scanned layout's
-    decode step and prompt loop (``transformer_scan``).
+  * ``make_serve_step`` / ``make_bulk_prefill``: the decode step and
+    the prompt loop, over the unrolled tree (``transformer``, the
+    default, as JAX's) or the scanned one (``scan_layers=True``,
+    ``transformer_scan``); a decode state made with ``quantize_kv`` runs
+    the int8 KV cache.
   * ``make_prefill_step``: the full-sequence forward returning the
     last position's logits, on the flash-attention kernel when
     ``use_flash`` (forward only).
@@ -179,22 +182,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig, *, moe_rows: bool = False):
+def make_serve_step(cfg: ModelConfig, *, scan_layers: bool = False,
+                    moe_rows: bool = False):
     """decode: (params, decode_state, inputs) -> (next_token_logits,
-    state). The state is updated in place. ``moe_rows``: each row's
-    token is its own MoE group (the serve engine's slots, as the JAX
-    engine's vmapped batch-1 step), else the rows are one group (JAX's
-    batch-B step)."""
+    state), over the unrolled tree or, with ``scan_layers``, the scanned
+    one. The state is updated in place. ``moe_rows``: each row's token
+    is its own MoE group (the serve engine's slots, as the JAX engine's
+    vmapped batch-1 step), else the rows are one group (JAX's batch-B
+    step)."""
+    impl = _impl(scan_layers)
 
     def serve_step(params, decode_state, inputs):
-        logits, state = transformer_scan.decode_step(
-            params, cfg, inputs, decode_state, moe_rows=moe_rows)
+        logits, state = impl.decode_step(params, cfg, inputs, decode_state,
+                                         moe_rows=moe_rows)
         return logits[:, -1], state
 
     return serve_step
 
 
-def make_bulk_prefill(cfg: ModelConfig):
+def make_bulk_prefill(cfg: ModelConfig, *, scan_layers: bool = False):
     """Bulk cache fill: (params, decode_state, tokens (B, S)) ->
     (last_logits (B, V), filled decode_state).
 
@@ -202,6 +208,7 @@ def make_bulk_prefill(cfg: ModelConfig):
     package's ``lax.scan`` of the same step — so the filled cache and
     the logits are bit-identical to feeding the tokens one at a time,
     by construction."""
+    impl = _impl(scan_layers)
     if cfg.frontend != "token":
         raise ValueError(
             f"bulk prefill needs a token frontend, got '{cfg.frontend}'")
@@ -209,7 +216,7 @@ def make_bulk_prefill(cfg: ModelConfig):
     def bulk_prefill(params, decode_state, tokens: torch.Tensor):
         logits = None
         for i in range(tokens.shape[1]):
-            logits, decode_state = transformer_scan.decode_step(
+            logits, decode_state = impl.decode_step(
                 params, cfg, {"tokens": tokens[:, i:i + 1]}, decode_state)
         return logits[:, -1], decode_state
 

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels (the codec's K1-K5, flash
-attention K6, the WKV6 scan K7) against their plain versions, and the
-serving, training and prefill paths on ``cuda``. Every test needs an
+"""The port on the card: the CUDA kernels (the codec's K1-K5, also as
+the per-leaf launches, flash attention K6, the WKV6 scan K7) against
+their plain versions, and the serving, training, per-leaf exchange,
+int8-cache decode and prefill paths on ``cuda``. Every test needs an
 NVIDIA card (``cuda`` marker) and skips without one.
 
 This file imports neither jax nor ``repro``, so it runs on a CUDA host
@@ -741,7 +742,7 @@ def test_family_decode_on_the_card_matches_the_cpu(card, arch):
     gparams = pytree.tree_map(lambda t: t.to(card), params)
     tok = torch.from_numpy(np.random.default_rng(8).integers(
         0, mc.vocab, size=(3, 12)).astype(np.int32))
-    bulk = steps.make_bulk_prefill(mc)
+    bulk = steps.make_bulk_prefill(mc, scan_layers=True)
     f32 = dict(dtype=torch.float32)
     lc, sc = bulk(params, tts.init_decode_state(params, mc, 3, 16, **f32),
                   tok)
@@ -751,8 +752,116 @@ def test_family_decode_on_the_card_matches_the_cpu(card, arch):
     for a, b in zip(pytree.tree_leaves(sg), pytree.tree_leaves(sc)):
         if isinstance(a, torch.Tensor):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
-    step = steps.make_serve_step(mc, moe_rows=True)
+    step = steps.make_serve_step(mc, scan_layers=True,
+                                  moe_rows=True)
     nxt = tok[:, :1]
     lc, _ = step(params, sc, {"tokens": nxt})
     lg, _ = step(gparams, sg, {"tokens": nxt.to(card)})
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+
+
+# the per-leaf tier: K2-K4 launched on leaf messages, the exchanges at
+# flat=False, and the unrolled decode on the int8 KV cache
+
+LEAF_EMBED = 25_165_824          # repro-100m's embedding leaf (vocab x d)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_leaf_kernels_at_the_embedding_leaf_bit_equal_to_plain(card, bits):
+    """K4, K2 and K3 as one per-leaf launch each over two workers'
+    25,165,824-element leaves (the largest leaf of repro-100m), against
+    their plain versions on the same card tensors, bit for bit; each
+    counted once on its own per-leaf counter."""
+    from repro_torch.kernels.quant import ref
+    g = torch.Generator(device=card).manual_seed(bits)
+    x = torch.randn((2, LEAF_EMBED), generator=g, device=card) * 0.02
+    keys = [prng.PRNGKey(1), prng.PRNGKey(2)]
+    x4, u4, params = ops._leaf_rows(x, keys, bits=bits)
+    kernel.reset_launches()
+    q = kernel.leaf_qdq(x4, u4, params, bits=bits)
+    pay = kernel.leaf_encode_packed(x4, u4, params, bits=bits)
+    dec = kernel.leaf_decode_packed(pay, params, bits=bits)
+    assert (kernel.leaf_qdq.launches, kernel.leaf_encode_packed.launches,
+            kernel.leaf_decode_packed.launches) == (1, 1, 1)
+    assert kernel.qdq_bucketed.launches == kernel.encode_packed.launches \
+        == kernel.decode_packed.launches == 0
+    lo, scale = params[:, 0], params[:, 1]
+    assert _same_bits(q, ref.qdq_bucketed(x4, u4, lo, scale, bits=bits))
+    assert torch.equal(pay, ref.encode_packed_bucketed(x4, u4, lo, scale,
+                                                       bits=bits))
+    assert _same_bits(dec, ref.decode_packed_bucketed(pay, lo, scale,
+                                                      bits=bits))
+    assert _same_bits(dec, q)
+
+
+@pytest.mark.parametrize("name,compressor", [("csgd_ring", "rq4"),
+                                             ("csgd_ps", "rq8"),
+                                             ("ecsgd", "rq4")])
+def test_per_leaf_exchange_on_the_card_matches_the_cpu(card, name,
+                                                       compressor):
+    """The flat=False exchanges over 4 stacked workers: the card's
+    update (and ECSGD's error trees) equal the CPU's bit for bit (the
+    ring) or within 1e-6 (a pmean); the launches a step are the stated
+    arithmetic over L leaves: the ring 4L K2 and 4L K3 (N (1 + (N-1))
+    encodes / decodes, each one launch over the N workers), the PS and
+    ECSGD 2L K4."""
+    from repro_torch.core import communicators
+    rng = np.random.default_rng(1)
+    g = {"a": torch.from_numpy(rng.normal(size=(4, 30_000)).astype(
+        np.float32)), "b": [torch.from_numpy(rng.normal(size=(4, 7, 3))
+                                             .astype(np.float32))]}
+    ex = communicators.make_exchange(name, compressor=compressor,
+                                     flat=False)
+    gg = pytree.tree_map(lambda t: t.to(card), g)
+    kernel.reset_launches()
+    got, gst = ex(gg, ex.init(gg), prng.PRNGKey(3))
+    leaves = 2
+    counts = {k: v for k, v in kernel.launch_counts().items() if v}
+    if name == "csgd_ring":
+        assert counts == {"leaf_encode_packed": 4 * leaves,
+                          "leaf_decode_packed": 4 * leaves}
+    else:
+        assert counts == {"leaf_qdq": 2 * leaves}
+    want, wst = ex(g, ex.init(g), prng.PRNGKey(3))
+    for a, b in zip(pytree.tree_leaves((got, gst)),
+                    pytree.tree_leaves((want, wst))):
+        if name == "csgd_ring":
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+
+
+def test_int8_cache_decode_on_the_card_matches_the_cpu(card):
+    """The reduced qwen1.5-0.5b unrolled: a 12-token bulk prefill and 4
+    steps on the int8 KV cache, card against CPU: logits within 2e-3 of
+    their scale (an int8 code at a rounding half may flip by one where
+    the card's float32 sums differ by an ulp, as against JAX in
+    tests/test_torch_decode.py), codes off by at most one."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import steps
+    mc = configs.get_config("qwen1.5-0.5b").reduced()
+    params = tt.init(mc, tts.generator(3))
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, mc.vocab, size=(2, 16)).astype(np.int32))
+    mk = lambda p: tt.init_decode_state(  # noqa: E731
+        p, mc, 2, 20, dtype=torch.float32, quantize_kv=True)
+    bulk, step = steps.make_bulk_prefill(mc), steps.make_serve_step(mc)
+    lc, sc = bulk(params, mk(params), tok[:, :12])
+    lg, sg = bulk(gparams, mk(gparams), tok[:, :12].to(card))
+    pairs = [(lg, lc)]
+    for i in range(12, 16):
+        lc, sc = step(params, sc, {"tokens": tok[:, i:i + 1]})
+        lg, sg = step(gparams, sg, {"tokens": tok[:, i:i + 1].to(card)})
+        pairs.append((lg, lc))
+    for g_, c_ in pairs:
+        assert float((g_.cpu() - c_).abs().max()) <= \
+            2e-3 * float(c_.abs().max())
+    for a, b in zip(sg["layers"], sc["layers"]):
+        assert a["k"].dtype == torch.int8
+        for name in ("k", "v"):
+            d = (a[name].cpu().int() - b[name].int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) \
+                <= 1e-3

@@ -109,7 +109,7 @@ def test_decode_step_logits_match_jax(model, window):
     tst = tts.init_decode_state(tp, tmc, B, P + 4, window=window,
                                 dtype=torch.float32)
     jstep = jax.jit(jsteps.make_serve_step(jmc, scan_layers=True))
-    tstep = steps.make_serve_step(tmc)
+    tstep = steps.make_serve_step(tmc, scan_layers=True)
     for i in range(P):
         jl, jst = jstep(jp, jst, {"tokens": jnp.asarray(toks[:, i:i + 1])})
         tl, tst = tstep(tp, tst,
@@ -133,7 +133,7 @@ def test_bulk_prefill_matches_jax_and_is_token_by_token(model, window):
                                 dtype=jnp.float32)
     jl, _ = jax.jit(jsteps.make_bulk_prefill(jmc, scan_layers=True))(
         jp, jst, jnp.asarray(toks))
-    bulk = steps.make_bulk_prefill(tmc)
+    bulk = steps.make_bulk_prefill(tmc, scan_layers=True)
     tst = tts.init_decode_state(tp, tmc, B, P + 3, window=window,
                                 dtype=torch.float32)
     tl, bst = bulk(tp, tst, torch.from_numpy(toks).long())
@@ -141,7 +141,7 @@ def test_bulk_prefill_matches_jax_and_is_token_by_token(model, window):
     # within the port: bit-identical to feeding the tokens one by one
     st = tts.init_decode_state(tp, tmc, B, P + 3, window=window,
                                dtype=torch.float32)
-    step = steps.make_serve_step(tmc)
+    step = steps.make_serve_step(tmc, scan_layers=True)
     for i in range(P):
         logits, st = step(tp, st,
                           {"tokens": torch.from_numpy(toks[:, i:i + 1]).long()})
@@ -156,7 +156,7 @@ def test_rows_keep_their_own_cursor(model):
     same row decoded in a batch (per-row cursor and ring slot)."""
     _, tmc, _, tp = model
     toks = torch.from_numpy(_tokens(tmc, 2, 5, seed=3)).long()
-    step = steps.make_serve_step(tmc)
+    step = steps.make_serve_step(tmc, scan_layers=True)
     both = tts.init_decode_state(tp, tmc, 2, 8, window=4,
                                  dtype=torch.float32)
     for i in range(5):

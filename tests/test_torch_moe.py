@@ -207,8 +207,9 @@ def test_engine_slot_grouping_matches_the_vmapped_jax_step():
     jst = jts.init_decode_state(jp, jmc, S, P + 1, dtype=jnp.float32)
     rows_st = tts.init_decode_state(tp, tmc, S, P + 1, dtype=torch.float32)
     batch_st = tts.init_decode_state(tp, tmc, S, P + 1, dtype=torch.float32)
-    rows_step = steps.make_serve_step(tmc, moe_rows=True)
-    batch_step = steps.make_serve_step(tmc)
+    rows_step = steps.make_serve_step(tmc, scan_layers=True,
+                                       moe_rows=True)
+    batch_step = steps.make_serve_step(tmc, scan_layers=True)
     differ = False
     for i in range(P):
         tok = toks[:, i:i + 1]

@@ -206,10 +206,11 @@ def test_exchange_registry_and_refusals():
     g = interop.params_from_jax(_stacked(2, seed=1))
     for ex in (TC.CSGDPSExchange(flat=False), TC.ECSGDExchange(flat=False),
                TC.CSGDRingExchange(flat=False)):
-        with pytest.raises(NotImplementedError, match="per-leaf"):
-            ex(g, (), prng.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="per-leaf"):
-        tcomp.codec("rq4").qdq(torch.zeros(4), prng.PRNGKey(0))
+        out, _ = ex(g, ex.init(g), prng.PRNGKey(0))
+        assert [t.shape for t in pytree.tree_leaves(out)] == \
+            [t.shape for t in pytree.tree_leaves(g)]
+    with pytest.raises(NotImplementedError, match="no packed wire format"):
+        tcomp.codec("sign1").encode(torch.zeros(4), prng.PRNGKey(0))
 
 
 # ---------------------------------------------------------------------------

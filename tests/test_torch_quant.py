@@ -178,11 +178,19 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     kernel.decode_add_encode_bucketed([pay.view(2, 512)], [params],
                                       [x.view(-1)], [prng.PRNGKey(0)],
                                       bits=8, rows_b=1, rt=1)
+    kernel.leaf_qdq(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
+                    bits=8)
+    kernel.leaf_decode_packed(kernel.leaf_encode_packed(
+        x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params, bits=8),
+        params, bits=8)
     assert kernel.launch_counts() == {"minmax_bucketed": 0,
                                       "encode_packed": 0,
                                       "decode_packed": 0,
                                       "qdq_bucketed": 0,
-                                      "decode_add_encode_bucketed": 0}
+                                      "decode_add_encode_bucketed": 0,
+                                      "leaf_qdq": 0,
+                                      "leaf_encode_packed": 0,
+                                      "leaf_decode_packed": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.minmax_bucketed(torch.zeros((1, 1, 512), device="meta"))
     with pytest.raises(ValueError, match="bits"):

@@ -312,7 +312,7 @@ def test_decode_step_matches_jax_in_every_state_leaf(cfgs, scanned):
     tst = tts.init_decode_state(tp, tmc, B, P, dtype=torch.float32)
     assert sorted(tst["scan"][0]) == ["prev_x", "prev_x_ffn", "wkv"]
     jstep = jax.jit(jsteps.make_serve_step(jmc, scan_layers=True))
-    tstep = steps.make_serve_step(tmc)
+    tstep = steps.make_serve_step(tmc, scan_layers=True)
     for i in range(P):
         jl, jst = jstep(jp, jst, {"tokens": jnp.asarray(toks[:, i:i + 1])})
         tl, tst = tstep(tp, tst,
@@ -328,11 +328,11 @@ def test_bulk_prefill_equals_token_by_token_and_jax(cfgs, scanned):
     jp, tp = scanned
     B, P = 2, 11
     toks = _tokens(jmc, B, P, seed=12)
-    bulk = steps.make_bulk_prefill(tmc)
+    bulk = steps.make_bulk_prefill(tmc, scan_layers=True)
     lb, sb = bulk(tp, tts.init_decode_state(tp, tmc, B, P,
                                             dtype=torch.float32),
                   torch.from_numpy(toks))
-    step = steps.make_serve_step(tmc)
+    step = steps.make_serve_step(tmc, scan_layers=True)
     st = tts.init_decode_state(tp, tmc, B, P, dtype=torch.float32)
     for i in range(P):
         ls, st = step(tp, st, {"tokens": torch.from_numpy(toks[:, i:i + 1])})
