@@ -11,9 +11,11 @@ WKV6 scan kernel, replays the virtual cluster's traces on full-width
 repro-100m, and prefills and serves the hybrid and MoE families
 (recurrentgemma-9b, deepseek-v2-lite-16b) and prefills qwen2.5-14b and
 command-r-35b (bf16) at full width, exchanges full-width repro-100m
-gradients per leaf (the per-leaf codec tier), and decodes full-width
+gradients per leaf (the per-leaf codec tier), decodes full-width
 qwen1.5-0.5b and granite-8b on the unrolled tree with and without the
-int8 KV cache.
+int8 KV cache, and prefills and decodes the embedding frontends at full
+width: qwen2-vl-72b (M-RoPE on a patch grid, bf16, 32 of its 80 layers)
+and seamless-m4t-large-v2 (the encoder-decoder).
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -140,7 +142,26 @@ Phases (any failure raises and the script exits non-zero):
      exactly 4,831,838,208 B of K/V (bf16) and 2,491,416,576 B (int8 +
      scales), a 64-token bulk prefill and 16 steps on each; then the
      five families reduced on the unrolled tree, card against CPU (fp32
-     cache 1e-5, int8 cache 2e-3 of the logits' scale).
+     cache 1e-5, int8 cache 2e-3 of the logits' scale);
+ 13. frontends, at full width with random weights from a seed:
+     qwen2-vl-72b in bf16 cut to 32 of its 80 layers (30,577,336,320
+     parameters, 61.15 GB), make_prefill_step(use_flash=True,
+     scan_layers=True, logits_positions="last") on 1 x 8192 stub
+     embeddings with a Qwen2-VL position grid (1,024 text ids, a 64 x 96
+     patch grid at t = 1,024, text from 1,120 on): K6 once a layer,
+     logits within 0.05 relative L2 of the non-flash prefill; a 256-
+     embedding text prompt fed a step at a time through make_serve_step
+     (M-RoPE at text positions) against its prefill (0.05 relative L2),
+     16 greedy token steps beside the step's bytes bound;
+     seamless-m4t-large-v2 at full depth in fp32 (1,632,550,912
+     parameters) prefilled on 1 x 8192 stub embeddings over 8,192
+     source frames: K6 once a decoder layer and never in the encoder or
+     the cross attention, within 1e-3 of the non-flash prefill; encode
+     alone timed, a layer's pieces timed; 64 greedy tokens over the
+     encoder memory through make_serve_step within 1e-3 of one
+     full-sequence apply; then both reduced, card against CPU (prefill,
+     loss and gradients 1e-5; decode on the fp32 cache 1e-5, the bf16 and
+     int8 caches 2e-3 of the logits' scale).
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -357,6 +378,26 @@ KV_REDUCED_ARCHS = ("qwen1.5-0.5b", "rwkv6-3b", "recurrentgemma-9b",
                     "deepseek-v2-lite-16b", "grok-1-314b")
 KV_REDUCED_INT8_REL = 2e-3    # card vs CPU on the int8 cache (a code at a
                               # rounding half may flip by one)
+# frontends phase: M-RoPE on the patch-stub frontend (qwen2-vl-72b, bf16,
+# at 32 of its 80 layers: 61.15 GB of weights, where 80 would be 145 GB)
+# and the encoder-decoder (seamless-m4t-large-v2, fp32, full depth).
+# Parameter counts are JAX's count of the same configs
+VL_ARCH = "qwen2-vl-72b"
+VL_FULL_LAYERS, VL_LAYERS = 80, 32
+VL_PARAMS = 30_577_336_320
+VL_SEQ = 8192
+# the prefill's Qwen2-VL-style ids: VL_TEXT text positions (t = h = w),
+# a rows x cols patch grid at one temporal id, then text after the grid
+VL_TEXT, VL_GRID = 1024, (64, 96)
+VL_DECODE_LEN = 256           # a text prompt fed one embedding a step
+VL_GEN = 16
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_PARAMS = 1_632_550_912
+ENCDEC_SEQ = 8192             # decoder tokens and source frames alike
+ENCDEC_GEN = 64
+# the reduced configs card vs CPU: prefill 2 x 300 on a grid of 40 text
+# ids, 10 x 20 patches and 60 text ids; 200 source frames
+FRONTEND_REDUCED = ((40, (10, 20)), 300, 200)
 
 QUANT_TPU = "src/repro/kernels/quant/kernel.py"
 QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
@@ -1743,7 +1784,7 @@ def flash_geometries(torch) -> list:
 
 def prefill_model(torch, arch: str, shape_name, b: int, s: int,
                   n_layers: int, seed: int, *, dtype: str = "float32",
-                  params=None) -> dict:
+                  params=None, cfg=None, batch=None) -> dict:
     """One model at full width and depth: a warm-up and PREFILL_REPS
     timed flash prefills (the main path, K6 launches counted: once per
     attention layer, local ones at the model's window), K6 alone at the
@@ -1751,7 +1792,9 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
     reference for the last-position logits. ``dtype`` is the weights'
     (bf16 takes K6's bf16 route, and its logits are held by relative L2,
     BF16_PREFILL_TOL); ``params``, when given, are the model's weights
-    already on the card."""
+    already on the card, ``cfg`` its configuration when it is not the
+    registry's (a depth cut), and ``batch`` the prefill's inputs when
+    they are not ``synthetic_batch``'s tokens (stub embeddings)."""
     from repro_torch import configs
     from repro_torch.core import prng, pytree
     from repro_torch.data import pipeline
@@ -1760,7 +1803,7 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
     from repro_torch.models.common import INPUT_SHAPES, InputShape
     from repro_torch.train import steps
 
-    cfg = configs.get_config(arch)
+    cfg = cfg or configs.get_config(arch)
     if cfg.n_layers != n_layers:
         raise AssertionError(f"{arch}: {cfg.n_layers} layers")
     attn_layers = sum(k in ("attn", "local_attn") for k in cfg.block_pattern)
@@ -1777,12 +1820,14 @@ def prefill_model(torch, arch: str, shape_name, b: int, s: int,
             cfg, transformer_scan.generator(seed, "cuda"),
             dtype=getattr(torch, dtype))
     n_params = sum(t.numel() for t in pytree.tree_leaves(params))
-    shape = (INPUT_SHAPES[shape_name] if shape_name else
-             InputShape(f"prefill_{s // 1024}k", s, b, "prefill"))
-    batch = {k: v[:b] for k, v in pipeline.synthetic_batch(
-        cfg, shape, prng.PRNGKey(seed), device="cuda").items()}
-    if tuple(batch["tokens"].shape) != (b, s):
-        raise AssertionError(f"batch {tuple(batch['tokens'].shape)}")
+    if batch is None:
+        shape = (INPUT_SHAPES[shape_name] if shape_name else
+                 InputShape(f"prefill_{s // 1024}k", s, b, "prefill"))
+        batch = {k: v[:b] for k, v in pipeline.synthetic_batch(
+            cfg, shape, prng.PRNGKey(seed), device="cuda").items()}
+    lead = batch["tokens" if "tokens" in batch else "embeddings"]
+    if tuple(lead.shape[:2]) != (b, s):
+        raise AssertionError(f"batch {tuple(lead.shape)}")
     step = steps.make_prefill_step(cfg, use_flash=True, scan_layers=True,
                                    logits_positions="last")
     torch.cuda.synchronize()
@@ -3342,6 +3387,402 @@ def kv_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# frontends phase (the tenth main path: M-RoPE and the encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def mrope_grid(text: int, grid: tuple, s: int):
+    """(3, s) int32 Qwen2-VL position ids: ``text`` text positions
+    (t = h = w = i), a rows x cols patch grid at t = ``text``, h = ``text``
+    + row, w = ``text`` + col, then text ids from ``text`` + max(rows,
+    cols) on (the next id after the grid's largest)."""
+    import numpy as np
+    rows, cols = grid
+    n = rows * cols
+    if s < text + n:
+        raise ValueError(f"{s} positions hold no {text} + {n}")
+    axes = (np.full(n, text), text + np.repeat(np.arange(rows), cols),
+            text + np.tile(np.arange(cols), rows))
+    tail = text + max(rows, cols) + np.arange(s - text - n)
+    return np.stack([np.concatenate([np.arange(text), a, tail])
+                     for a in axes]).astype(np.int32)
+
+
+def vl_config():
+    """qwen2-vl-72b at full width, cut to VL_LAYERS layers."""
+    import dataclasses
+    from repro_torch import configs
+
+    cfg = configs.get_config(VL_ARCH)
+    if cfg.n_layers != VL_FULL_LAYERS:
+        raise AssertionError(f"{VL_ARCH}: {cfg.n_layers} layers")
+    return dataclasses.replace(cfg, n_layers=VL_LAYERS,
+                               block_pattern=("attn",) * VL_LAYERS)
+
+
+def frontend_params(torch, cfg, seed: int, dtype, n_params: int):
+    """Weights on the card from a seed, counted against JAX's count."""
+    from repro_torch.core import pytree
+    from repro_torch.models import transformer_scan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = transformer_scan.init(
+        cfg, transformer_scan.generator(seed, "cuda"), dtype=dtype)
+    n = sum(t.numel() for t in pytree.tree_leaves(params))
+    if n != n_params:
+        raise AssertionError(f"{cfg.arch_id}: {n} parameters, JAX counts "
+                             f"{n_params}")
+    return params
+
+
+def vl_decode(torch, params, cfg, seed: int) -> dict:
+    """A 1 x VL_DECODE_LEN text prompt of stub embeddings fed one a step
+    through make_serve_step (bf16 cache, M-RoPE at text positions) against
+    the flash prefill of the same embeddings (relative L2 <=
+    BF16_PREFILL_TOL), then VL_GEN greedy token steps; step times against
+    the bytes a step must read (every weight but the embedding table's
+    other rows, and the cache)."""
+    from repro_torch.core import pytree
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    emb = (torch.randn((1, VL_DECODE_LEN, cfg.d_model), generator=g,
+                       device="cuda") * 0.02).bfloat16()
+    before = fk.flash_attention_bhsd.launches
+    pre = steps.make_prefill_step(cfg, use_flash=True, scan_layers=True,
+                                  logits_positions="last")(
+        params, {"embeddings": emb})
+    if fk.flash_attention_bhsd.launches - before != cfg.n_layers:
+        raise AssertionError(f"{VL_ARCH}: the {VL_DECODE_LEN}-embedding "
+                             "prefill did not launch K6 once a layer")
+    state = transformer_scan.init_decode_state(
+        params, cfg, 1, VL_DECODE_LEN + VL_GEN, device="cuda")
+    step = steps.make_serve_step(cfg, scan_layers=True)
+    before = fk.flash_attention_bhsd.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(VL_DECODE_LEN):
+        logits, state = step(params, state, {"embeddings": emb[:, i:i + 1]})
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    got, want = logits.float(), pre.float()
+    rel = float((got - want).norm() / want.norm())
+    if fk.flash_attention_bhsd.launches != before:
+        raise AssertionError(f"{VL_ARCH}: the decode launched K6")
+    if not rel <= BF16_PREFILL_TOL:
+        raise AssertionError(f"{VL_ARCH}: the decode fed the prompt's "
+                             f"embeddings gives logits {rel} (relative L2) "
+                             f"from the prefill's")
+    step_ms, tok = [], logits.argmax(-1, keepdim=True)
+    for _ in range(VL_GEN):
+        t0 = time.perf_counter()
+        logits, state = step(params, state, {"tokens": tok})
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{VL_ARCH}: non-finite decode logits")
+    leaves = pytree.tree_leaves(params)
+    weights = sum(t.numel() * t.element_size() for t in leaves) - \
+        params["embed"].numel() * params["embed"].element_size() + \
+        cfg.d_model * params["embed"].element_size()
+    cache = sum(t.numel() * t.element_size()
+                for t in pytree.tree_leaves(state)
+                if isinstance(t, torch.Tensor))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    return {"prompt": VL_DECODE_LEN, "gen": VL_GEN,
+            "logits_rel_l2_vs_prefill": rel,
+            "logits_max_abs_err_vs_prefill": max_abs(got, want),
+            "tolerance": BF16_PREFILL_TOL,
+            "feed_ms_per_embedding": feed_s / VL_DECODE_LEN * 1e3,
+            "step_ms": step_ms, "median_step_ms": med,
+            "tokens_per_s": 1e3 / med, "step_bytes": weights + cache,
+            "bytes_bound_ms": (weights + cache) / HBM_BYTES_PER_S * 1e3}
+
+
+def vl_run(torch) -> dict:
+    """qwen2-vl-72b (bf16, VL_LAYERS layers): the flash prefill of 1 x
+    VL_SEQ stub embeddings on a position grid, K6 once a layer, against
+    the non-flash prefill; then the decode check and greedy steps."""
+    from repro_torch.core import prng
+    from repro_torch.data import pipeline
+    from repro_torch.models.common import InputShape
+
+    cfg = vl_config()
+    params = frontend_params(torch, cfg, 70, torch.bfloat16, VL_PARAMS)
+    batch = pipeline.synthetic_batch(
+        cfg, InputShape("prefill_8k", VL_SEQ, 1, "prefill"),
+        prng.PRNGKey(71), dtype=torch.bfloat16, device="cuda")
+    batch["positions3"] = torch.from_numpy(
+        mrope_grid(VL_TEXT, VL_GRID, VL_SEQ))[None].cuda()
+    run = prefill_model(torch, VL_ARCH, None, 1, VL_SEQ, VL_LAYERS, seed=72,
+                        dtype="bfloat16", params=params, cfg=cfg,
+                        batch=batch)
+    run["reduced"] = f"n_layers {VL_FULL_LAYERS} -> {VL_LAYERS}"
+    run["positions3"] = {"text": VL_TEXT, "grid": list(VL_GRID),
+                         "text_after_from": VL_TEXT + max(VL_GRID)}
+    del batch
+    run["decode"] = vl_decode(torch, params, cfg, seed=73)
+    log(f"[frontends] {VL_ARCH} ({run['reduced']}) decode: the "
+        f"{VL_DECODE_LEN}-embedding prompt fed a step at a time "
+        f"{run['decode']['logits_rel_l2_vs_prefill']:.4g} relative L2 from "
+        f"the prefill (tolerance {BF16_PREFILL_TOL}); token step "
+        f"{run['decode']['median_step_ms']:.1f} ms against a bytes bound "
+        f"of {run['decode']['bytes_bound_ms']:.2f} ms; "
+        + json.dumps(run["decode"]))
+    del params
+    return run
+
+
+def encdec_run(torch) -> dict:
+    """seamless-m4t-large-v2 (fp32, full depth): the flash prefill of 1 x
+    ENCDEC_SEQ stub embeddings over as many source frames (K6 once a
+    decoder layer, none in the encoder), against the non-flash prefill;
+    encode alone (timed, no K6); then speech to text: ENCDEC_GEN greedy
+    tokens over the encoder memory through make_serve_step, each step's
+    logits against one full-sequence apply of the same tokens and frames."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.models.common import InputShape
+    from repro_torch.train import steps
+
+    cfg = configs.get_config(ENCDEC_ARCH)
+    params = frontend_params(torch, cfg, 74, torch.float32, ENCDEC_PARAMS)
+    batch = pipeline.synthetic_batch(
+        cfg, InputShape("prefill_8k", ENCDEC_SEQ, 1, "prefill"),
+        prng.PRNGKey(75), dtype=torch.float32, device="cuda")
+    if tuple(batch["src_embeddings"].shape[:2]) != (1, ENCDEC_SEQ):
+        raise AssertionError("source frames")
+    run = prefill_model(torch, ENCDEC_ARCH, None, 1, ENCDEC_SEQ,
+                        cfg.n_layers, seed=76, params=params, batch=batch)
+    src = batch["src_embeddings"]
+    del batch
+    before = fk.flash_attention_bhsd.launches
+    memory = transformer_scan.encode(params, cfg, src)
+    times = []
+    for _ in range(PREFILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        transformer_scan.encode(params, cfg, src)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    if fk.flash_attention_bhsd.launches != before:
+        raise AssertionError(f"{ENCDEC_ARCH}: the encoder launched K6")
+    run["encode_ms"] = times
+    run["encode_median_ms"] = sorted(times)[len(times) // 2]
+    run["breakdown"] = encdec_breakdown(torch, params, cfg, memory)
+
+    state = transformer_scan.init_decode_state(
+        params, cfg, 1, ENCDEC_GEN, dtype=torch.float32, memory=memory)
+    del memory
+    before = fk.flash_attention_bhsd.launches
+    step = steps.make_serve_step(cfg, scan_layers=True)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    toks, outs, step_ms = [], [], []
+    for _ in range(ENCDEC_GEN):
+        toks.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = step(params, state, {"tokens": tok})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits)
+        tok = logits.argmax(-1, keepdim=True).int()
+    if fk.flash_attention_bhsd.launches != before:
+        raise AssertionError(f"{ENCDEC_ARCH}: the decode launched K6")
+    del state
+    got = torch.stack(outs, 1)
+    want = transformer_scan.apply(params, cfg, {
+        "tokens": torch.cat(toks, 1), "src_embeddings": src})
+    err = max_abs(got, want)
+    if not torch.allclose(got, want, rtol=DECODE_LOGITS_TOL,
+                          atol=DECODE_LOGITS_TOL):
+        raise AssertionError(f"{ENCDEC_ARCH}: {ENCDEC_GEN} decode steps "
+                             f"over the memory != the full-sequence apply "
+                             f"(max abs err {err})")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    run["decode"] = {"gen": ENCDEC_GEN, "source_frames": ENCDEC_SEQ,
+                     "logits_max_abs_err_vs_apply": err,
+                     "tolerance": DECODE_LOGITS_TOL,
+                     "logits_abs_max": float(want.abs().max()),
+                     "step_ms": step_ms, "median_step_ms": med,
+                     "tokens_per_s": 1e3 / med,
+                     "distinct_tokens": len({int(t) for t in toks})}
+    log(f"[frontends] {ENCDEC_ARCH} encode 1 x {ENCDEC_SEQ} frames: median "
+        f"{run['encode_median_ms']:.1f} ms of "
+        f"{[round(t, 1) for t in times]}, no K6; a layer's pieces "
+        + json.dumps(run["breakdown"]) + f"; {ENCDEC_GEN} greedy tokens "
+        f"over the memory: step {med:.1f} ms, against the full-sequence "
+        f"apply max abs err {err:.3g} (tolerance {DECODE_LOGITS_TOL}); "
+        + json.dumps(run["decode"]))
+    del params, src
+    return run
+
+
+def encdec_breakdown(torch, params, cfg, memory) -> dict:
+    """CUDA-event times of one layer's pieces at the prefill's shape (1 x
+    ENCDEC_SEQ over as many frames): the encoder's non-causal attention
+    (q-chunked, plain), the decoder's cross attention (plain, over the
+    whole memory), its causal self-attention on K6, and the FFN; each
+    beside its count in a prefill."""
+    from repro_torch.models import attention, layers
+    from repro_torch.models.transformer_scan import _at
+
+    enc = _at(params["encoder"]["scan_blocks"], 0)
+    dec = _at(params["scan_blocks"][0], 0)
+    x = memory[:, :ENCDEC_SEQ]
+    pos = torch.arange(ENCDEC_SEQ, device="cuda")[None]
+    mkv = attention.memory_kv(dec["cross"], cfg, memory)
+    parts = {
+        "encoder_attention": (lambda: attention.attention(
+            enc["mixer"], cfg, x, pos, causal=False), cfg.n_encoder_layers),
+        "cross_attention": (lambda: attention.cross_attention(
+            dec["cross"], cfg, x, mkv), cfg.n_layers),
+        "memory_kv": (lambda: attention.memory_kv(dec["cross"], cfg, memory),
+                      cfg.n_layers),
+        "self_attention_k6": (lambda: attention.attention(
+            dec["mixer"], cfg, x, pos, use_flash=True), cfg.n_layers),
+        "ffn": (lambda: layers.mlp(dec["ffn"], x, act=cfg.act, glu=cfg.glu),
+                cfg.n_layers + cfg.n_encoder_layers),
+    }
+    out = {}
+    for name, (fn, count) in parts.items():
+        ms = time_ms(fn, reps=3)
+        out[name] = {"ms": ms, "per_prefill": count, "ms_x_count": ms * count}
+    return out
+
+
+def frontends_cross_device_check(torch) -> None:
+    """Both configs reduced, card against CPU: the flash prefill (K6 once
+    a decoder layer on the card) on stub embeddings (a position grid for
+    qwen2-vl, source frames for seamless), a train step's loss and every
+    gradient within REDUCED_TOL; 8 decode steps (embeddings, or tokens
+    over the encoder memory) on the fp32 cache within REDUCED_TOL and on
+    the bf16 and int8 caches within KV_REDUCED_INT8_REL of the logits'
+    scale (a K/V value at a rounding half may land a step apart)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import transformer_scan
+    from repro_torch.train import steps
+
+    (text, grid), s, src_len = FRONTEND_REDUCED
+    errs = {}
+    for arch in (VL_ARCH, ENCDEC_ARCH):
+        mc = configs.get_config(arch).reduced()
+        params = transformer_scan.init(mc, transformer_scan.generator(5))
+        gparams = pytree.tree_map(lambda t: t.cuda(), params)
+        rng = np.random.default_rng(6)
+        batch = {"embeddings": torch.from_numpy(
+            (rng.normal(size=(2, s, mc.d_model)) * 0.5).astype(np.float32))}
+        if mc.rope_variant == "mrope":
+            batch["positions3"] = torch.from_numpy(
+                mrope_grid(text, grid, s))[None].expand(2, 3, s)
+        if mc.is_encdec:
+            batch["src_embeddings"] = torch.from_numpy(
+                (rng.normal(size=(2, src_len, mc.d_model)) * 0.5).astype(
+                    np.float32))
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                       logits_positions="last")
+        checks = [("prefill", step(params, batch))]
+        before = fk.flash_attention_bhsd.launches
+        got = step(gparams, gbatch).cpu()
+        if fk.flash_attention_bhsd.launches - before != mc.n_layers:
+            raise AssertionError(f"reduced {arch} prefill: K6 launches")
+        checks = [("prefill", checks[0][1], got)]
+        loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+        short = lambda b: {k: (v if k == "src_embeddings" else  # noqa: E731
+                               v[..., :32, :] if k == "embeddings" else
+                               v[..., :32]) for k, v in b.items()}
+        labels = torch.from_numpy(rng.integers(0, mc.vocab, size=(2, 32))
+                                  .astype(np.int32))
+        want_l, want_g = steps.value_and_grad(
+            loss, params, {**short(batch), "labels": labels})
+        got_l, got_g = steps.value_and_grad(
+            loss, gparams, {**short(gbatch), "labels": labels.cuda()})
+        checks += [("loss", want_l, got_l.cpu())]
+        checks += [("grads", w, g.cpu()) for w, g in zip(
+            pytree.tree_leaves(want_g), pytree.tree_leaves(got_g))]
+        for name, a, b in checks:
+            key = f"{arch} {name}"
+            errs[key] = max(errs.get(key, 0.0), max_abs(b, a))
+            if not torch.allclose(b, a, rtol=REDUCED_TOL, atol=REDUCED_TOL):
+                raise AssertionError(f"reduced {arch} {name}: card != CPU "
+                                     f"(max abs err {max_abs(b, a)})")
+        serve = steps.make_serve_step(mc, scan_layers=True)
+        tok = torch.from_numpy(rng.integers(0, mc.vocab, size=(2, 8)).astype(
+            np.int32))
+        for cache in ("fp32", "bf16", "int8"):
+            def run(p, b, dev):
+                kw = {}
+                if mc.is_encdec:
+                    kw["memory"] = transformer_scan.encode(
+                        p, mc, b["src_embeddings"])
+                st = transformer_scan.init_decode_state(
+                    p, mc, 2, 10, quantize_kv=cache == "int8", **kw,
+                    dtype=torch.bfloat16 if cache == "bf16"
+                    else torch.float32)
+                outs = []
+                for i in range(8):
+                    inp = ({"tokens": tok[:, i:i + 1].to(dev)}
+                           if mc.is_encdec else
+                           {"embeddings": b["embeddings"][:, i:i + 1]})
+                    logits, st = serve(p, st, inp)
+                    outs.append(logits.cpu())
+                return outs
+            pairs = list(zip(run(gparams, gbatch, "cuda"),
+                             run(params, batch, "cpu")))
+            err = max(max_abs(g, c) for g, c in pairs)
+            scale = max(float(c.abs().max()) for _, c in pairs)
+            errs[f"{arch} decode {cache}"] = err
+            ok = all(torch.allclose(g, c, rtol=REDUCED_TOL, atol=REDUCED_TOL)
+                     for g, c in pairs) if cache == "fp32" else \
+                err <= KV_REDUCED_INT8_REL * scale
+            if not ok:
+                raise AssertionError(f"reduced {arch} decode ({cache} "
+                                     f"cache): card != CPU, max abs err "
+                                     f"{err}")
+    log(f"[check] {VL_ARCH} and {ENCDEC_ARCH} reduced: flash prefill (2 x "
+        f"{s} stub embeddings; a position grid, {src_len} source frames), "
+        f"train loss and every gradient (2 x 32) within {REDUCED_TOL}; 8 "
+        f"decode steps on the fp32 cache within {REDUCED_TOL}, the bf16 and "
+        f"int8 caches within {KV_REDUCED_INT8_REL} of the logits' scale: "
+        "card == CPU; max abs errs " + json.dumps(errs))
+
+
+def frontends_phase(torch) -> dict:
+    """qwen2-vl-72b (M-RoPE, stub embeddings; bf16, 32 of 80 layers) and
+    seamless-m4t-large-v2 (encoder-decoder, fp32) at full width: their
+    flash prefills (the main path: K6 launches counted from 0 before each
+    and read after), the decode checks, then both reduced card vs CPU."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {VL_ARCH: vl_run(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[ENCDEC_ARCH] = encdec_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontends_cross_device_check(torch)
+    out["launches"] = {"flash_attention_bhsd": sum(
+        out[a]["launches"] for a in (VL_ARCH, ENCDEC_ARCH))}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[frontends] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3381,6 +3822,7 @@ def main() -> int:
     leafed = leaf_phase(torch, ringed["median_step_ms"])
     timing.update(leafed["timing"])
     kv = kv_phase(torch)
+    fronted = frontends_phase(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -3394,7 +3836,8 @@ def main() -> int:
                                     "rwkv": rwkv["launches"],
                                     "cluster": clustered["launches"],
                                     "families": families["launches"],
-                                    "leaf": leafed["launches"]}))
+                                    "leaf": leafed["launches"],
+                                    "frontends": fronted["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
@@ -3404,8 +3847,9 @@ def main() -> int:
                 if name in RWKV_KERNELS else leafed
                 if name in LEAF_KERNELS else trained)
         launches = path["launches"][name]
-        if name in PREFILL_KERNELS:      # K6 also runs the families' path
-            launches += families["launches"][name]
+        if name in PREFILL_KERNELS:      # K6 also runs the families' and
+            launches += (families["launches"][name]     # the frontends'
+                         + fronted["launches"][name])   # paths
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],

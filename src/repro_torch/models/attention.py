@@ -1,16 +1,18 @@
-"""GQA attention: the full-sequence train path and the cached one-token
-decode path.
+"""GQA attention: the full-sequence train path, the encoder-decoder's
+cross attention and the cached one-token decode path.
 
-The port of ``repro.models.attention``'s parameter init, RoPE, the
-reference grouped-query SDPA (fp32 softmax), the q-chunked exact path
-for long sequences, the full-sequence ``attention`` of training, and the
-KV cache (full, or a ring buffer of ``window`` slots), in fp32 or bf16,
-or int8 with a per-(slot, head) fp32 scale (``quantize=True``). All of
+The port of ``repro.models.attention``'s parameter init, RoPE and
+M-RoPE, the reference grouped-query SDPA (fp32 softmax), the q-chunked
+exact path for long sequences, the full-sequence ``attention`` of
+training, ``cross_attention`` over the encoder memory's K/V
+(``memory_kv``, no RoPE; plain products, never the flash kernel, as in
+JAX), and the KV cache (full, or a ring buffer of ``window`` slots), in
+fp32 or bf16, or int8 with a per-(slot, head) fp32 scale
+(``quantize=True``). All of
 it is plain torch, safe under autograd. ``use_flash=True`` routes
 prefill through the flash-attention kernel (``kernels.flash_attn``: K6
 on the card, its plain version on the CPU), which is forward-only: a
 backward through it raises, as the JAX package's has no gradient.
-M-RoPE and cross attention come with later slices.
 
 The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
 with ``jax.vmap``. Here the slot axis is a batch dimension written out:
@@ -52,7 +54,8 @@ def _rotate(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     if cfg.rope_variant == "rope":
         return layers.apply_rope(x, positions, theta=cfg.rope_theta)
     if cfg.rope_variant == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (vlm slice)")
+        return layers.apply_mrope(x, positions, theta=cfg.rope_theta,
+                                  sections=cfg.mrope_sections)
     return x
 
 
@@ -150,6 +153,27 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return layers.dense(p["o"], out.reshape(b, s, cfg.q_dim))
 
 
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    memory_kv: tuple) -> torch.Tensor:
+    """Enc-dec cross attention of x (B, S, d) over every position of the
+    encoder memory; ``memory_kv`` = (k, v), precomputed by ``memory_kv``."""
+    b, s, _ = x.shape
+    q = layers.dense(p["q"], x).view(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = memory_kv
+    mask = torch.ones((1, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = sdpa_reference(q, k, v, mask, softcap=cfg.logit_softcap)
+    return layers.dense(p["o"], out.reshape(b, s, cfg.q_dim))
+
+
+def memory_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor) -> tuple:
+    """The cross-attention K/V of the encoder output (B, S, d), no RoPE,
+    in the dtype the product gives (the params' and memory's)."""
+    b, s, _ = memory.shape
+    k = layers.dense(p["k"], memory).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = layers.dense(p["v"], memory).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                window: int = 0, dtype=torch.bfloat16, device=None,
                lead: tuple = (), quantize: bool = False) -> dict:
@@ -202,10 +226,13 @@ def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: dict) -> tuple:
     """One-token decode. x: (B, 1, d). Writes the cache in place and
-    returns (out, cache)."""
+    returns (out, cache). M-RoPE rotates at text positions (the three
+    axes at the cursor), as JAX's decode does."""
     b = x.shape[0]
     pos = cache["cursor"]                                     # (B,)
     positions = pos[:, None]
+    if cfg.rope_variant == "mrope":
+        positions = layers.text_mrope_positions(positions)
     q = layers.dense(p["q"], x).view(b, 1, cfg.n_heads, cfg.head_dim)
     k = layers.dense(p["k"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
     v = layers.dense(p["v"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)

@@ -1,7 +1,7 @@
 """Shared layer primitives (plain functions over parameter dicts).
 
 The port of ``repro.models.layers``' dense / RMSNorm / LayerNorm / RoPE /
-SiLU- and GELU-MLP pieces (M-RoPE comes with the vlm slice). Parameters
+M-RoPE / SiLU- and GELU-MLP pieces. Parameters
 are nested dicts of tensors with the JAX package's keys and shapes (a
 dense weight is (d_in, d_out), applied as ``x @ w``), so a JAX parameter
 tree converts leaf for leaf (``interop``). Random init draws from an
@@ -114,6 +114,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _mrope_section_ids(sections: tuple, half: int, device=None
+                       ) -> torch.Tensor:
+    """(D/2,) axis of each frequency slot: ``jnp.repeat(arange(3),
+    sections, total_repeat_length=half)`` (a longer repeat is cut, a
+    shorter one extended with its last value), cached per device."""
+    ids = [axis for axis, n in enumerate(sections) for _ in range(n)]
+    ids = (ids + ids[-1:] * half)[:half]
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE [arXiv:2409.12191]. x: (..., S, H, D);
+    positions3: (..., 3, S), the temporal / height / width position ids.
+    The D/2 frequency slots are split into ``sections``, each slot taking
+    its angle from its section's axis; cos and sin in fp32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ids = _mrope_section_ids(tuple(sections), d // 2, x.device)
+    pos = positions3.movedim(-2, -1).float()                # (..., S, 3)
+    ang = pos[..., ids] * freqs                             # (..., S, D/2)
+    ang = ang[..., None, :]                                 # (..., S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """A text stream's M-RoPE ids: the three axes share the position,
+    (..., S) -> (..., 3, S)."""
+    return torch.stack([positions, positions, positions], dim=-2)
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, glu: bool,

@@ -1,12 +1,14 @@
 """Model assembly (unrolled ``layers`` list) and the blocks shared with
 ``transformer_scan``.
 
-The port of ``repro.models.transformer`` for every decoder block kind of
-the JAX package: block init, norm, dense or MoE FFN, token embedding,
-(tied or untied) LM head, the full-sequence forward ``apply`` over the
-unrolled tree (``{"embed", "final_norm", "lm_head"?, "layers": [block,
-...]}`` — the JAX package's default training tree, whose flat layout the
-trainer quantizes), ``sharded_cross_entropy``, ``loss_fn`` (cross
+The port of ``repro.models.transformer`` for every block kind of the
+JAX package: block init, norm, dense or MoE FFN, the token embedding or
+the frontend stubs' embeddings (``embed_inputs``), text or 3-axis
+M-RoPE positions (``_positions``), (tied or untied) LM head, the
+full-sequence forward ``apply`` over the unrolled tree (``{"embed",
+"final_norm", "lm_head"?, "layers": [block, ...]}`` — the JAX package's
+default training tree, whose flat layout the trainer quantizes),
+``sharded_cross_entropy``, ``loss_fn`` (cross
 entropy plus the MoE router's aux loss) and ``count_params``.
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``);
 ``use_flash=True`` runs every ``attn`` / ``local_attn`` block on the
@@ -26,8 +28,15 @@ without it the port's ``apply`` returns the logits alone. The cached
 decode over the unrolled tree, ``init_decode_state`` / ``decode_step``
 (``{"layers": [...]}``, with the int8 KV cache under ``quantize_kv``),
 shares its per-block state and step (``_block_state``,
-``_block_decode``) with ``transformer_scan``. Enc-dec stacks come with
-a later slice.
+``_block_decode``) with ``transformer_scan``.
+
+The encoder-decoder stack (``cfg.is_encdec``): a bidirectional encoder
+(``encode``, attention blocks under ``params["encoder"]``) over the
+frontend stub's ``src_embeddings``, and decoder blocks with a cross
+attention step (``ln_cross``, ``cross``) over each layer's K/V of the
+encoder memory (``attention.memory_kv``), computed once by ``apply``
+and held in the decode state (``init_decode_state(memory=)``). The
+encoder's attention is never the flash kernel, as in JAX.
 """
 from __future__ import annotations
 
@@ -44,21 +53,16 @@ ATTN_KINDS = ("attn", "local_attn")
 BLOCK_KINDS = ATTN_KINDS + ("mla", "rwkv", "rglru")
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (later slices: M-RoPE "
-        "and enc-dec stacks)")
-
-
 def _moe_skipped(cfg: ModelConfig, layer_idx: int) -> bool:
     # DeepSeek-V2 keeps its first layer dense
     return cfg.arch_id.startswith("deepseek") and layer_idx == 0
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                layer_idx: int, *, lead: tuple = (), dtype=torch.float32
-                ) -> dict:
-    """One block's params; ``lead`` stacks n_rep copies."""
+                layer_idx: int, *, cross: bool = False, lead: tuple = (),
+                dtype=torch.float32) -> dict:
+    """One block's params; ``lead`` stacks n_rep copies, ``cross`` adds
+    the enc-dec decoder's cross attention (``ln_cross``, ``cross``)."""
     if kind not in BLOCK_KINDS:
         raise ValueError(f"unknown block kind {kind}")
     dev = gen.device
@@ -70,8 +74,6 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 "mixer": rwkv.time_mix_init(gen, cfg, **kw),
                 "ln2": ln(),
                 "ffn": rwkv.channel_mix_init(gen, cfg, **kw)}
-    if cfg.is_encdec:
-        raise not_ported("cross attention")
     mixer_init = {"mla": mla.mla_init,
                   "rglru": rglru.rglru_block_init}.get(kind,
                                                        attention.attn_init)
@@ -80,6 +82,10 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                                 dtype=dtype, device=dev),
         "mixer": mixer_init(gen, cfg, **kw),
     }
+    if cross:
+        p["ln_cross"] = layers.norm_init(cfg.d_model, cfg.norm, lead=lead,
+                                         dtype=dtype, device=dev)
+        p["cross"] = attention.attn_init(gen, cfg, **kw)
     if not cfg.parallel_block:
         p["ln2"] = layers.norm_init(cfg.d_model, cfg.norm, lead=lead,
                                     dtype=dtype, device=dev)
@@ -107,9 +113,14 @@ def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
                  ) -> torch.Tensor:
-    if "tokens" not in batch:
-        raise not_ported("embedding frontends")
-    x = params["embed"][batch["tokens"].long()]
+    """The token embedding when the model has a token frontend or the
+    batch holds ``tokens`` (an enc-dec decoder generating text), else
+    the stub frontend's ``embeddings`` (B, S, d) as given; times
+    sqrt(d_model) under ``embed_scale``, stub embeddings too."""
+    if cfg.frontend == "token" or "tokens" in batch:
+        x = params["embed"][batch["tokens"].long()]
+    else:
+        x = batch["embeddings"]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=x.device).to(x.dtype)
@@ -135,23 +146,38 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
                                               dtype=dtype)
-    params["layers"] = [_block_init(gen, cfg, kind, i, dtype=dtype)
+    params["layers"] = [_block_init(gen, cfg, kind, i, cross=cfg.is_encdec,
+                                    dtype=dtype)
                         for i, kind in enumerate(cfg.block_pattern)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [_block_init(gen, cfg, "attn", i, dtype=dtype)
+                       for i in range(cfg.n_encoder_layers)],
+            "final_norm": layers.norm_init(cfg.d_model, cfg.norm,
+                                           dtype=dtype, device=gen.device),
+        }
     return params
 
 
 def _positions(cfg: ModelConfig, b: int, s: int, batch: dict,
                device=None) -> torch.Tensor:
-    if "positions3" in batch or cfg.rope_variant == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (vlm slice)")
-    return torch.arange(s, device=device)[None].expand(b, s)
+    """The batch's ``positions3`` (B, 3, S) when it has them; else 0..S-1
+    per row, as (B, S), or as text M-RoPE ids (B, 3, S) for an mrope
+    model."""
+    if "positions3" in batch:
+        return batch["positions3"]
+    pos = torch.arange(s, device=device)[None].expand(b, s)
+    if cfg.rope_variant == "mrope":
+        return layers.text_mrope_positions(pos)
+    return pos
 
 
 def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
                 x: torch.Tensor, positions: torch.Tensor, *,
-                use_flash: bool = False) -> tuple:
+                memory_kv: tuple = None, use_flash: bool = False) -> tuple:
     """One pre-norm block over the full sequence -> (x, aux), aux the
-    MoE FFN's router loss (0.0 for a dense FFN)."""
+    MoE FFN's router loss (0.0 for a dense FFN); with ``memory_kv`` an
+    enc-dec decoder block, whose cross attention follows the mixer."""
     if kind not in BLOCK_KINDS:
         raise ValueError(kind)
     if kind == "rwkv":
@@ -173,9 +199,42 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
         ffn_out, aux = _ffn_apply(p["ffn"], cfg, h, layer_idx)
         return x + mixer_out + ffn_out, aux
     x = x + mixer_out
+    if memory_kv is not None:
+        x = x + _cross(p, cfg, x, memory_kv)
     h2 = _norm(cfg, p["ln2"], x)
     ffn_out, aux = _ffn_apply(p["ffn"], cfg, h2, layer_idx)
     return x + ffn_out, aux
+
+
+def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor, memory_kv: tuple
+           ) -> torch.Tensor:
+    """A decoder block's cross-attention step (pre-norm ``ln_cross``)."""
+    return attention.cross_attention(p["cross"], cfg,
+                                     _norm(cfg, p["ln_cross"], x), memory_kv)
+
+
+def encode(params: dict, cfg: ModelConfig, src_embeddings: torch.Tensor
+           ) -> torch.Tensor:
+    """The bidirectional encoder over the frontend stub's embeddings
+    (B, S, d) -> memory (B, S, d). Its attention is non-causal and plain
+    (q-chunked at S >= 4096, a multiple of 1024; else the reference),
+    never the flash kernel, as in JAX."""
+    enc = params["encoder"]
+    b, s, _ = src_embeddings.shape
+    pos = torch.arange(s, device=src_embeddings.device)[None].expand(b, s)
+    x = src_embeddings
+    for i, p in enumerate(enc["layers"]):
+        x = _encoder_block(p, cfg, i, x, pos)
+    return _norm(cfg, enc["final_norm"], x)
+
+
+def _encoder_block(p: dict, cfg: ModelConfig, layer_idx: int,
+                   x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    h = _norm(cfg, p["ln1"], x)
+    x = x + attention.attention(p["mixer"], cfg, h, pos, causal=False)
+    ffn_out, _ = _ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x),
+                            layer_idx)
+    return x + ffn_out
 
 
 def _block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
@@ -201,19 +260,24 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
           with_aux: bool = False):
     """Full-sequence forward over the unrolled tree -> logits (B, S, V),
     or (logits, aux) with ``with_aux`` (JAX's return: aux is the summed
-    MoE router loss, 0.0 without MoE layers)."""
-    if cfg.is_encdec:
-        raise not_ported("the encoder-decoder stack")
+    MoE router loss, 0.0 without MoE layers). An enc-dec model encodes
+    ``batch["src_embeddings"]`` first and gives each decoder layer its
+    K/V of the memory."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, batch, x.device)
+    memory_kvs = [None] * cfg.n_layers
+    if cfg.is_encdec:
+        memory = encode(params, cfg, batch["src_embeddings"])
+        memory_kvs = [attention.memory_kv(p["cross"], cfg, memory)
+                      for p in params["layers"]]
     aux_total = 0.0
     for i, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
-        def block(p_, x_, i=i, kind=kind):
+        def block(p_, x_, mkv_, i=i, kind=kind):
             return block_apply(p_, cfg, kind, i, x_, positions,
-                               use_flash=use_flash)
+                               memory_kv=mkv_, use_flash=use_flash)
 
-        x, aux = run_block(block, remat, p, x)
+        x, aux = run_block(block, remat, p, x, memory_kvs[i])
         aux_total = aux_total + aux
     x = _norm(cfg, params["final_norm"], x)
     logits = _lm_head(params, cfg, x)
@@ -248,10 +312,11 @@ def _block_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 
 def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
-                  x: torch.Tensor, st: dict, moe_rows: bool = False
-                  ) -> torch.Tensor:
+                  x: torch.Tensor, st: dict, moe_rows: bool = False,
+                  memory_kv: tuple = None) -> torch.Tensor:
     """One block's decode of x (B, 1, d); the block's new state is
-    written into ``st``'s own tensors."""
+    written into ``st``'s own tensors. ``memory_kv``: an enc-dec decoder
+    block's K/V of the encoder memory."""
     if kind == "rwkv":
         h = _norm(cfg, p["ln1"], x)
         mix, tm = rwkv.time_mix_decode(p["mixer"], cfg, h, st)
@@ -278,40 +343,56 @@ def _block_decode(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
                                 moe_rows=moe_rows)
         return x + mix + ffn_out
     x = x + mix
+    if memory_kv is not None:
+        x = x + _cross(p, cfg, x, memory_kv)
     h2 = _norm(cfg, p["ln2"], x)
     ffn_out, _ = _ffn_apply(p["ffn"], cfg, h2, layer_idx, moe_rows=moe_rows)
     return x + ffn_out
 
 
+def _need_memory(cfg: ModelConfig, memory) -> None:
+    if cfg.is_encdec and memory is None:
+        raise ValueError("enc-dec decode needs encoder memory")
+
+
 def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                       seq_len: int, *, window: int = 0,
                       dtype=torch.bfloat16, device=None,
+                      memory: torch.Tensor = None,
                       quantize_kv: bool = False) -> dict:
     """``{"layers": [state, ...]}``, one block state per layer of the
     unrolled tree (JAX's ``transformer.init_decode_state``): ``window``
     > 0 makes the attn blocks' caches ring buffers, local_attn always
     uses ``cfg.local_window``; ``quantize_kv`` stores K/V in int8 with
-    fp32 scales."""
-    if cfg.is_encdec:
-        raise not_ported("the encoder-decoder decode")
+    fp32 scales. An enc-dec model needs the encoder's ``memory`` (B, S,
+    d): each decoder layer's K/V of it go into ``"memory_kv"``, in the
+    dtype they are computed in (never quantized)."""
+    _need_memory(cfg, memory)
     if device is None:
         device = params["embed"].device
-    return {"layers": [
+    out = {"layers": [
         _block_state(cfg, kind, batch, seq_len, window, dtype, device,
                      param_dtype=params["embed"].dtype,
                      quantize_kv=quantize_kv)
         for kind in cfg.block_pattern]}
+    if cfg.is_encdec:
+        out["memory_kv"] = [attention.memory_kv(p["cross"], cfg, memory)
+                            for p in params["layers"]]
+    return out
 
 
 def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
                 state: dict, *, moe_rows: bool = False) -> tuple:
-    """One token through the unrolled stack. inputs: {"tokens": (B, 1)}.
-    Returns (logits (B, 1, V), state) — ``state`` updated in place.
-    ``moe_rows``: each row's token is its own MoE group, else the B
-    tokens are one group (JAX's batch-B step)."""
+    """One token through the unrolled stack. inputs: {"tokens": (B, 1)}
+    or {"embeddings": (B, 1, d)}. Returns (logits (B, 1, V), state) —
+    ``state`` updated in place. ``moe_rows``: each row's token is its
+    own MoE group, else the B tokens are one group (JAX's batch-B
+    step)."""
     x = embed_inputs(params, cfg, inputs)
+    mkv = state.get("memory_kv", [None] * cfg.n_layers)
     for i, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
-        x = _block_decode(p, cfg, kind, i, x, state["layers"][i], moe_rows)
+        x = _block_decode(p, cfg, kind, i, x, state["layers"][i], moe_rows,
+                          mkv[i])
     x = _norm(cfg, params["final_norm"], x)
     return _lm_head(params, cfg, x), state
 

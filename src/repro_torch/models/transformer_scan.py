@@ -7,7 +7,9 @@ the JAX package's parameter tree exactly — ``embed``, ``final_norm``,
 ``lm_head`` (untied only), ``prefix_layers`` (deepseek's dense layer
 0), ``scan_blocks`` (one block per position of the repeating unit, every
 leaf with a leading ``n_rep`` dim) and ``suffix_layers`` (e.g.
-recurrentgemma's trailing two) — so the flat wire layout of a
+recurrentgemma's trailing two), and an enc-dec model's ``encoder``
+(``scan_blocks``: ONE attention block stacked over the encoder layers,
+and ``final_norm``) — so the flat wire layout of a
 checkpoint, and a JAX parameter tree carried across
 (``interop.params_from_jax``), line up leaf for leaf. The ``lax.scan``
 over layers becomes a loop over the layer index of the stacked leaves;
@@ -25,7 +27,11 @@ an rglru block's ``conv`` window and fp32 ``h``. ``decode_step`` updates
 it in place — a block writes its new state into the views ``_at`` hands
 it — and returns it. Its MoE layers group the B tokens of a step
 together, as JAX's batch-B step does, or each row alone with
-``moe_rows=True``, as the JAX engine's vmapped batch-1 step does.
+``moe_rows=True``, as the JAX engine's vmapped batch-1 step does. An
+enc-dec model's decode state also holds each decoder layer's K/V of the
+encoder memory (``memory_kv_prefix`` / ``memory_kv_scan``, stacked over
+n_rep / ``memory_kv_suffix``), computed layer by layer as the unrolled
+form computes them, so the two forms decode bit for bit alike.
 """
 from __future__ import annotations
 
@@ -35,13 +41,14 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import layers
+from repro_torch.models import attention, layers
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (_block_decode, _block_init,
-                                            _block_state, _lm_head,
-                                            _moe_skipped, _norm, _positions,
+                                            _block_state, _encoder_block,
+                                            _lm_head, _moe_skipped,
+                                            _need_memory, _norm, _positions,
                                             block_apply, embed_inputs,
-                                            not_ported, run_block,
+                                            run_block,
                                             sharded_cross_entropy)
 
 
@@ -82,17 +89,59 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
                                               dtype=dtype)
-    params["prefix_layers"] = [_block_init(gen, cfg, kind, i, dtype=dtype)
+    kw = dict(cross=cfg.is_encdec, dtype=dtype)
+    params["prefix_layers"] = [_block_init(gen, cfg, kind, i, **kw)
                                for i, kind in enumerate(prefix)]
     params["scan_blocks"] = [
-        _block_init(gen, cfg, kind, len(prefix) + j, lead=(n_rep,),
-                    dtype=dtype)
+        _block_init(gen, cfg, kind, len(prefix) + j, lead=(n_rep,), **kw)
         for j, kind in enumerate(unit)] if n_rep else []
     off = len(prefix) + n_rep * len(unit)
-    params["suffix_layers"] = [_block_init(gen, cfg, kind, off + i,
-                                           dtype=dtype)
+    params["suffix_layers"] = [_block_init(gen, cfg, kind, off + i, **kw)
                                for i, kind in enumerate(suffix)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "scan_blocks": _block_init(gen, cfg, "attn", 1,
+                                       lead=(cfg.n_encoder_layers,),
+                                       dtype=dtype),
+            "final_norm": layers.norm_init(cfg.d_model, cfg.norm,
+                                           dtype=dtype, device=dev),
+        }
     return params
+
+
+def encode(params: dict, cfg: ModelConfig, src_embeddings: torch.Tensor,
+           *, remat: bool = False) -> torch.Tensor:
+    """The bidirectional encoder over the stacked encoder block (B, S, d)
+    -> memory (B, S, d); ``remat`` checkpoints each layer. Non-causal,
+    never the flash kernel; every layer's FFN is called as layer 1, as
+    JAX's scan calls it."""
+    enc = params["encoder"]
+    b, s, _ = src_embeddings.shape
+    pos = torch.arange(s, device=src_embeddings.device)[None].expand(b, s)
+
+    def body(p_, x_):
+        return _encoder_block(p_, cfg, 1, x_, pos)
+
+    x = src_embeddings
+    for r in range(cfg.n_encoder_layers):
+        x = run_block(body, remat, _at(enc["scan_blocks"], r), x)
+    return _norm(cfg, enc["final_norm"], x)
+
+
+def _memory_kvs(params: dict, cfg: ModelConfig, memory: torch.Tensor
+                ) -> tuple:
+    """Each decoder layer's K/V of the encoder memory, computed layer by
+    layer (JAX's ``vmap`` over the stacked layers, written out): lists
+    of (k, v) for the prefix and suffix layers, and per unit position a
+    (k, v) stacked over n_rep."""
+    n_rep = pattern_segments(cfg)[2]
+    mk = lambda p: attention.memory_kv(p["cross"], cfg, memory)  # noqa: E731
+    scan = []
+    for sp in params["scan_blocks"]:
+        per = [mk(_at(sp, r)) for r in range(n_rep)]
+        scan.append(tuple(torch.stack(t) for t in zip(*per)))
+    return ([mk(p) for p in params["prefix_layers"]], scan,
+            [mk(p) for p in params["suffix_layers"]])
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -123,40 +172,48 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     prefill's path: a 32k-token prefill otherwise computes a
     (B, 32768, V) logits tensor to keep one row). ``with_aux`` returns
     (logits, aux) as JAX's function does, aux the summed MoE router
-    loss (0.0 without MoE layers)."""
+    loss (0.0 without MoE layers). An enc-dec model encodes
+    ``batch["src_embeddings"]`` first (``remat`` applies to the encoder
+    too) and gives each decoder layer its K/V of the memory."""
     if logits_positions not in ("all", "last"):
         raise ValueError(f"logits_positions must be 'all' or 'last', got "
                          f"'{logits_positions}'")
-    if cfg.is_encdec:
-        raise not_ported("the encoder-decoder stack")
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     context_fn = _remat_context(remat_policy) if remat else None
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, batch, x.device)
+    mkv_prefix = [None] * len(prefix)
+    mkv_scan = [None] * len(unit)
+    mkv_suffix = [None] * len(suffix)
+    if cfg.is_encdec:
+        memory = encode(params, cfg, batch["src_embeddings"], remat=remat)
+        mkv_prefix, mkv_scan, mkv_suffix = _memory_kvs(params, cfg, memory)
     aux_total = 0.0
     for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
         x, aux = block_apply(p, cfg, kind, i, x, positions,
-                             use_flash=use_flash)
+                             memory_kv=mkv_prefix[i], use_flash=use_flash)
         aux_total = aux_total + aux
 
-    def body(x_, *ps):
+    def body(x_, ps, mkvs):
         aux_ = 0.0
-        for j, (p_j, kind) in enumerate(zip(ps, unit)):
+        for j, (p_j, mkv_j, kind) in enumerate(zip(ps, mkvs, unit)):
             x_, a = block_apply(p_j, cfg, kind, len(prefix) + j, x_,
-                                positions, use_flash=use_flash)
+                                positions, memory_kv=mkv_j,
+                                use_flash=use_flash)
             aux_ = aux_ + a
         return x_, aux_
 
     for r in range(n_rep):
         x, aux = run_block(body, remat, x,
-                           *[_at(sp, r) for sp in params["scan_blocks"]],
+                           [_at(sp, r) for sp in params["scan_blocks"]],
+                           [_kv_at(m, r) for m in mkv_scan],
                            context_fn=context_fn)
         aux_total = aux_total + aux
     off = len(prefix) + n_rep * len(unit)
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
         x, aux = block_apply(p, cfg, kind, off + i, x, positions,
-                             use_flash=use_flash)
+                             memory_kv=mkv_suffix[i], use_flash=use_flash)
         aux_total = aux_total + aux
     if logits_positions == "last":
         x = x[:, -1:]
@@ -177,20 +234,28 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                       seq_len: int, *, window: int = 0,
                       dtype=torch.bfloat16, device=None,
+                      memory: torch.Tensor = None,
                       quantize_kv: bool = False) -> dict:
     """The stacked decode state; ``quantize_kv`` stores the attention
-    blocks' K/V in int8 with fp32 scales (``attention.init_cache``)."""
+    blocks' K/V in int8 with fp32 scales (``attention.init_cache``). An
+    enc-dec model needs the encoder's ``memory`` (B, S, d), whose
+    per-layer K/V go into ``memory_kv_{prefix,scan,suffix}``."""
+    _need_memory(cfg, memory)
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     if device is None:
         device = params["embed"].device
     mk = lambda k, lead=(): _block_state(  # noqa: E731
         cfg, k, batch, seq_len, window, dtype, device, lead,
         params["embed"].dtype, quantize_kv)
-    return {
+    state = {
         "prefix": [mk(k) for k in prefix],
         "scan": [mk(k, (n_rep,)) for k in unit] if n_rep else [],
         "suffix": [mk(k) for k in suffix],
     }
+    if cfg.is_encdec:
+        (state["memory_kv_prefix"], state["memory_kv_scan"],
+         state["memory_kv_suffix"]) = _memory_kvs(params, cfg, memory)
+    return state
 
 
 def _at(tree, i: int):
@@ -201,25 +266,35 @@ def _at(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
+def _kv_at(mkv, i: int):
+    """Layer i's (k, v) of a stacked memory K/V, or None without one."""
+    return None if mkv is None else (mkv[0][i], mkv[1][i])
+
+
 def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
                 state: dict, *, moe_rows: bool = False) -> tuple:
-    """One token for the whole stack. inputs: {"tokens": (B, 1)}.
-    Returns (logits (B, 1, V), state) — ``state`` updated in place.
-    ``moe_rows``: each row's token is its own MoE group (the serve
-    engine's slots), else the B tokens are one group (JAX's batch-B
-    step)."""
+    """One token for the whole stack. inputs: {"tokens": (B, 1)} or
+    {"embeddings": (B, 1, d)}. Returns (logits (B, 1, V), state) —
+    ``state`` updated in place. ``moe_rows``: each row's token is its
+    own MoE group (the serve engine's slots), else the B tokens are one
+    group (JAX's batch-B step)."""
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     x = embed_inputs(params, cfg, inputs)
+    mkv_prefix = state.get("memory_kv_prefix", [None] * len(prefix))
+    mkv_scan = state.get("memory_kv_scan", [None] * len(unit))
+    mkv_suffix = state.get("memory_kv_suffix", [None] * len(suffix))
     for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
-        x = _block_decode(p, cfg, kind, i, x, state["prefix"][i], moe_rows)
+        x = _block_decode(p, cfg, kind, i, x, state["prefix"][i], moe_rows,
+                          mkv_prefix[i])
     for r in range(n_rep):
         for j, kind in enumerate(unit):
             x = _block_decode(_at(params["scan_blocks"][j], r), cfg, kind,
                               len(prefix) + j, x,
-                              _at(state["scan"][j], r), moe_rows)
+                              _at(state["scan"][j], r), moe_rows,
+                              _kv_at(mkv_scan[j], r))
     off = len(prefix) + n_rep * len(unit)
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
         x = _block_decode(p, cfg, kind, off + i, x, state["suffix"][i],
-                          moe_rows)
+                          moe_rows, mkv_suffix[i])
     x = _norm(cfg, params["final_norm"], x)
     return _lm_head(params, cfg, x), state

@@ -141,12 +141,15 @@ def compress_grads(q_codec, grads, key, ec_err: Optional[torch.Tensor]
 
 def value_and_grad(loss_fn, params, batch) -> tuple:
     """(loss, gradient tree) of ``loss_fn(params, batch)``, with
-    ``torch.autograd.grad`` over the parameter leaves."""
+    ``torch.autograd.grad`` over the parameter leaves. A leaf the loss
+    does not use (the token embedding of a stub frontend with an untied
+    head) gets zeros, as ``jax.grad`` gives it."""
     leaves, treedef = pytree.tree_flatten(params)
     with torch.enable_grad():
         live = [leaf.detach().requires_grad_(True) for leaf in leaves]
         loss = loss_fn(pytree.tree_unflatten(treedef, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), pytree.tree_unflatten(treedef, list(grads))
 
 

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (the codec's K1-K5, also as
 the per-leaf launches, flash attention K6, the WKV6 scan K7) against
 their plain versions, and the serving, training, per-leaf exchange,
-int8-cache decode and prefill paths on ``cuda``. Every test needs an
+int8-cache decode, prefill and embedding-frontend (M-RoPE, enc-dec)
+paths on ``cuda``. Every test needs an
 NVIDIA card (``cuda`` marker) and skips without one.
 
 This file imports neither jax nor ``repro``, so it runs on a CUDA host
@@ -865,3 +866,110 @@ def test_int8_cache_decode_on_the_card_matches_the_cpu(card):
             d = (a[name].cpu().int() - b[name].int()).abs()
             assert int(d.max()) <= 1 and float((d > 0).float().mean()) \
                 <= 1e-3
+
+
+# the embedding frontends: M-RoPE on stub embeddings (qwen2-vl-72b) and
+# the encoder-decoder (seamless-m4t-large-v2), reduced
+
+FRONTEND_ARCHS = ("qwen2-vl-72b", "seamless-m4t-large-v2")
+
+
+def _frontend_batch(mc, b, s, seed):
+    """Stub embeddings, a text / patch-grid / text position grid for an
+    mrope model, source frames for an enc-dec one."""
+    rng = np.random.default_rng(seed)
+    batch = {"embeddings": torch.from_numpy(
+        (rng.normal(size=(b, s, mc.d_model)) * 0.5).astype(np.float32))}
+    if mc.rope_variant == "mrope":
+        text, rows, cols = s // 8, 4, s // 8
+        ids = [np.arange(text)] * 3
+        grid = [np.full(rows * cols, text),
+                text + np.repeat(np.arange(rows), cols),
+                text + np.tile(np.arange(cols), rows)]
+        tail = text + max(rows, cols) + np.arange(s - text - rows * cols)
+        p3 = np.stack([np.concatenate([a, g, tail])
+                       for a, g in zip(ids, grid)]).astype(np.int32)
+        batch["positions3"] = torch.from_numpy(p3)[None].expand(b, 3, s)
+    if mc.is_encdec:
+        batch["src_embeddings"] = torch.from_numpy(
+            (rng.normal(size=(b, s // 2, mc.d_model)) * 0.5).astype(
+                np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_prefill_and_train_step_on_the_card_match_the_cpu(card,
+                                                                   arch):
+    """The reduced model on stub embeddings: the flash prefill launches
+    K6 once a decoder layer (never in the encoder or the cross
+    attention) and equals the CPU's plain version within 1e-5; a train
+    step's loss and gradients equal the CPU's within 1e-5."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.train import steps
+    mc = configs.get_config(arch).reduced()
+    params = tts.init(mc, tts.generator(5))
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    batch = _frontend_batch(mc, 2, 256, seed=6)
+    gbatch = {k: v.to(card) for k, v in batch.items()}
+    step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    want = step(params, batch)
+    fk.reset_launches()
+    got = step(gparams, gbatch)
+    assert fk.flash_attention_bhsd.launches == mc.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    if mc.is_encdec:
+        tts.encode(gparams, mc, gbatch["src_embeddings"])
+        assert fk.flash_attention_bhsd.launches == mc.n_layers
+    labels = torch.from_numpy(np.random.default_rng(7).integers(
+        0, mc.vocab, size=(2, 256)).astype(np.int32))
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+    want_l, want_g = steps.value_and_grad(loss, params,
+                                          {**batch, "labels": labels})
+    got_l, got_g = steps.value_and_grad(
+        loss, gparams, {**gbatch, "labels": labels.to(card)})
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
+    for g, w in zip(pytree.tree_leaves(got_g), pytree.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cache", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_decode_on_the_card_matches_the_cpu(card, arch, cache):
+    """8 decode steps of the reduced model (stub embeddings at text
+    positions; tokens over the encoder memory), card against CPU: the
+    fp32 cache within 1e-5, the bf16 and int8 caches within 2e-3 of the
+    logits' scale (a K/V value at a rounding half may land a step apart
+    where the float32 sums differ by an ulp)."""
+    from repro_torch import configs
+    from repro_torch.train import steps
+    mc = configs.get_config(arch).reduced()
+    params = tts.init(mc, tts.generator(9))
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    batch = _frontend_batch(mc, 2, 16, seed=10)
+    tok = torch.from_numpy(np.random.default_rng(11).integers(
+        0, mc.vocab, size=(2, 8)).astype(np.int32))
+    step = steps.make_serve_step(mc, scan_layers=True)
+
+    def run(p, dev):
+        kw = {}
+        if mc.is_encdec:
+            kw["memory"] = tts.encode(p, mc, batch["src_embeddings"].to(dev))
+        st = tts.init_decode_state(
+            p, mc, 2, 10, quantize_kv=cache == "int8",
+            dtype=torch.bfloat16 if cache == "bf16" else torch.float32,
+            **kw)
+        outs = []
+        for i in range(8):
+            inp = ({"tokens": tok[:, i:i + 1].to(dev)} if mc.is_encdec else
+                   {"embeddings": batch["embeddings"][:, i:i + 1].to(dev)})
+            logits, st = step(p, st, inp)
+            outs.append(logits.cpu())
+        return outs
+
+    for g, c in zip(run(gparams, card), run(params, "cpu")):
+        if cache == "fp32":
+            torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)
+        else:
+            assert float((g - c).abs().max()) <= 2e-3 * float(c.abs().max())

@@ -305,8 +305,10 @@ def test_bulk_prefill_unrolled_with_int8_cache(models):
 
 
 def test_unported_encdec_decode_raises(models):
-    """The encoder-decoder decode comes with a later slice."""
+    """The encoder-decoder decode is ported; as JAX's, its state needs the
+    encoder memory, and a state made without it raises ValueError
+    (tests/test_torch_encdec.py runs it with memory)."""
     _, tmc, _, tp = models["qwen1.5-0.5b"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tt.init_decode_state(tp, dataclasses.replace(tmc, n_encoder_layers=2),
-                             1, 4)
+    mc = dataclasses.replace(tmc, n_encoder_layers=2)
+    with pytest.raises(ValueError, match="needs encoder memory"):
+        tt.init_decode_state(tp, mc, 1, 4)

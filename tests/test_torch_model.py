@@ -52,17 +52,17 @@ def test_config_copy_matches_jax():
 
 
 def test_other_architectures_are_not_ported_yet():
-    with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("qwen2-vl-72b")
+    """Every architecture of the JAX package is ported now: all 11 of its
+    arch ids resolve to the port's copy of the config, and an unknown id
+    still raises a KeyError that lists them."""
+    import dataclasses
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
-    mc = jconfigs.get_config("seamless-m4t-large-v2").reduced()
-    from repro_torch.models.common import ModelConfig
-    import dataclasses
-    tmc = ModelConfig(**{f.name: getattr(mc, f.name)
-                         for f in dataclasses.fields(mc)})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tts.init(tmc, tts.generator(0))
+    for arch in jconfigs._MODULES:
+        assert dataclasses.asdict(configs.get_config(arch)) == \
+            dataclasses.asdict(jconfigs.get_config(arch)), arch
+    assert len(jconfigs._MODULES) == 11
+    assert not hasattr(configs, "NOT_PORTED")
 
 
 def test_port_init_has_the_jax_tree(model):
@@ -169,17 +169,15 @@ def test_rows_keep_their_own_cursor(model):
 
 
 def test_unported_norm_and_activation_raise(model):
-    """M-RoPE comes with the vlm slice, and a norm kind outside
-    rmsnorm / layernorm (LayerNorm came with the rwkv slice) has no JAX
-    counterpart; the port refuses both instead of computing something
-    else."""
+    """A norm kind outside rmsnorm / layernorm (LayerNorm came with the
+    rwkv slice) has no JAX counterpart; the port refuses it instead of
+    computing something else. (M-RoPE is ported: tests/test_torch_mrope.py.)"""
     import dataclasses
     _, tmc, _, _ = model
-    for change in ({"norm": "groupnorm"}, {"rope_variant": "mrope"}):
-        mc = dataclasses.replace(tmc, **change)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            p = tts.init(mc, tts.generator(0))
-            st = tts.init_decode_state(p, mc, 1, 4, dtype=torch.float32)
-            tts.decode_step(p, mc, {"tokens": torch.zeros((1, 1),
-                                                          dtype=torch.long)},
-                            st)
+    mc = dataclasses.replace(tmc, norm="groupnorm")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        p = tts.init(mc, tts.generator(0))
+        st = tts.init_decode_state(p, mc, 1, 4, dtype=torch.float32)
+        tts.decode_step(p, mc, {"tokens": torch.zeros((1, 1),
+                                                      dtype=torch.long)},
+                        st)
