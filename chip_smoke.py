@@ -161,7 +161,24 @@ Phases (any failure raises and the script exits non-zero):
      encoder memory through make_serve_step within 1e-3 of one
      full-sequence apply; then both reduced, card against CPU (prefill,
      loss and gradients 1e-5; decode on the fp32 cache 1e-5, the bf16 and
-     int8 caches 2e-3 of the logits' scale).
+     int8 caches 2e-3 of the logits' scale);
+ 14. mesh, the mesh and compiler tooling: make_host_mesh() over the one
+     card on a world-1 NCCL group; then, in a subprocess on the "fake"
+     process-group backend, python -m repro_torch.launch.dryrun at full
+     width on a subset of combos (grok-1-314b train_4k on the 16 x 16
+     mesh, and a train, a prefill and a decode combo on each production
+     mesh), one record a combo (per-device argument and temp bytes, dot
+     FLOPs, collective bytes by kind), each record's argument bytes
+     equal to the sum of the local shard sizes its specs give; then the
+     one-device estimate (--mesh 1x1) of full-width repro-100m and
+     qwen1.5-0.5b training on 4 x 4096 (AdamW fp32 moments, bf16
+     params, remat, scan) held against the same step on the card:
+     argument bytes equal to the storage placed on the card and to the
+     bytes requested of the allocator (its allocated blocks at most 1 MiB
+     a tensor more: 512-byte rounding, large blocks left unsplit when the
+     rest of the segment is 1 MiB or less), temp within 10 %
+     of the step's peak beyond what is live, dot FLOPs equal to the
+     counter's around the card step, and the step's TFLOP/s.
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -3783,6 +3800,205 @@ def frontends_phase(torch) -> dict:
     return out
 
 
+# mesh phase: the dry run's subset at full width (a train, a prefill and
+# a decode combo on each production mesh, grok-1-314b train_4k on 16 x 16),
+# and its one-device estimate held against the card
+MESH_SUBSET = ("grok-1-314b:train_4k", "qwen1.5-0.5b:prefill_32k",
+               "qwen1.5-0.5b:decode_32k", "qwen1.5-0.5b:train_4k:multi-pod",
+               "qwen1.5-0.5b:prefill_32k:multi-pod",
+               "qwen1.5-0.5b:long_500k:multi-pod")
+MESH_ESTIMATE = ("repro-100m", "qwen1.5-0.5b")
+MESH_ESTIMATE_SHAPE = (4, 4096)           # global batch, sequence
+MESH_TEMP_TOL = 0.10
+# the caching allocator rounds a block to 512 B, and leaves a large-pool
+# block unsplit when the rest of its segment would be 1 MiB or less: a
+# tensor may hold up to 1 MiB more than it asked for
+ALLOC_SLACK = 1 << 20
+
+
+class _SpecMesh:
+    """A mesh as the spec rules read it (axis names, device grid)."""
+
+    def __init__(self, shape, names):
+        import numpy as np
+        self.axis_names = names
+        self.devices = np.empty(shape, dtype=object)
+
+
+def dryrun_subprocess(args: list, out: Path, timeout: int) -> list:
+    """python -m repro_torch.launch.dryrun ``args`` -> its records; any
+    failure raises (the CLI exits 1 on a failed combo)."""
+    if out.exists():
+        out.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    for line in res.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            log("[mesh] " + line)
+    if res.returncode != 0:
+        raise AssertionError(f"dry run {args} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    log(f"[mesh] dry run of {len(recs)} combos in "
+        f"{time.perf_counter() - t0:.1f} s (subprocess)")
+    return recs
+
+
+def closed_form_argument_bytes(rec: dict) -> int:
+    """The record's inputs, laid out by the spec rules on its mesh: the
+    sum over leaves of each local shard's bytes (host leaves aside)."""
+    from repro_torch.core import pytree
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import INPUT_SHAPES, InputShape
+    dims = tuple(int(n) for n in rec["mesh"].split("x"))
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+    mesh = _SpecMesh(dims, names)
+    sharding.set_activation_batch_axes(names[:-1])
+    base = INPUT_SHAPES[rec["shape"]]
+    shape = InputShape(base.name, rec["seq_len"], rec["global_batch"],
+                       base.kind)
+    spec = dryrun.input_specs(rec["arch"], rec["shape"], shape=shape)
+    sizes = dict(zip(names, dims))
+
+    def local(leaf, sp) -> int:
+        n = leaf.numel()
+        for e in sp:
+            for name in (e if isinstance(e, tuple) else (e,)):
+                if name is not None:
+                    n //= sizes[name]
+        return n * leaf.element_size()
+
+    total = 0
+    if "state" in spec:
+        for path, leaf in pytree.tree_flatten_with_path(spec["state"])[0]:
+            if path[0] not in ("step", "rng") and path[-1] != "step":
+                total += local(leaf, dryrun._state_spec(path, leaf, mesh))
+    else:
+        for path, leaf in pytree.tree_flatten_with_path(spec["params"])[0]:
+            total += local(leaf, sharding.param_spec(
+                path, tuple(leaf.shape), mesh))
+        for path, leaf in pytree.tree_flatten_with_path(
+                spec.get("decode_state", {}))[0]:
+            if hasattr(leaf, "shape"):
+                total += local(leaf, sharding.cache_spec(
+                    path, tuple(leaf.shape), mesh))
+    for leaf in pytree.tree_leaves(spec["batch"]):
+        total += local(leaf, sharding.batch_spec(tuple(leaf.shape), mesh))
+    sharding.set_activation_batch_axes(("data",))
+    return total
+
+
+def host_mesh_check(torch) -> dict:
+    """make_host_mesh() over the one card, on a world-1 NCCL group."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        hm = mesh_lib.make_host_mesh()
+        got = {"shape": tuple(hm.shape), "names": hm.mesh_dim_names,
+               "device_type": hm.device_type}
+    finally:
+        dist.destroy_process_group()
+    log(f"[mesh] host mesh {got}")
+    if got != {"shape": (1,), "names": ("data",), "device_type": "cuda"}:
+        raise AssertionError(f"host mesh {got}")
+    return got
+
+
+def mesh_phase(torch) -> dict:
+    """The host mesh on the card; the dry run's subset at full width (in
+    a subprocess, on the fake backend) with its argument bytes against
+    the closed form; the one-device estimate against the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.common import InputShape
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"host_mesh": host_mesh_check(torch)}
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[mesh] HBM: data sheet {mesh_lib.HBM_BYTES} B, the card's "
+        f"total_memory {total} B")
+    outdir = ROOT / "build" / "dryrun"          # listed in .gitignore
+    outdir.mkdir(parents=True, exist_ok=True)
+    args = [a for c in MESH_SUBSET for a in ("--combo", c)]
+    recs = dryrun_subprocess(args, outdir / "mesh_dryrun.jsonl", 600)
+    for rec in recs:
+        want = closed_form_argument_bytes(rec)
+        c = rec["collectives"]["collective_breakdown"]
+        log("[mesh] record " + json.dumps({
+            "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "argument_bytes": rec["argument_size_in_bytes"],
+            "closed_form": want, "temp_bytes": rec["temp_size_in_bytes"],
+            "output_bytes": rec["output_size_in_bytes"],
+            "alias_bytes": rec["alias_size_in_bytes"],
+            "dot_flops": rec["dot_flops"], "collectives": c,
+            "trace_s": rec["lower_s"]}))
+        if rec["argument_size_in_bytes"] != want:
+            raise AssertionError(f"{rec['arch']} {rec['shape']} "
+                                 f"{rec['mesh']}: argument bytes "
+                                 f"{rec['argument_size_in_bytes']} != "
+                                 f"closed form {want}")
+    out["subset"] = recs
+    b, s = MESH_ESTIMATE_SHAPE
+    est = dryrun_subprocess(
+        [a for arch in MESH_ESTIMATE
+         for a in ("--combo", f"{arch}:train_4k")]
+        + ["--mesh", "1x1", "--batch", str(b), "--seq", str(s)],
+        outdir / "mesh_estimate.jsonl", 600)
+    out["estimates"] = []
+    for rec in est:
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = dryrun.run_on_card(rec["arch"], "train_4k",
+                                  shape=InputShape("train_4k", s, b,
+                                                   "train"))
+        args_b = rec["argument_size_in_bytes"]
+        temp = rec["temp_size_in_bytes"]
+        gap = abs(temp - card["peak_beyond_live"]) / card["peak_beyond_live"]
+        row = {"arch": rec["arch"], "batch": f"{b} x {s}",
+               "argument_bytes": args_b, "placed_bytes": card["placed_bytes"],
+               "allocated_growth": card["allocated_growth"],
+               "requested_growth": card["requested_growth"],
+               "n_tensors": card["n_tensors"], "temp_bytes": temp,
+               "card_peak_beyond_live": card["peak_beyond_live"],
+               "temp_gap": gap, "dot_flops": rec["dot_flops"],
+               "card_dot_flops": card["dot_flops"],
+               "step_ms": card["step_ms"], "tflops": card["tflops"],
+               "loss": card["loss"]}
+        log("[mesh] estimate " + json.dumps(row))
+        out["estimates"].append(row)
+        if args_b != card["placed_bytes"]:
+            raise AssertionError(f"{rec['arch']}: argument bytes {args_b} "
+                                 f"!= placed {card['placed_bytes']}")
+        if card["requested_growth"] != args_b or not 0 <= \
+                card["allocated_growth"] - args_b <= \
+                ALLOC_SLACK * card["n_tensors"]:
+            raise AssertionError(f"{rec['arch']}: allocator growth "
+                                 f"{card['allocated_growth']} (requested "
+                                 f"{card['requested_growth']}) vs {args_b}")
+        if card["dot_flops"] != rec["dot_flops"]:
+            raise AssertionError(f"{rec['arch']}: dot FLOPs on the card "
+                                 f"{card['dot_flops']} != "
+                                 f"{rec['dot_flops']}")
+        if gap > MESH_TEMP_TOL:
+            raise AssertionError(f"{rec['arch']}: temp {temp} vs the card's "
+                                 f"{card['peak_beyond_live']} ({gap:.3f})")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3823,6 +4039,7 @@ def main() -> int:
     timing.update(leafed["timing"])
     kv = kv_phase(torch)
     fronted = frontends_phase(torch)
+    mesh_phase(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))

@@ -23,6 +23,8 @@ _MODULES = {
     "repro-100m": "repro_100m",
 }
 
+ASSIGNED = tuple(k for k in _MODULES if k != "repro-100m")
+
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULES:

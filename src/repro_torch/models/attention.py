@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
@@ -131,10 +132,13 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     The JAX package's selection: the flash-attention kernel when
     ``use_flash``, else the q-chunked exact path for S >= 4096 (a
     multiple of 1024), else the full-S^2 reference."""
-    b, s, _ = x.shape
-    q = layers.dense(p["q"], x).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = layers.dense(p["k"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = layers.dense(p["v"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    s = x.shape[1]
+    q = sharding.split_heads(layers.dense(p["q"], x),
+                             cfg.n_heads, cfg.head_dim)
+    k = sharding.split_heads(layers.dense(p["k"], x),
+                             cfg.n_kv_heads, cfg.head_dim)
+    v = sharding.split_heads(layers.dense(p["v"], x),
+                             cfg.n_kv_heads, cfg.head_dim)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
     if use_flash:
@@ -143,34 +147,41 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                         softcap=cfg.logit_softcap)
     elif s >= CHUNKED_THRESHOLD and s % Q_CHUNK == 0:
         group = cfg.n_heads // cfg.n_kv_heads
-        out = chunked_sdpa(q, k.repeat_interleave(group, dim=2),
-                           v.repeat_interleave(group, dim=2), causal=causal,
-                           window=window, softcap=cfg.logit_softcap)
+        kf = k.repeat_interleave(group, dim=2)  # full q-head kv
+        vf = v.repeat_interleave(group, dim=2)
+        q, kf, vf = (sharding.constrain_heads(t) for t in (q, kf, vf))
+        # on a mesh each device attends its own rows and heads
+        out = sharding.heads_local(chunked_sdpa, q, kf, vf, causal=causal,
+                                   window=window, softcap=cfg.logit_softcap)
     else:
         mask = make_mask(s, s, causal=causal, window=window,
                          device=x.device)[None]
-        out = sdpa_reference(q, k, v, mask, softcap=cfg.logit_softcap)
-    return layers.dense(p["o"], out.reshape(b, s, cfg.q_dim))
+        out = sharding.heads_local(sdpa_reference, q, k, v, mask,
+                                   softcap=cfg.logit_softcap)
+    return layers.dense(p["o"], sharding.merge_heads(out))
 
 
 def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     memory_kv: tuple) -> torch.Tensor:
     """Enc-dec cross attention of x (B, S, d) over every position of the
     encoder memory; ``memory_kv`` = (k, v), precomputed by ``memory_kv``."""
-    b, s, _ = x.shape
-    q = layers.dense(p["q"], x).view(b, s, cfg.n_heads, cfg.head_dim)
+    s = x.shape[1]
+    q = sharding.split_heads(layers.dense(p["q"], x),
+                             cfg.n_heads, cfg.head_dim)
     k, v = memory_kv
     mask = torch.ones((1, s, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = sdpa_reference(q, k, v, mask, softcap=cfg.logit_softcap)
-    return layers.dense(p["o"], out.reshape(b, s, cfg.q_dim))
+    out = sharding.heads_local(sdpa_reference, q, k, v, mask,
+                               softcap=cfg.logit_softcap)
+    return layers.dense(p["o"], sharding.merge_heads(out))
 
 
 def memory_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor) -> tuple:
     """The cross-attention K/V of the encoder output (B, S, d), no RoPE,
     in the dtype the product gives (the params' and memory's)."""
-    b, s, _ = memory.shape
-    k = layers.dense(p["k"], memory).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = layers.dense(p["v"], memory).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = sharding.split_heads(layers.dense(p["k"], memory),
+                             cfg.n_kv_heads, cfg.head_dim)
+    v = sharding.split_heads(layers.dense(p["v"], memory),
+                             cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -228,14 +239,16 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One-token decode. x: (B, 1, d). Writes the cache in place and
     returns (out, cache). M-RoPE rotates at text positions (the three
     axes at the cursor), as JAX's decode does."""
-    b = x.shape[0]
     pos = cache["cursor"]                                     # (B,)
     positions = pos[:, None]
     if cfg.rope_variant == "mrope":
         positions = layers.text_mrope_positions(positions)
-    q = layers.dense(p["q"], x).view(b, 1, cfg.n_heads, cfg.head_dim)
-    k = layers.dense(p["k"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = layers.dense(p["v"], x).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = sharding.split_heads(layers.dense(p["q"], x),
+                             cfg.n_heads, cfg.head_dim)
+    k = sharding.split_heads(layers.dense(p["k"], x),
+                             cfg.n_kv_heads, cfg.head_dim)
+    v = sharding.split_heads(layers.dense(p["v"], x),
+                             cfg.n_kv_heads, cfg.head_dim)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
 
@@ -243,25 +256,26 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     slots = ck.shape[1]
     window = cache["window"]
     slot = pos % slots if window > 0 else pos.clamp(max=slots - 1)
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
     if "k_scale" in cache:
         for name, t in (("k", k), ("v", v)):
             codes, scale = _quantize_kv(t)
-            cache[name][rows, slot] = codes[:, 0]
-            cache[name + "_scale"][rows, slot] = scale[:, 0]
+            sharding.write_rows(cache[name], rows, slot, codes[:, 0])
+            sharding.write_rows(cache[name + "_scale"], rows, slot,
+                               scale[:, 0])
         k_eff = _dequantize_kv(ck, cache["k_scale"], q.dtype)
         v_eff = _dequantize_kv(cv, cache["v_scale"], q.dtype)
     else:
-        ck[rows, slot] = k[:, 0].to(ck.dtype)
-        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        sharding.write_rows(ck, rows, slot, k[:, 0].to(ck.dtype))
+        sharding.write_rows(cv, rows, slot, v[:, 0].to(cv.dtype))
         k_eff, v_eff = ck.to(q.dtype), cv.to(q.dtype)
-    spos[rows, slot] = pos
+    sharding.write_rows(spos, rows, slot, pos)
 
     # valid slots: filled AND (no window OR within window of pos)
     valid = spos >= 0
     if window > 0:
         valid &= spos > (pos - window)[:, None]
-    out = sdpa_reference(q, k_eff, v_eff, valid[:, None, :],
-                         softcap=cfg.logit_softcap)
+    out = sharding.heads_local(sdpa_reference, q, k_eff, v_eff,
+                               valid[:, None, :], softcap=cfg.logit_softcap)
     pos += 1
-    return layers.dense(p["o"], out.reshape(b, 1, cfg.q_dim)), cache
+    return layers.dense(p["o"], sharding.merge_heads(out)), cache

@@ -100,6 +100,16 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the dry run's ``params``)."""
+        from repro_torch.models import transformer  # avoids a cycle
+        return transformer.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (= param_count for non-MoE)."""
+        from repro_torch.models import transformer
+        return transformer.count_params(self, active_only=True)
+
     def reduced(self, *, n_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ModelConfig":
         """Smoke-test variant: same family/block kinds, tiny dims."""

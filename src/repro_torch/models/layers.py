@@ -19,6 +19,17 @@ import torch
 import torch.nn.functional as F
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``. Init places every
+    draw and buffer on ``gen.device``, so under this generator it makes
+    shapes and dtypes only (``torch.randn(..., generator=g,
+    device="meta")`` allocates nothing): the dry run's abstract trees."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _draw(gen: torch.Generator, shape: tuple, scale: float
           ) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=gen.device,

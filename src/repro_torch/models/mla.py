@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
 
@@ -140,9 +141,10 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     window = cache["window"]
     slot = pos % slots if window > 0 else pos.clamp(max=slots - 1)
     rows = torch.arange(b, device=x.device)
-    c_kv[rows, slot] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[rows, slot] = kr_new[:, 0, 0].to(k_rope.dtype)
-    spos[rows, slot] = pos
+    sharding.write_rows(c_kv, rows, slot, c_new[:, 0].to(c_kv.dtype))
+    sharding.write_rows(k_rope, rows, slot,
+                        kr_new[:, 0, 0].to(k_rope.dtype))
+    sharding.write_rows(spos, rows, slot, pos)
 
     # absorbed attention: q_nope into the latent space through k_up^T
     w_kup = p["k_up"]["w"].view(m.kv_lora_rank, h, m.qk_nope_head_dim)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, MoEConfig
 
@@ -87,9 +88,40 @@ def route(p: dict, cfg: ModelConfig, xg: torch.Tensor) -> tuple:
     return probs, gates, ids, pos, pos < _capacity(mcfg, g)
 
 
+def _dispatch(ids: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+              e: int, cap: int) -> tuple:
+    """(slot (G, g, k), src (E * G * C + 1,)): the slot (e, group, c) of
+    each kept choice in the (E, G * C) block, a dropped choice pointing
+    one past the block (a row of zeros); and the token that fills each
+    slot, t (a zero row) where none does."""
+    n_groups, g, _ = ids.shape
+    t = n_groups * g
+    dev = ids.device
+    grp = torch.arange(n_groups, device=dev)[:, None, None]
+    slot = torch.where(keep, (ids * n_groups + grp) * cap + pos,
+                       e * n_groups * cap)
+    tok = torch.arange(t, device=dev).view(n_groups, g, 1).expand_as(slot)
+    src = torch.full((e * n_groups * cap + 1,), t, dtype=torch.long,
+                     device=dev)
+    src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+    return slot, src
+
+
+def _kept_counts(ids: torch.Tensor, keep: torch.Tensor, e: int
+                 ) -> torch.Tensor:
+    """(G, E) kept choices per group and expert."""
+    n_groups = ids.shape[0]
+    kept = torch.zeros((n_groups, e), dtype=torch.float32, device=ids.device)
+    kept.scatter_add_(1, ids.reshape(n_groups, -1),
+                      keep.reshape(n_groups, -1).float())
+    return kept
+
+
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               act: str = "silu", rows: bool = False) -> tuple:
-    """x: (B, S, d). Returns (out, aux_loss)."""
+    """x: (B, S, d). Returns (out, aux_loss). On a mesh whose batch shards
+    hold whole groups of the global batch, each device dispatches its own
+    tokens (``sharding.batch_local``)."""
     mcfg = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -98,22 +130,21 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         n_groups = b * per_row
     else:
         n_groups, g = _group_shape(t)
+    if sharding.is_dtensor(x):
+        b_local = sharding.local_shape(
+            (b,), sharding.batch_spec((b,), x.device_mesh), x.device_mesh)[0]
+        if (s if rows else b_local * s) % g == 0:
+            return sharding.batch_local(
+                lambda p_, x_: moe_apply(p_, cfg, x_, act=act, rows=rows),
+                p, x, whole=("router",))
     cap = _capacity(mcfg, g)
     e = mcfg.n_experts
     xt = x.reshape(t, d)
     probs, gates, ids, pos, keep = route(p, cfg, xt.view(n_groups, g, d))
 
-    # slot (e, group, c) of each kept choice in the (E, G * C) block; a
-    # dropped choice points one past the block (a row of zeros)
-    dev = x.device
-    grp = torch.arange(n_groups, device=dev)[:, None, None]
-    slot = torch.where(keep, (ids * n_groups + grp) * cap + pos,
-                       e * n_groups * cap)
-    tok = torch.arange(t, device=dev).view(n_groups, g, 1).expand_as(slot)
-    # the token that fills each slot; t (a zero row) where none does
-    src = torch.full((e * n_groups * cap + 1,), t, dtype=torch.long,
-                     device=dev)
-    src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+    # on a mesh the index arithmetic runs on gathered ids (DTensor has
+    # no strategy for its scatters): the all-gather XLA inserts
+    slot, src = sharding.replicate_call(_dispatch, ids, pos, keep, e, cap)
     x_pad = torch.cat([xt, xt.new_zeros((1, d))])
     xe = x_pad.index_select(0, src[:-1]).view(e, n_groups * cap, d)
     a = layers.ACTS[act]
@@ -129,9 +160,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                                glu=True).float().reshape(b, s, d)
 
     # load-balance auxiliary loss (mean over groups)
-    kept = torch.zeros((n_groups, e), dtype=torch.float32, device=dev)
-    kept.scatter_add_(1, ids.reshape(n_groups, -1),
-                      keep.reshape(n_groups, -1).float())
+    kept = sharding.replicate_call(_kept_counts, ids, keep, e)
     frac_tokens = kept / max(1.0, float(g))
     aux = mcfg.router_aux_weight * e * (frac_tokens * probs.mean(1)
                                         ).sum(-1).mean()

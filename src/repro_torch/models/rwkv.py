@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
@@ -89,18 +90,17 @@ def _rwkv_projections(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       x_prev: torch.Tensor) -> tuple:
     """r, k, v (B, S, H, K), g (B, S, d) and log_w (B, S, H, K) fp32 from
     the token-shifted inputs."""
-    b, s, d = x.shape
     h, hd = _heads(cfg), cfg.rwkv_head_dim
     xr, xw, xk, xv, xg = (_mix(x, x_prev, p["mu"][i]) for i in range(5))
-    r = layers.dense(p["r"], xr).reshape(b, s, h, hd)
-    k = layers.dense(p["k"], xk).reshape(b, s, h, hd)
-    v = layers.dense(p["v"], xv).reshape(b, s, h, hd)
+    r = sharding.split_heads(layers.dense(p["r"], xr), h, hd)
+    k = sharding.split_heads(layers.dense(p["k"], xk), h, hd)
+    v = sharding.split_heads(layers.dense(p["v"], xv), h, hd)
     g = F.silu(layers.dense(p["g"], xg))
     # log decay in (-inf, 0): log w = -exp(w0 + lora(xw))
     lw = -torch.exp(p["w0"].float()
                     + torch.tanh(xw.float() @ p["wA"]["w"].float())
                     @ p["wB"].float())
-    return r, k, v, g, lw.reshape(b, s, h, hd)
+    return r, k, v, g, sharding.split_heads(lw, h, hd)
 
 
 def wkv_chunked(r, k, v, log_w, u, *, chunk: int = CHUNK,
@@ -175,8 +175,7 @@ def wkv_scan_for(*inputs):
 
 def _out(p: dict, x: torch.Tensor, out: torch.Tensor, g: torch.Tensor
          ) -> torch.Tensor:
-    b, s, d = x.shape
-    out = out.reshape(b, s, d).to(x.dtype)
+    out = sharding.merge_heads(out).reshape(x.shape).to(x.dtype)
     out = layers.apply_norm(p["ln_x"], out, kind="layernorm", eps=1e-5)
     return layers.dense(p["o"], out * g)
 

@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import pytree
+from repro_torch.dist import sharding
 from repro_torch.models import attention, layers, mla, moe, rglru, rwkv
 from repro_torch.models.common import ModelConfig
 
@@ -116,15 +117,18 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     """The token embedding when the model has a token frontend or the
     batch holds ``tokens`` (an enc-dec decoder generating text), else
     the stub frontend's ``embeddings`` (B, S, d) as given; times
-    sqrt(d_model) under ``embed_scale``, stub embeddings too."""
+    sqrt(d_model) under ``embed_scale``, stub embeddings too; on a mesh
+    the result is pinned to the batch placement (``constrain_act``)."""
     if cfg.frontend == "token" or "tokens" in batch:
-        x = params["embed"][batch["tokens"].long()]
+        x = sharding.take_rows(params["embed"], batch["tokens"].long())
     else:
         x = batch["embeddings"]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=x.device).to(x.dtype)
-    return x
+    # on a mesh: pin the batch placement, so the table's layout does not
+    # carry into the activations (the identity on a plain tensor)
+    return sharding.constrain_act(x)
 
 
 def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor
@@ -198,9 +202,11 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
     if cfg.parallel_block:
         ffn_out, aux = _ffn_apply(p["ffn"], cfg, h, layer_idx)
         return x + mixer_out + ffn_out, aux
-    x = x + mixer_out
+    # on a mesh: the row-parallel projection's partial sums are reduced
+    # here, into the batch placement (the identity on a plain tensor)
+    x = sharding.constrain_act(x + mixer_out)
     if memory_kv is not None:
-        x = x + _cross(p, cfg, x, memory_kv)
+        x = sharding.constrain_act(x + _cross(p, cfg, x, memory_kv))
     h2 = _norm(cfg, p["ln2"], x)
     ffn_out, aux = _ffn_apply(p["ffn"], cfg, h2, layer_idx)
     return x + ffn_out, aux
@@ -407,7 +413,7 @@ def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     m = logits.amax(-1, keepdim=True).detach()
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
     labels = labels.long()
-    label_logit = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    label_logit = sharding.take_label_logits(logits, labels.clamp_min(0))
     mask = (labels >= 0).float()
     return ((lse - label_logit) * mask).sum() / mask.sum().clamp_min(1.0)
 
@@ -421,14 +427,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 
 
 def count_params(cfg: ModelConfig, *, active_only: bool = False) -> int:
-    """Parameters of the unrolled tree, from its shapes (built under
-    ``FakeTensorMode``, which allocates nothing, as JAX's count uses
-    ``jax.eval_shape``); ``active_only`` leaves out the routed experts a
-    token does not use (top-k of n_experts in each MoE layer)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        tree = init(cfg, torch.Generator())
-        total = sum(t.numel() for t in pytree.tree_leaves(tree))
+    """Parameters of the unrolled tree (drawn on ``meta``); with
+    ``active_only`` less the routed experts a token does not use."""
+    total = sum(leaf.numel() for leaf in
+                pytree.tree_leaves(init(cfg, layers.MetaGenerator())))
     if not active_only or cfg.moe is None:
         return total
     m = cfg.moe
@@ -436,4 +438,3 @@ def count_params(cfg: ModelConfig, *, active_only: bool = False) -> int:
     n_moe_layers = sum(1 for i in range(cfg.n_layers)
                        if not _moe_skipped(cfg, i))
     return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
-

@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.dist import sharding
 from repro_torch.models import attention, layers
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (_block_decode, _block_init,
@@ -180,6 +181,7 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
                          f"'{logits_positions}'")
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
     context_fn = _remat_context(remat_policy) if remat else None
+    params = _unshard_top(params)
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, b, s, batch, x.device)
@@ -193,6 +195,7 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     for i, (p, kind) in enumerate(zip(params["prefix_layers"], prefix)):
         x, aux = block_apply(p, cfg, kind, i, x, positions,
                              memory_kv=mkv_prefix[i], use_flash=use_flash)
+        x = sharding.constrain_act(x)
         aux_total = aux_total + aux
 
     def body(x_, ps, mkvs):
@@ -201,6 +204,7 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
             x_, a = block_apply(p_j, cfg, kind, len(prefix) + j, x_,
                                 positions, memory_kv=mkv_j,
                                 use_flash=use_flash)
+            x_ = sharding.constrain_act(x_)
             aux_ = aux_ + a
         return x_, aux_
 
@@ -214,6 +218,7 @@ def apply(params: dict, cfg: ModelConfig, batch: dict, *,
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
         x, aux = block_apply(p, cfg, kind, off + i, x, positions,
                              memory_kv=mkv_suffix[i], use_flash=use_flash)
+        x = sharding.constrain_act(x)
         aux_total = aux_total + aux
     if logits_positions == "last":
         x = x[:, -1:]
@@ -258,12 +263,41 @@ def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
     return state
 
 
-def _at(tree, i: int):
+def _at(tree, i: int, *, state: bool = False):
     """Layer i of a stacked dict subtree (views; non-tensor leaves
-    kept). Walks dicts only — the shape of a block's params and cache."""
+    kept). Walks dicts only — the shape of a block's params and cache.
+    On a mesh a layer's parameters are gathered over the data axes here,
+    a layer at a time (``sharding.unshard``); a ``state`` leaf keeps its
+    shards (``sharding.take_layer``, a copy where the layer dim is
+    sharded, which ``_put_at`` writes back)."""
     if isinstance(tree, dict):
-        return {k: _at(v, i) for k, v in tree.items()}
-    return tree[i] if isinstance(tree, torch.Tensor) else tree
+        return {k: _at(v, i, state=state) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return sharding.take_layer(tree, i) if state else \
+        sharding.unshard(tree[i])
+
+
+def _put_at(tree, i: int, layer) -> None:
+    """Layer i of a stacked state subtree set to ``layer``, the subtree
+    ``_at(tree, i, state=True)`` gave and the block updated: a no-op
+    where those were views, the write-back of a layer-sharded leaf on a
+    mesh (``sharding.put_layer``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put_at(v, i, layer[k])
+    elif isinstance(tree, torch.Tensor):
+        sharding.put_layer(tree, i, layer)
+
+
+def _unshard_top(params: dict) -> dict:
+    """On a mesh, the unstacked parameters gathered over the data axes
+    (the stacked layers are gathered a layer at a time by ``_at``); the
+    tree itself off a mesh."""
+    if not sharding.is_dtensor(params["embed"]):
+        return params
+    return {k: v if k in ("scan_blocks", "encoder")
+            else sharding.unshard_tree(v) for k, v in params.items()}
 
 
 def _kv_at(mkv, i: int):
@@ -279,6 +313,7 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
     own MoE group (the serve engine's slots), else the B tokens are one
     group (JAX's batch-B step)."""
     prefix, unit, n_rep, suffix = pattern_segments(cfg)
+    params = _unshard_top(params)
     x = embed_inputs(params, cfg, inputs)
     mkv_prefix = state.get("memory_kv_prefix", [None] * len(prefix))
     mkv_scan = state.get("memory_kv_scan", [None] * len(unit))
@@ -288,10 +323,13 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: dict,
                           mkv_prefix[i])
     for r in range(n_rep):
         for j, kind in enumerate(unit):
+            st = _at(state["scan"][j], r, state=True)
             x = _block_decode(_at(params["scan_blocks"][j], r), cfg, kind,
-                              len(prefix) + j, x,
-                              _at(state["scan"][j], r), moe_rows,
+                              len(prefix) + j, x, st, moe_rows,
                               _kv_at(mkv_scan[j], r))
+            _put_at(state["scan"][j], r, st)
+            del st      # a copy on a mesh: freed before the next is taken
+            x = sharding.constrain_act(x)
     off = len(prefix) + n_rep * len(unit)
     for i, (p, kind) in enumerate(zip(params["suffix_layers"], suffix)):
         x = _block_decode(p, cfg, kind, off + i, x, state["suffix"][i],

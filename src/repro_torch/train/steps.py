@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.core import compression, prng, pytree
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer, transformer_scan
+from repro_torch.dist import sharding
+from repro_torch.models import layers, transformer, transformer_scan
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_by_global_norm)
@@ -75,6 +76,10 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, key, *,
     the CPU), optimizer state, step 0, the key, and a zero flat residual
     when error feedback is on."""
     gen = init_generator(key, resolve_device(device))
+    return _train_state(cfg, optimizer, key, gen, step_cfg)
+
+
+def _train_state(cfg, optimizer, key, gen, step_cfg) -> dict:
     params = _impl(step_cfg.scan_layers).init(cfg, gen,
                                               dtype=step_cfg.param_dtype)
     state = {"params": params, "opt": optimizer.init(params),
@@ -85,6 +90,19 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, key, *,
         state["ec_err"] = torch.zeros((total,), dtype=torch.float32,
                                       device=gen.device)
     return state
+
+
+def abstract_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
+                         step_cfg: TrainStepConfig = TrainStepConfig()
+                         ) -> dict:
+    """The train state with every tensor on ``meta`` (the dry run's
+    input; JAX's ``jax.eval_shape`` of ``init_train_state``): the same
+    tree, shapes and dtypes, nothing allocated. The host leaves
+    (``step``, ``rng``, the optimizer's ``step``) are ``meta`` too; the
+    key is the port's (2,) int64 pair where JAX's is uint32."""
+    state = _train_state(cfg, optimizer, torch.zeros(2, dtype=torch.int64),
+                         layers.MetaGenerator(), step_cfg)
+    return pytree.tree_map(lambda t: t.to("meta"), state)
 
 
 _HOST_LEAVES = ("step", "rng")
@@ -150,7 +168,9 @@ def value_and_grad(loss_fn, params, batch) -> tuple:
         loss = loss_fn(pytree.tree_unflatten(treedef, live), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), pytree.tree_unflatten(treedef, list(grads))
+    # on a mesh each gradient takes its parameter's placement
+    grads = [sharding.like(g, p) for g, p in zip(grads, leaves)]
+    return loss.detach(), pytree.tree_unflatten(treedef, grads)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,

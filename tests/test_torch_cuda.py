@@ -973,3 +973,63 @@ def test_frontend_decode_on_the_card_matches_the_cpu(card, arch, cache):
             torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)
         else:
             assert float((g - c).abs().max()) <= 2e-3 * float(c.abs().max())
+
+
+def test_host_mesh_builds_on_the_card(card):
+    """make_host_mesh() over the one card, on a world-1 NCCL group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        hm = mesh_lib.make_host_mesh()
+        assert tuple(hm.shape) == (1,)
+        assert hm.mesh_dim_names == ("data",)
+        assert hm.device_type == "cuda"
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dry_run_estimate_of_a_train_step_holds_on_the_card(card, tmp_path):
+    """The one-device dry run (a subprocess: its fake process group is
+    global to a process) of full-width repro-100m training on 1 x 1024,
+    against the same step on the card: argument bytes equal to the
+    storage placed and to the bytes requested of the allocator (its
+    blocks at most 1 MiB a tensor more), the
+    same dot FLOPs, temp within 10 % of the card's peak beyond what is
+    live."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import InputShape
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "estimate.jsonl"
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--combo",
+         "repro-100m:train_4k", "--mesh", "1x1", "--batch", "1", "--seq",
+         "1024", "--out", str(out)], cwd=root, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert res.returncode == 0, res.stdout + res.stderr
+    rec = json.loads(out.read_text().splitlines()[0])
+    got = dryrun.run_on_card("repro-100m", "train_4k",
+                             shape=InputShape("train_4k", 1024, 1, "train"))
+    assert rec["argument_size_in_bytes"] == got["placed_bytes"] \
+        == got["requested_growth"]
+    # 512-byte rounding; a large block is not split when the rest of its
+    # segment would be 1 MiB or less
+    assert 0 <= got["allocated_growth"] - got["placed_bytes"] \
+        <= (1 << 20) * got["n_tensors"]
+    assert rec["dot_flops"] == got["dot_flops"]
+    peak = got["peak_beyond_live"]
+    assert abs(rec["temp_size_in_bytes"] - peak) <= 0.10 * peak

@@ -5,7 +5,7 @@ local attention), deepseek-v2-lite-16b (MLA and MoE with a dense layer
 and grok-1-314b (MoE, GELU, softcap).
 
 At full width: the configs field for field and the parameter counts
-(``count_params``, built under FakeTensorMode, against JAX's
+(``count_params``, drawn on ``meta``, against JAX's
 ``param_count()``). At reduced size, with JAX's parameters carried
 across (``interop.params_from_jax``) and inputs made with numpy from a
 seed: the stacked tree, the prefill logits (the port on its flash path,
