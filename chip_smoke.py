@@ -15,7 +15,8 @@ gradients per leaf (the per-leaf codec tier), decodes full-width
 qwen1.5-0.5b and granite-8b on the unrolled tree with and without the
 int8 KV cache, and prefills and decodes the embedding frontends at full
 width: qwen2-vl-72b (M-RoPE on a patch grid, bf16, 32 of its 80 layers)
-and seamless-m4t-large-v2 (the encoder-decoder).
+and seamless-m4t-large-v2 (the encoder-decoder), and trains full-width
+repro-100m through the launcher on several ranks (data parallelism).
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -178,7 +179,31 @@ Phases (any failure raises and the script exits non-zero):
      a tensor more: 512-byte rounding, large blocks left unsplit when the
      rest of the segment is 1 MiB or less), temp within 10 %
      of the step's peak beyond what is live, dot FLOPs equal to the
-     counter's around the card step, and the step's TFLOP/s.
+     counter's around the card step, and the step's TFLOP/s;
+ 15. dp, the training launcher on ranks (``launch.train.setup`` and
+     ``run_steps``): full-width repro-100m, 8 x 256, AdamW, rq4 + EF,
+     DP_STEPS steps each. The one-card launcher (no group) in this
+     process; (a) the launcher at world = the card count, its NCCL group
+     made from torchrun's variables (one process a card; a world of one
+     here): every step's loss and grad norm and the final state (SHA-256
+     of every leaf) equal to the one-card launcher's bit for bit at world
+     one; (b) two ranks sharing card 0 over a gloo group made for them
+     and passed in (NCCL refuses two ranks on one card): replicas equal
+     bit for bit, step 0's loss and grad norm within 1e-5 of (a)'s,
+     falling losses, the all-reduce of 515,976,192 B of fp32 gradient
+     and 4 B of loss (CUDA events; through the host: not a rate of
+     NVLink). Every run: K1 once and K4 twice a step, comm bytes equal
+     to the fused message's wire bytes, step ms, tokens/s and each
+     rank's peak memory beside the card's name and power limit, and
+     DP_PROFILE_STEPS more steps under torch.profiler (wall and busy ms
+     a step, the card's idle share, the kernels that take most of it).
+     Every run also trains reduced deepseek-v2-lite-16b (8 x 256: ONE
+     MoE group of 2,048 tokens, which spans the ranks of (b) and of (a)
+     on two or more cards, each rank gathering its tokens), held as
+     repro-100m is and to one gather a MoE layer and step where it
+     spans; and, at its full width, one MoE layer's forward and backward
+     over the global batch against a rank's own rows (the extra work of
+     a spanning group) and, on ranks, the gather's forward and backward.
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -194,6 +219,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3999,12 +4025,480 @@ def mesh_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dp phase: the launcher on several ranks (one rank a card)
+# ---------------------------------------------------------------------------
+
+# full-width repro-100m, the launcher's 8 x 256 global batch, AdamW, rq4 +
+# error feedback, DP_STEPS steps on each run
+DP_STEPS = 10
+DP_ARGV = ["--arch", TRAIN_ARCH, "--compression", "rq4", "--error-feedback",
+           "--steps", str(DP_STEPS)]
+DP_BATCH_TOKENS = 8 * 256         # the launcher's default global batch
+DP_TIMEOUT = 300
+DP_REDUCE_REPS = 3
+DP_PROFILE_STEPS = 2               # steps traced by torch.profiler a run
+DP_PROFILE_TOP = 6                 # kernels listed a trace
+# reduced deepseek-v2-lite-16b through the same launcher, 8 x 256: the
+# global batch is ONE MoE group of 2,048 tokens, which spans the ranks
+# whenever there are two or more (each gathers the group's tokens)
+MOE_ARCH = "deepseek-v2-lite-16b"
+DP_MOE_STEPS = 3
+DP_MOE_ARGV = ["--arch", MOE_ARCH, "--reduced", "--compression", "rq4",
+               "--error-feedback", "--steps", str(DP_MOE_STEPS)]
+DP_MOE_SEED = 24
+
+
+def dp_record(torch, args, run) -> dict:
+    """The launcher's steps (``run_steps``) on ``run``, each timed on the
+    host clock around a synchronize: losses, grad norms, K1/K4 launches
+    a step, comm bytes against the wire, peak memory and the final
+    state's SHA-256 a leaf."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.core import compression, pytree
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.launch import train
+
+    wire = compression.codec("rq4").tree_wire_bytes_flat(
+        run["state"]["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    out = {"loss": [], "gnorm": [], "step_ms": [], "comm_bytes": [],
+           "launches": []}
+    steps = train.run_steps(args, run)
+    while True:
+        before = kernel.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            _, m = next(steps)
+        except StopIteration:
+            break
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = kernel.launch_counts()
+        out["launches"].append({k: after[k] - before[k]
+                                for k in TRAIN_KERNELS})
+        out["loss"].append(float(m["loss"]))
+        out["gnorm"].append(float(m["grad_norm"]))
+        out["comm_bytes"].append(float(m["comm_bytes"]))
+    out["wire"] = float(torch.tensor(wire))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["total_launches"] = {k: kernel.launch_counts()[k]
+                             for k in TRAIN_KERNELS}
+    out["sha256"] = [hashlib.sha256(np.ascontiguousarray(
+        leaf.detach().cpu().numpy()).view(np.uint8)).hexdigest()
+        for leaf in pytree.tree_leaves(run["state"])]
+    return out
+
+
+def dp_reduce_ms(torch, run) -> tuple:
+    """(median ms, bytes) of ``steps.reduce_over_data`` over the mesh's
+    'data' axis on a gradient of the model's layout (CUDA events around
+    each call); (None, 0) on a world of one, whose step reduces nothing."""
+    from repro_torch.core import compression, pytree
+    from repro_torch.train import steps
+
+    if run["world"] == 1:
+        return None, 0
+    grads = pytree.tree_map(torch.clone, run["state"]["params"])
+    loss = torch.zeros((), device=run["device"])
+    times = []
+    for _ in range(DP_REDUCE_REPS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        steps.reduce_over_data(loss, grads, run["mesh"])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times = sorted(times[1:])
+    total = compression.FlatLayout.from_tree(grads).total
+    return times[len(times) // 2], (total + 1) * 4
+
+
+def dp_profile(torch, run) -> dict:
+    """DP_PROFILE_STEPS more steps of ``run`` from its final state (its
+    records are taken) under torch.profiler (the card's activity only):
+    the wall ms a step (host clock around a synchronize, the tracer's
+    cost included), the card's busy ms a step (the union of its kernels'
+    and copies' intervals), the idle share, and the kernels that take
+    most of the time. The tracer's raw events are read, not parsed into
+    a tree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+
+    state, data, device = run["state"], run["data"], run["device"]
+    first = int(state["step"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(first, first + DP_PROFILE_STEPS):
+            state, _ = run["train_step"](
+                state, train.to_device(data.batch_at(t), device))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / DP_PROFILE_STEPS
+    spans = sorted((e.start_ns(), e.end_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, reach, by_name = 0, -1, {}
+    for lo, hi, name in spans:
+        if hi > reach:
+            busy += hi - max(lo, reach)
+            reach = hi
+        by_name[name] = by_name.get(name, 0) + hi - lo
+    busy_ms = busy / 1e6 / DP_PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:DP_PROFILE_TOP]
+    return {"wall_ms": wall, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall if spans else None,
+            "device_events_a_step": len(spans) / DP_PROFILE_STEPS,
+            "top_ms_a_step": [[n[:90], v / 1e6 / DP_PROFILE_STEPS]
+                              for n, v in top]}
+
+
+def dp_moe_record(torch, argv: list) -> dict:
+    """``dp_record`` of the launcher on ``argv`` (the reduced MoE model),
+    counting the all-gathers the steps make (an MoE group spanning the
+    ranks gathers its tokens once a MoE layer and step)."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv)
+    run = train.setup(args)
+    real, gathers = dist.all_gather, [0]
+
+    def counted(*a, **kw):
+        gathers[0] += 1
+        return real(*a, **kw)
+
+    dist.all_gather = counted
+    try:
+        res = dp_record(torch, args, run)
+    finally:
+        dist.all_gather = real
+    res["gathers"] = gathers[0]
+    return res
+
+
+def dp_gather_ms(torch, run) -> float | None:
+    """Median ms (CUDA events) of ``sharding.gather_rows`` forward and
+    backward over the mesh's 'data' axis on a rank's 8/n x 256 rows of
+    deepseek-v2-lite-16b's full-width activations (d_model 2,048, fp32):
+    what a MoE layer whose group spans the ranks adds in messages a
+    step; None on a world of one."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+
+    if run["world"] == 1:
+        return None
+    d = configs.get_config(MOE_ARCH).d_model
+    x = torch.randn((DP_BATCH_TOKENS // 256 // run["world"], 256, d),
+                    device=run["device"], requires_grad=True)
+    times = []
+    for _ in range(DP_REDUCE_REPS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = sharding.gather_rows(x, run["mesh"])
+        torch.autograd.grad(y, x, torch.ones_like(y))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times = sorted(times[1:])
+    return times[len(times) // 2]
+
+
+def dp_moe_cost(torch, card: str) -> dict:
+    """What a rank computes beyond its share when its MoE group spans the
+    ranks, at deepseek-v2-lite-16b's full width (64 experts of 2,048 x
+    1,408, top 6, 2 shared): one MoE layer's forward and backward
+    (``time_ms``) over the 8 x 256 global batch, which every rank runs
+    when the batch's one group of 2,048 tokens spans them, against over
+    a rank's own 8/n x 256 rows, as it would run them were they whole
+    groups; times the model's MoE layers, the extra a step."""
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.models import moe
+
+    cfg = configs.get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(DP_MOE_SEED)
+    p = moe.moe_init(gen, cfg)
+    leaves = [leaf.requires_grad_(True) for leaf in pytree.tree_leaves(p)]
+    n_moe = cfg.n_layers - 1          # deepseek keeps layer 0 dense
+
+    def layer_ms(rows: int) -> float:
+        x = torch.randn((rows, 256, cfg.d_model), device="cuda",
+                        generator=gen, requires_grad=True)
+
+        def fwd_bwd():
+            out, aux = moe.moe_apply(p, cfg, x, act=cfg.act)
+            torch.autograd.grad(out.sum() + aux, [x, *leaves])
+        return time_ms(fwd_bwd)
+
+    whole = layer_ms(DP_BATCH_TOKENS // 256)
+    out = {"arch": MOE_ARCH, "moe_layers": n_moe, "global_rows_ms": whole,
+           "card": card}
+    for n in (2, 4):
+        own = layer_ms(DP_BATCH_TOKENS // 256 // n)
+        out[f"n{n}"] = {"own_rows_ms": own, "extra_layer_ms": whole - own,
+                        "extra_step_ms": n_moe * (whole - own)}
+    del p, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[dp] moe cost " + json.dumps(out))
+    return out
+
+
+def dp_child(out_path: str, gloo) -> int:
+    """One rank of the dp phase (``chip_smoke.py --dp-rank OUT``): the
+    launcher makes its NCCL group from torchrun's variables, or (``--gloo
+    RDV RANK WORLD``) joins a gloo group made here, its ranks sharing
+    card 0; then ``dp_record``, ``dp_reduce_ms``, ``dp_profile`` (NCCL
+    ranks) and ``dp_gather_ms`` of repro-100m and ``dp_moe_record`` of the reduced
+    MoE model to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = []
+    if gloo:
+        rdv, rank, world = gloo
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=int(rank), world_size=int(world))
+        extra = ["--device", "cuda:0"]
+    args = train.parse_args(DP_ARGV + extra)
+    run = train.setup(args)
+    try:
+        res = dp_record(torch, args, run)
+        res["reduce_ms"], res["reduce_bytes"] = dp_reduce_ms(torch, run)
+        if not gloo:        # the card is shared: its trace says little
+            res["profile"] = dp_profile(torch, run)
+        res["gather_ms"] = dp_gather_ms(torch, run)
+        res.update(rank=run["rank"], world=run["world"],
+                   backend=dist.get_backend(run["group"]))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["moe"] = dp_moe_record(torch, DP_MOE_ARGV + extra)
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def dp_spawn(argvs: list, envs: list) -> list:
+    """Run ``chip_smoke.py`` ranks side by side to their end; any failure
+    (or DP_TIMEOUT) kills them all and raises."""
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               *a], cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, e in zip(argvs, envs)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dp rank exited {p.returncode}:\n"
+                                 f"{out[-4000:]}")
+    return outs
+
+
+def dp_check_run(res: dict, want: dict | None = None) -> None:
+    """K1 once and K4 twice a step (or ``want`` a step), comm bytes the
+    fused wire's, finite losses and grad norms."""
+    want = want or {"minmax_bucketed": 1, "qdq_bucketed": 2}
+    for t, per in enumerate(res["launches"]):
+        if per != want:
+            raise AssertionError(f"rank {res.get('rank', 0)} step {t}: "
+                                 f"launches {per}")
+    if any(c != res["wire"] for c in res["comm_bytes"]):
+        raise AssertionError(f"comm_bytes {res['comm_bytes']} != wire "
+                             f"{res['wire']}")
+    if not all(math.isfinite(v) for v in res["loss"] + res["gnorm"]):
+        raise AssertionError("non-finite loss or grad norm")
+
+
+def dp_summary(name: str, res: dict, card: str) -> dict:
+    med = sorted(res["step_ms"][1:])[len(res["step_ms"][1:]) // 2]
+    row = {"run": name, "rank": res.get("rank", 0),
+           "world": res.get("world", 1), "backend": res.get("backend"),
+           "median_step_ms": med, "first_step_ms": res["step_ms"][0],
+           "tokens_per_s": DP_BATCH_TOKENS / (med / 1e3),
+           "reduce_ms": res.get("reduce_ms"),
+           "reduce_bytes": res.get("reduce_bytes", 0),
+           "max_memory_allocated": res["peak"],
+           "first_loss": res["loss"][0], "last_loss": res["loss"][-1],
+           "card": card}
+    for key in ("gather_ms", "gathers", "profile"):
+        if key in res:
+            row[key] = res[key]
+    log("[dp] " + json.dumps(row))
+    return row
+
+
+def dp_step0_gap(res: dict, ref: dict, what: str) -> tuple:
+    """(loss, grad norm) gaps of ``res``'s step 0 from ``ref``'s; raises
+    over 1e-5."""
+    d_loss = abs(res["loss"][0] - ref["loss"][0])
+    d_gnorm = abs(res["gnorm"][0] - ref["gnorm"][0])
+    if d_loss > 1e-5 or d_gnorm > 1e-5:
+        raise AssertionError(f"{what}: step 0 loss/gnorm off by "
+                             f"{d_loss}/{d_gnorm}")
+    return d_loss, d_gnorm
+
+
+def dp_check_ranks(ranks: list, backend: str, world: int, one: dict,
+                   one_moe: dict, what: str) -> None:
+    """The ranks of one run: ``backend`` at ``world``; each repro-100m
+    and MoE run checked as the one-card runs are, replicas bit for bit;
+    at world one the one-card runs' bits, beyond it step 0 within 1e-5
+    of them and the MoE group's tokens gathered once a MoE layer and
+    step."""
+    from repro_torch import configs
+
+    moe_layers = configs.get_config(MOE_ARCH).reduced().n_layers - 1
+    for res in ranks:
+        dp_check_run(res)
+        dp_check_run(res["moe"], one_moe["launches"][0])
+        if res["backend"] != backend or res["world"] != world:
+            raise AssertionError(f"{what} ran {res['backend']} at world "
+                                 f"{res['world']}")
+        for r, r0 in ((res, ranks[0]), (res["moe"], ranks[0]["moe"])):
+            if r["sha256"] != r0["sha256"] or r["loss"] != r0["loss"]:
+                raise AssertionError(f"{what}: replicas differ")
+        gathers = res["moe"]["gathers"]
+        if gathers != (0 if world == 1 else DP_MOE_STEPS * moe_layers):
+            raise AssertionError(f"{what}: {gathers} MoE gathers at world "
+                                 f"{world}")
+    for r, ref in ((ranks[0], one), (ranks[0]["moe"], one_moe)):
+        if world == 1 and any(r[k] != ref[k]
+                              for k in ("loss", "gnorm", "sha256")):
+            raise AssertionError(f"{what}: world-1 launcher != one-card "
+                                 "launcher")
+        dp_step0_gap(r, ref, what)
+
+
+def dp_phase(torch, card: str) -> dict:
+    """(a) the launcher at world = the card count over NCCL (torchrun's
+    variables), each step, grad norm and the final state equal to the
+    one-card launcher's bit for bit on a world of one; (b) two ranks on
+    card 0 over a gloo group made for them: replicas bit for bit, step 0
+    within 1e-5 of (a), falling losses, K1 once and K4 twice a step on
+    each rank. Each run also trains the reduced MoE model, whose one
+    group spans the ranks of a world of two or more; and the full-width
+    MoE layer's extra work a spanning rank does (``dp_moe_cost``)."""
+    import socket
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train.parse_args(DP_ARGV)
+    run = train.setup(args)
+    if run["group"] is not None:
+        raise AssertionError("the one-card launcher joined a group")
+    one = dp_record(torch, args, run)
+    dp_check_run(one)
+    one["profile"] = dp_profile(torch, run)
+    marks = {"one-card": time.perf_counter() - t0}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_moe = dp_moe_record(torch, DP_MOE_ARGV)
+    dp_check_run(one_moe, one_moe["launches"][0])
+    if one_moe["launches"][0]["minmax_bucketed"] < 1:
+        raise AssertionError("the MoE run launched no K1")
+    rows = [dp_summary("one-card", one, card),
+            dp_summary("one-card-moe", one_moe, card)]
+    marks["one-card MoE"] = time.perf_counter() - t0
+    moe_cost = dp_moe_cost(torch, card)
+    marks["MoE cost"] = time.perf_counter() - t0
+
+    n = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = Path(tempfile.mkdtemp(prefix="dp-", dir=ROOT / "build"))
+    outs = [tmp / f"nccl{r}.json" for r in range(n)]
+    dp_spawn([["--dp-rank", str(o)] for o in outs],
+             [dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port)) for r in range(n)])
+    nccl = [json.loads(o.read_text()) for o in outs]
+    marks["(a)"] = time.perf_counter() - t0
+    dp_check_ranks(nccl, "nccl", n, one, one_moe, "(a)")
+    for res in nccl:
+        rows += [dp_summary("nccl", res, card),
+                 dp_summary("nccl-moe", dict(res["moe"], rank=res["rank"],
+                                             world=n), card)]
+    if n == 1:
+        log("[dp] (a) NCCL world 1: every loss and grad norm and the final "
+            "state (SHA-256 of every leaf) equal the one-card launcher's "
+            "bit for bit, repro-100m and the MoE model")
+    else:
+        log(f"[dp] (a) NCCL world {n}: replicas bit for bit, step 0 within "
+            "1e-5 of the one-card launcher, repro-100m and the MoE model "
+            "(its one group spanning the ranks)")
+
+    outs = [tmp / f"gloo{r}.json" for r in range(2)]
+    dp_spawn([["--dp-rank", str(o), "--gloo", str(tmp / "rdv"), str(r), "2"]
+              for r, o in enumerate(outs)],
+             [dict(os.environ) for _ in outs])
+    gloo = [json.loads(o.read_text()) for o in outs]
+    marks["(b)"] = time.perf_counter() - t0
+    dp_check_ranks(gloo, "gloo", 2, one, one_moe, "(b)")
+    for res in gloo:
+        rows += [dp_summary("gloo-2-ranks-1-card", res, card),
+                 dp_summary("gloo-moe", dict(res["moe"], rank=res["rank"],
+                                             world=2), card)]
+    b = gloo[0]
+    d_loss, d_gnorm = dp_step0_gap(b, nccl[0], "(b) against (a)")
+    m_loss, m_gnorm = dp_step0_gap(b["moe"], one_moe, "(b) MoE")
+    last3 = sum(b["loss"][-3:]) / 3
+    if not last3 < b["loss"][0]:
+        raise AssertionError(f"(b) loss did not fall: {b['loss']}")
+    if b["reduce_bytes"] != (TRAIN_TOTAL + 1) * 4:
+        raise AssertionError(f"(b) reduced {b['reduce_bytes']} B")
+    log(f"[dp] (b) 2 gloo ranks on one card: replicas bit for bit, step 0 "
+        f"loss {d_loss:.2e} and grad norm {d_gnorm:.2e} from (a), loss "
+        f"{b['loss'][0]:.4f} -> {b['loss'][-1]:.4f}; the reduction: "
+        f"{TRAIN_TOTAL * 4} B of fp32 gradient + 4 B of loss in one gloo "
+        f"all-reduce through the host, {b['reduce_ms']:.1f} ms; the MoE "
+        f"model's group spanning both ranks: replicas bit for bit, step 0 "
+        f"loss {m_loss:.2e} and grad norm {m_gnorm:.2e} from the one-card "
+        f"launcher's, {b['moe']['gathers']} gathers")
+    launches = {k: sum(r["total_launches"][k]
+                       for r in [one, one_moe] + [x for res in nccl + gloo
+                                                  for x in (res,
+                                                            res["moe"])])
+                for k in TRAIN_KERNELS}
+    wall = time.perf_counter() - t0
+    shutil.rmtree(tmp)
+    log(f"[dp] phase wall time {wall:.1f} s; at the end of each part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()))
+    return {"rows": rows, "launches": launches, "moe_cost": moe_cost,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:      # one rank of the dp phase
+        gloo = sys.argv[4:7] if sys.argv[3:4] == ["--gloo"] else None
+        return dp_child(sys.argv[2], gloo)
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attn import kernel as flash
     from repro_torch.kernels.quant import kernel
@@ -4040,6 +4534,7 @@ def main() -> int:
     kv = kv_phase(torch)
     fronted = frontends_phase(torch)
     mesh_phase(torch)
+    dp = dp_phase(torch, card)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -4054,7 +4549,8 @@ def main() -> int:
                                     "cluster": clustered["launches"],
                                     "families": families["launches"],
                                     "leaf": leafed["launches"],
-                                    "frontends": fronted["launches"]}))
+                                    "frontends": fronted["launches"],
+                                    "dp": dp["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
@@ -4067,6 +4563,8 @@ def main() -> int:
         if name in PREFILL_KERNELS:      # K6 also runs the families' and
             launches += (families["launches"][name]     # the frontends'
                          + fronted["launches"][name])   # paths
+        if name in TRAIN_KERNELS:        # and K1, K4 the dp phase's runs
+            launches += dp["launches"][name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],

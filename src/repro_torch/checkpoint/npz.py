@@ -15,6 +15,11 @@ Writes are atomic (a temporary file in the target directory, fsync,
 raw stored bytes before any view conversion and raises
 ``CheckpointCorruptionError`` naming the array on a mismatch, and a
 ``ValueError`` on a truncated or unreadable archive.
+
+Under a process group (the launcher on several ranks, the state
+replicated) ``save_state(..., group=g)`` has rank 0 of ``g`` write and
+every rank wait at a barrier, so the file is whole when any rank goes
+on; every rank then resumes from it.
 """
 from __future__ import annotations
 
@@ -70,7 +75,24 @@ def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
     return arr, False
 
 
-def save_state(state: PyTree, directory: str, *, step: int = 0) -> str:
+def save_state(state: PyTree, directory: str, *, step: int = 0,
+               group=None) -> str:
+    """Write ``state`` to ``directory/step-<step>.npz`` and return the
+    file's name; with a process ``group``, only its rank 0 writes and
+    every rank returns once the file is in place."""
+    fname = os.path.join(directory, f"step-{step:08d}.npz")
+    if group is None:
+        return _write(state, directory, fname)
+    import torch.distributed as dist
+    try:
+        if dist.get_rank(group) == 0:
+            _write(state, directory, fname)
+    finally:
+        dist.barrier(group=group)
+    return fname
+
+
+def _write(state: PyTree, directory: str, fname: str) -> str:
     os.makedirs(directory, exist_ok=True)
     flat: dict[str, np.ndarray] = {}
     for key, leaf in _with_paths(state):
@@ -79,7 +101,6 @@ def save_state(state: PyTree, directory: str, *, step: int = 0) -> str:
             key = _BF16_PREFIX + key
         flat[key] = arr
         flat[_CRC_PREFIX + key] = _crc32(arr)
-    fname = os.path.join(directory, f"step-{step:08d}.npz")
     # write-then-rename: the temp file lives in the target directory so
     # os.replace is an atomic same-filesystem rename
     fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp-step-",

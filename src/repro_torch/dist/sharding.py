@@ -43,11 +43,20 @@ layer-sharded cache, and its write-back) and
 ``replicate_call`` (an op run on replicated operands: the all-gather
 XLA would insert).
 
+The launcher's data parallelism runs on plain tensors, one rank a card,
+with the state replicated, over JAX's ``(n, 1)`` ('data', 'model') mesh:
+``local_batch`` is this rank's rows of a global batch by the batch rule
+(the counterpart of ``device_put`` by ``batch_shardings``), and
+``rows_split`` marks a step whose batch rows are split over 'data', so
+that a layer that groups rows across the batch (the MoE dispatch) forms
+JAX's groups of the global batch (``gather_rows``).
+
 ``torch.distributed.tensor`` is imported only where a DTensor is built
 or met, so importing this module (the models do) costs nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 from typing import Any, Callable, Sequence
 
@@ -700,3 +709,87 @@ def replicate_call(fn: Callable, *args: Any, **kwargs: Any):
     if isinstance(out, (tuple, list)):
         return type(out)(wrap(o) for o in out)
     return wrap(out)
+
+
+# --------------------------------------------------------------------------
+# Data parallelism on plain tensors (the launcher on several ranks)
+# --------------------------------------------------------------------------
+
+
+def local_batch(batch: dict, mesh) -> tuple[dict, bool]:
+    """(this rank's rows of a global batch, whether the rows were split).
+
+    Each leaf's leading dim is split over the activation batch axes by
+    ``batch_spec``, this rank taking the chunk at its coordinate along
+    them; where their size does not divide it, every rank takes the
+    whole batch, as ``_maybe`` replicates it in JAX. The rows are views
+    of the batch."""
+    sizes = _axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index, ways = 0, 1
+    for a in _ACT_BATCH_AXES:
+        index = index * sizes[a] + coord[a]
+        ways *= sizes[a]
+    split = {k: v.ndim > 0 and batch_spec(tuple(v.shape), mesh)[0]
+             is not None for k, v in batch.items()}
+    if len(set(split.values())) > 1:
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        raise ValueError(f"batch leaves split unevenly over the data axes: "
+                         f"{shapes}")
+    if ways == 1 or not all(split.values()):
+        return batch, False
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // ways
+        out[k] = v[index * n:(index + 1) * n]
+    return out, True
+
+
+_SPLIT_ROWS = None
+
+
+@contextlib.contextmanager
+def rows_split(mesh):
+    """Within the block (a forward and its backward), the batch rows a
+    layer sees are this rank's share of a global batch split over the
+    mesh's 'data' axis."""
+    global _SPLIT_ROWS
+    prev, _SPLIT_ROWS = _SPLIT_ROWS, mesh
+    try:
+        yield
+    finally:
+        _SPLIT_ROWS = prev
+
+
+def split_rows():
+    """The mesh whose 'data' axis the batch rows are split over
+    (``rows_split``), or None."""
+    return _SPLIT_ROWS
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch (n * B, ...) of the n ranks' rows ``x`` (B, ...)
+    along the mesh's 'data' axis, rank-major. Its gradient is summed
+    over the ranks and each rank keeps its own rows: with the step's
+    mean of the ranks' gradients, a layer run on the gathered rows on
+    every rank gets the gradient of the one global computation."""
+    return _GatherRows.apply(x, mesh.get_group("data"),
+                             mesh.get_local_rank("data"))
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        import torch.distributed as dist
+        ctx.group, ctx.lo, ctx.rows = group, index * x.shape[0], x.shape[0]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group.size())]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.lo:ctx.lo + ctx.rows], None, None

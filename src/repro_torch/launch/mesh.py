@@ -9,7 +9,9 @@ importing this module initialises nothing: the mesh is built over the
 default process group, which the dry run (``launch.dryrun``) first makes
 the ``fake`` backend at world 256 or 512. One process holds one default
 group, so the production meshes and a host mesh over real cards never
-share a process.
+share a process. The training launcher builds JAX's ``(n, 1)``
+``('data', 'model')`` mesh over its ranks with ``_mesh`` directly, as
+JAX's calls ``jax.make_mesh``; ``make_host_mesh`` stays 1-D, as JAX's is.
 
 The constants are the NVIDIA H100 SXM's (the card the port runs on, an
 "NVIDIA H100 80GB HBM3" at its 700.00 W limit), each beside its source.

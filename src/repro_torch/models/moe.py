@@ -20,6 +20,14 @@ choice gathers its expert's output row back. The values are the same
 (a one-hot contraction adds exact zeros); the combine's k-term sum may
 round in another order. ``rows=True`` makes every batch row its own
 groups, as the JAX serve engine's vmapped batch-1 step groups them.
+
+Under the launcher on several ranks (``sharding.rows_split``) a rank
+holds its rows of the global batch, and the groups are JAX's groups of
+that global batch: where they hold whole shares, each rank dispatches
+its own (the ranks' mean aux loss is the mean over all groups); where a
+group spans ranks, every rank gathers the global batch's tokens
+(``sharding.gather_rows``), runs all its groups and keeps its own rows,
+so the dispatch, capacity, drops and aux loss are the one device's.
 """
 from __future__ import annotations
 
@@ -121,9 +129,9 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               act: str = "silu", rows: bool = False) -> tuple:
     """x: (B, S, d). Returns (out, aux_loss). On a mesh whose batch shards
     hold whole groups of the global batch, each device dispatches its own
-    tokens (``sharding.batch_local``)."""
-    mcfg = cfg.moe
-    b, s, d = x.shape
+    tokens (``sharding.batch_local``); a rank of a data-parallel step
+    groups as the global batch does (the module's docstring)."""
+    b, s, _ = x.shape
     t = b * s
     if rows:
         per_row, g = _group_shape(s)
@@ -137,6 +145,26 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             return sharding.batch_local(
                 lambda p_, x_: moe_apply(p_, cfg, x_, act=act, rows=rows),
                 p, x, whole=("router",))
+    mesh = sharding.split_rows()
+    if mesh is not None and not rows:
+        group = mesh.get_group("data")
+        n_all, g = _group_shape(group.size() * t)
+        if t % g:       # a group spans ranks
+            lo = mesh.get_local_rank("data") * b
+            out, aux = _grouped(p, cfg, sharding.gather_rows(x, mesh),
+                                n_all, g, act)
+            return out[lo:lo + b], aux
+        n_groups = t // g
+    return _grouped(p, cfg, x, n_groups, g, act)
+
+
+def _grouped(p: dict, cfg: ModelConfig, x: torch.Tensor, n_groups: int,
+             g: int, act: str) -> tuple:
+    """(out, aux) of x (B, S, d) dispatched as ``n_groups`` groups of
+    ``g`` consecutive tokens."""
+    mcfg = cfg.moe
+    b, s, d = x.shape
+    t = b * s
     cap = _capacity(mcfg, g)
     e = mcfg.n_experts
     xt = x.reshape(t, d)

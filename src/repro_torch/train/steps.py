@@ -1,6 +1,6 @@
 """Step factories: the training step and the serving pair.
 
-The port of ``repro.train.steps`` on one card, with no mesh:
+The port of ``repro.train.steps``, on one card or one rank a card:
 
   * ``make_train_step`` builds ``state, metrics = train_step(state,
     batch)``: loss and gradients (``torch.autograd.grad`` over the
@@ -13,6 +13,15 @@ The port of ``repro.train.steps`` on one card, with no mesh:
     ``metrics`` holds ``loss``, ``grad_norm``, ``step`` and
     ``comm_bytes`` (the measured wire bytes of the one fused message).
     The loss is the cross entropy plus the MoE router's aux loss.
+    Given a mesh (the launcher on several ranks, the state replicated),
+    the step takes the global batch, runs this rank's rows of it
+    (``sharding.local_batch``) and averages the loss and the gradient
+    over the 'data' axis (``reduce_over_data``: one all-reduce of one
+    flat buffer) before the clip, so the clip, the codec (under the
+    same key), the residual and the update run identically on every
+    rank and the replicas stay equal. With no mesh, a 'data' axis of
+    one rank, or a batch the axis does not divide (every rank then runs
+    the whole batch), it is the one-card step.
   * ``make_serve_step`` / ``make_bulk_prefill``: the decode step and
     the prompt loop, over the unrolled tree (``transformer``, the
     default, as JAX's) or the scanned one (``scan_layers=True``,
@@ -173,13 +182,48 @@ def value_and_grad(loss_fn, params, batch) -> tuple:
     return loss.detach(), pytree.tree_unflatten(treedef, grads)
 
 
+def reduce_over_data(loss: torch.Tensor, grads, mesh) -> tuple:
+    """(loss, gradient tree), each the mean over the ranks of the mesh's
+    'data' axis of the ranks' own: one all-reduce (a sum) of one fp32
+    buffer, the gradient's FlatLayout with the loss after it, then a
+    division by the rank count. Every rank gets the same bits."""
+    import torch.distributed as dist
+    group = mesh.get_group("data")
+    layout = compression.FlatLayout.from_tree(grads)
+    total = layout.total
+    flat = layout.flatten(grads, padded_len=total + 1)
+    flat[total] = loss
+    dist.all_reduce(flat, group=group)
+    flat.div_(group.size())
+    return flat[total].clone(), layout.unflatten(flat[:total])
+
+
+def data_value_and_grad(loss_fn, params, rows: dict, mesh) -> tuple:
+    """``value_and_grad`` of a rank's rows of a global batch split over
+    the mesh's 'data' axis (the model groups MoE tokens as the global
+    batch does), reduced over it: the loss and gradient of the global
+    batch."""
+    with sharding.rows_split(mesh):
+        loss, grads = value_and_grad(loss_fn, params, rows)
+    return reduce_over_data(loss, grads, mesh)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    step_cfg: TrainStepConfig = TrainStepConfig()):
+                    step_cfg: TrainStepConfig = TrainStepConfig(), *,
+                    mesh=None):
     q_codec = compression.codec(step_cfg.grad_compression)
     loss_fn = make_loss_fn(cfg, step_cfg)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        loss_val, grads = value_and_grad(loss_fn, state["params"], batch)
+        split = False
+        if mesh is not None:
+            batch, split = sharding.local_batch(batch, mesh)
+        if split:
+            loss_val, grads = data_value_and_grad(loss_fn, state["params"],
+                                                  batch, mesh)
+        else:
+            loss_val, grads = value_and_grad(loss_fn, state["params"],
+                                             batch)
         if step_cfg.grad_clip > 0:
             grads, grad_norm = clip_by_global_norm(grads, step_cfg.grad_clip)
         else:

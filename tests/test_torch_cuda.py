@@ -2,8 +2,8 @@
 the per-leaf launches, flash attention K6, the WKV6 scan K7) against
 their plain versions, and the serving, training, per-leaf exchange,
 int8-cache decode, prefill and embedding-frontend (M-RoPE, enc-dec)
-paths on ``cuda``. Every test needs an
-NVIDIA card (``cuda`` marker) and skips without one.
+paths on ``cuda``, and the training launcher on a world-1 NCCL group.
+Every test needs an NVIDIA card (``cuda`` marker) and skips without one.
 
 This file imports neither jax nor ``repro``, so it runs on a CUDA host
 without JAX, skipping the suite's conftest (which imports jax):
@@ -994,6 +994,42 @@ def test_host_mesh_builds_on_the_card(card):
         assert hm.device_type == "cuda"
     finally:
         dist.destroy_process_group()
+
+
+def test_world_one_nccl_launcher_is_the_one_card_launcher(card, tmp_path):
+    """``launch.train.main`` on a world-1 NCCL group made from torchrun's
+    variables (reduced repro-100m, rq4 + EF, 3 steps, K1 and K4 on the
+    card) ends with the one-card launcher's state, bit for bit, and
+    destroys the group it made."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    argv = ["--reduced", "--steps", "3", "--batch", "4", "--seq", "32",
+            "--compression", "rq4", "--error-feedback"]
+    kernel.reset_launches()
+    one = train.main(argv)
+    assert kernel.qdq_bucketed.launches == 3    # one bucket: one K4 a step
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ranked = train.main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    assert not dist.is_initialized()
+    assert kernel.qdq_bucketed.launches == 6
+    for a, b in zip(pytree.tree_leaves(one), pytree.tree_leaves(ranked)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
 
 
 def test_dry_run_estimate_of_a_train_step_holds_on_the_card(card, tmp_path):
