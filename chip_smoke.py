@@ -15,8 +15,10 @@ gradients per leaf (the per-leaf codec tier), decodes full-width
 qwen1.5-0.5b and granite-8b on the unrolled tree with and without the
 int8 KV cache, and prefills and decodes the embedding frontends at full
 width: qwen2-vl-72b (M-RoPE on a patch grid, bf16, 32 of its 80 layers)
-and seamless-m4t-large-v2 (the encoder-decoder), and trains full-width
-repro-100m through the launcher on several ranks (data parallelism).
+and seamless-m4t-large-v2 (the encoder-decoder), trains full-width
+repro-100m through the launcher on several ranks (data parallelism), and
+runs the paper's rq4 partitioned ring and DCD gossip with one worker a
+rank (the ring's hops sent between processes).
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -203,7 +205,25 @@ Phases (any failure raises and the script exits non-zero):
      repro-100m is and to one gather a MoE layer and step where it
      spans; and, at its full width, one MoE layer's forward and backward
      over the global batch against a rank's own rows (the extra work of
-     a spanning group) and, on ranks, the gather's forward and backward.
+     a spanning group) and, on ranks, the gather's forward and backward;
+ 16. ranks, the paper's exchanges on a real worker axis: the ring cell
+     (full-width repro-100m, 2 x 256 rows a worker, plain SGD, the rq4
+     partitioned ring) through run_distributed(axis_name=RankAxis()),
+     one worker a rank (``chip_smoke.py --ranks-rank OUT`` children):
+     NCCL at world = the card count where there are two cards or more,
+     and RING_WORKERS gloo ranks sharing card 0 always (their messages
+     copied through the host). RANKS_STEPS steps: every rank's final
+     params, losses and step-0 update equal bit for bit, consensus 0,
+     step 0 equal to the stacked ring's (one step of RING_WORKERS stacked
+     workers in this process) at RING_WORKERS ranks; a rank's launches a
+     step as the geometry gives them (K1 once, K2 once or twice, K5 N-1
+     times, K3 twice a partition) and the bytes it sent equal to
+     message_bytes (96,746,880 at N = 4); step ms (its batch drawn to its
+     exchange's end), exchange ms, a hop's wire, K5 and both (CUDA
+     events) and its message bytes, a breakdown of the step; then
+     RANKS_DCD_STEPS steps of DCD rq4 gossip on the ring, each rank's
+     replicas equal to their sources' public copies bit for bit, launches
+     and bytes from the geometry. A failed rank fails the run.
 
 Kernel times are medians of samples that each time a run of
 back-to-back calls (about SAMPLE_MS of work) between CUDA events.
@@ -1455,57 +1475,77 @@ def dae_phase(torch) -> dict:
 
 
 class CountingExchange:
-    """Wraps an exchange: the kernel launches and the host time of each
-    call (synchronized), for the smoke's per-step checks."""
+    """Wraps an exchange or a gossip operator: the kernel launches and the
+    host time of each call (synchronized), for the smoke's per-step
+    checks; on ranks (``axis_name``) also the bytes the call sent and the
+    time it ended. Everything else (``init``, ``init_stacked``,
+    ``message_bytes``) is the inner one's."""
 
     def __init__(self, inner):
         self.inner = inner
         self.calls = []
+        self.sent = []
+        self.ends = []
+        self.last = None
 
-    def init(self, params_w):
-        return self.inner.init(params_w)
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
-    def message_bytes(self, tree, **kw):
-        return self.inner.message_bytes(tree, **kw)
-
-    def __call__(self, grad, state, key):
+    def __call__(self, *args, **kw):
         import torch
         from repro_torch.kernels.quant import kernel
+        axis = kw.get("axis_name")
         torch.cuda.synchronize()
         before = kernel.launch_counts()
+        sent = axis.sent_bytes if axis is not None else 0
         t0 = time.perf_counter()
-        out = self.inner(grad, state, key)
+        out = self.inner(*args, **kw)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
         after = kernel.launch_counts()
-        self.calls.append(({k: after[k] - before[k] for k in after}, ms))
+        self.calls.append(({k: after[k] - before[k] for k in after},
+                           (t1 - t0) * 1e3))
+        if axis is not None:
+            self.sent.append(axis.sent_bytes - sent)
+            self.ends.append(t1)
+            self.last = out
         return out
+
+
+def ring_problem(torch, device):
+    """The ring cell's model and data on ``device``: full-width
+    repro-100m from RING_SEED, its loss, a batch maker (RING_BATCH x
+    RING_SEQ tokens from a key) and the evaluation batch."""
+    from repro_torch import configs
+    from repro_torch.core import compression, prng
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    params0 = transformer.init(
+        cfg, torch.Generator(device=device).manual_seed(RING_SEED))
+    layout = compression.FlatLayout.from_tree(params0)
+    if layout.total != TRAIN_TOTAL:
+        raise AssertionError(f"{TRAIN_ARCH}: {layout.total} parameters")
+
+    def make_batch(key):
+        tok = prng.randint(key, (RING_BATCH, RING_SEQ + 1), 0, cfg.vocab,
+                           device=device)
+        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    return (params0, steps.make_loss_fn(cfg), make_batch,
+            make_batch(prng.PRNGKey(RING_SEED + 1)))
 
 
 def ring_phase(torch) -> dict:
     """Full-width repro-100m, 4 workers stacked on the card, rq4
     partitioned ring, plain SGD, RING_STEPS steps of run_distributed."""
-    from repro_torch import configs
-    from repro_torch.core import communicators, compression, parallel, prng
+    from repro_torch.core import communicators, parallel
     from repro_torch.kernels.quant import kernel
-    from repro_torch.models import transformer
     from repro_torch.train import steps
 
     timing = dae_phase(torch)
-    cfg = configs.get_config(TRAIN_ARCH)
-    params0 = transformer.init(
-        cfg, torch.Generator(device="cuda").manual_seed(RING_SEED))
-    layout = compression.FlatLayout.from_tree(params0)
-    if layout.total != TRAIN_TOTAL:
-        raise AssertionError(f"{TRAIN_ARCH}: {layout.total} parameters")
-    loss_fn = steps.make_loss_fn(cfg)
-
-    def make_batch(key):
-        tok = prng.randint(key, (RING_BATCH, RING_SEQ + 1), 0, cfg.vocab,
-                           device="cuda")
-        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
-
-    eval_batch = make_batch(prng.PRNGKey(RING_SEED + 1))
+    params0, loss_fn, make_batch, eval_batch = ring_problem(torch, "cuda")
     marks = []
 
     def sample_batch(key, worker):
@@ -3146,10 +3186,7 @@ def leaf_phase(torch, flat_ring_ms: float) -> dict:
     workers (the main path), a breakdown, and a reduced card vs CPU
     check. ``flat_ring_ms`` is the ring phase's partitioned flat ring
     step, printed beside the per-leaf ring's."""
-    from repro_torch import configs
-    from repro_torch.core import compression, prng
-    from repro_torch.models import transformer
-    from repro_torch.train import steps
+    from repro_torch.core import compression
 
     t0 = time.perf_counter()
     errs: dict = {}
@@ -3174,23 +3211,12 @@ def leaf_phase(torch, flat_ring_ms: float) -> dict:
         + json.dumps(timing))
     torch.cuda.empty_cache()
 
-    cfg = configs.get_config(TRAIN_ARCH)
-    params0 = transformer.init(
-        cfg, torch.Generator(device="cuda").manual_seed(RING_SEED))
+    params0, loss_fn, make_batch, eval_batch = ring_problem(torch, "cuda")
     layout = compression.FlatLayout.from_tree(params0)
-    if (layout.total, len(layout.sizes), sorted(set(layout.sizes))) != \
-            (TRAIN_TOTAL, LEAF_LEAVES, sorted(LEAF_SIZES)):
-        raise AssertionError(f"{TRAIN_ARCH}: {layout.total} parameters in "
-                             f"{len(layout.sizes)} leaves of sizes "
-                             f"{sorted(set(layout.sizes))}")
-    loss_fn = steps.make_loss_fn(cfg)
-
-    def make_batch(key):
-        tok = prng.randint(key, (RING_BATCH, RING_SEQ + 1), 0, cfg.vocab,
-                           device="cuda")
-        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
-
-    eval_batch = make_batch(prng.PRNGKey(RING_SEED + 1))
+    if (len(layout.sizes), sorted(set(layout.sizes))) != \
+            (LEAF_LEAVES, sorted(LEAF_SIZES)):
+        raise AssertionError(f"{TRAIN_ARCH}: {len(layout.sizes)} leaves of "
+                             f"sizes {sorted(set(layout.sizes))}")
     runs = {}
     launches: dict = {}
     for name, compressor in LEAF_RUNS:
@@ -4054,10 +4080,7 @@ def dp_record(torch, args, run) -> dict:
     host clock around a synchronize: losses, grad norms, K1/K4 launches
     a step, comm bytes against the wire, peak memory and the final
     state's SHA-256 a leaf."""
-    import hashlib
-
-    import numpy as np
-    from repro_torch.core import compression, pytree
+    from repro_torch.core import compression
     from repro_torch.kernels.quant import kernel
     from repro_torch.launch import train
 
@@ -4088,10 +4111,20 @@ def dp_record(torch, args, run) -> dict:
     out["peak"] = torch.cuda.max_memory_allocated()
     out["total_launches"] = {k: kernel.launch_counts()[k]
                              for k in TRAIN_KERNELS}
-    out["sha256"] = [hashlib.sha256(np.ascontiguousarray(
-        leaf.detach().cpu().numpy()).view(np.uint8)).hexdigest()
-        for leaf in pytree.tree_leaves(run["state"])]
+    out["sha256"] = leaf_sha256(run["state"])
     return out
+
+
+def leaf_sha256(tree) -> list:
+    """SHA-256 of every leaf's bytes, in leaf order."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.core import pytree
+
+    return [hashlib.sha256(np.ascontiguousarray(
+        leaf.detach().cpu().numpy()).view(np.uint8)).hexdigest()
+        for leaf in pytree.tree_leaves(tree)]
 
 
 def dp_reduce_ms(torch, run) -> tuple:
@@ -4292,15 +4325,15 @@ def dp_child(out_path: str, gloo) -> int:
     return 0
 
 
-def dp_spawn(argvs: list, envs: list) -> list:
+def dp_spawn(argvs: list, envs: list, timeout: int = DP_TIMEOUT) -> list:
     """Run ``chip_smoke.py`` ranks side by side to their end; any failure
-    (or DP_TIMEOUT) kills them all and raises."""
+    (or ``timeout`` s) kills them all and raises."""
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                *a], cwd=ROOT, env=e, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for a, e in zip(argvs, envs)]
     try:
-        outs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4308,7 +4341,7 @@ def dp_spawn(argvs: list, envs: list) -> list:
                 p.wait()
     for p, out in zip(procs, outs):
         if p.returncode != 0:
-            raise AssertionError(f"dp rank exited {p.returncode}:\n"
+            raise AssertionError(f"rank exited {p.returncode}:\n"
                                  f"{out[-4000:]}")
     return outs
 
@@ -4490,15 +4523,428 @@ def dp_phase(torch, card: str) -> dict:
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# ranks phase (the paper's exchanges on a real worker axis: one worker a
+# rank, the rq4 partitioned ring's hops sent between processes)
+# ---------------------------------------------------------------------------
+
+# the ring cell (full-width repro-100m, RING_BATCH x RING_SEQ rows a
+# worker, plain SGD) through run_distributed(axis_name=...): RANKS_STEPS
+# ring steps, then RANKS_DCD_STEPS steps of DCD rq4 gossip on the ring
+RANKS_STEPS = 4
+RANKS_DCD_STEPS = 2
+RANKS_TIMEOUT = 300
+RANKS_HOP_REPS = 5
+
+
+def ranks_stacked_step0(torch) -> list:
+    """SHA-256 of every leaf of the ring cell's workers after step 0 on
+    RING_WORKERS stacked workers (its x̄: the workers are equal), the
+    reference the ranks' step 0 is held to."""
+    from repro_torch.core import communicators, parallel
+
+    params0, loss_fn, make_batch, eval_batch = ring_problem(torch, "cuda")
+    seen = []
+
+    def full_loss(p):
+        seen.append(leaf_sha256(p))
+        return loss_fn(p, eval_batch)
+
+    res = parallel.run_distributed(
+        loss_fn, full_loss, lambda p: [torch.zeros(())], params0,
+        lambda key, worker: make_batch(key), n_workers=RING_WORKERS,
+        steps=1, lr=RING_LR,
+        exchange=communicators.CSGDRingExchange(compressor="rq4"),
+        seed=RING_SEED, device="cuda")
+    if float(res.consensus[0]) != 0.0:
+        raise AssertionError("stacked ring workers differ after step 0")
+    return seen[0]
+
+
+def ranks_ring(torch, axis, device, problem) -> dict:
+    """RANKS_STEPS steps of the rq4 partitioned ring, one worker this
+    rank: losses, consensus, each step's launches, bytes sent, step ms
+    (its batch drawn to its exchange's end) and exchange ms (host clock
+    around a synchronize), step 0's x̄ and the final params (SHA-256)."""
+    from repro_torch.core import communicators, parallel
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.train import steps
+
+    params0, loss_fn, make_batch, eval_batch = problem
+    starts, step0 = [], []
+
+    def sample_batch(key, worker):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return make_batch(key)
+
+    def full_loss(p):
+        if not step0:
+            step0.append(leaf_sha256(p))
+        return loss_fn(p, eval_batch)
+
+    ring = communicators.CSGDRingExchange(compressor="rq4")
+    ex = CountingExchange(ring)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    res = parallel.run_distributed(
+        loss_fn, full_loss,
+        lambda p: steps.value_and_grad(loss_fn, p, eval_batch)[1], params0,
+        sample_batch, n_workers=axis.n, steps=RANKS_STEPS, lr=RING_LR,
+        exchange=ex, seed=RING_SEED, device=device, axis_name=axis)
+    torch.cuda.synchronize()
+    return {"losses": [float(v) for v in res.losses],
+            "consensus": [float(v) for v in res.consensus],
+            "launches": [{k: v for k, v in per.items() if v}
+                         for per, _ in ex.calls],
+            "total_launches": kernel.launch_counts(),
+            "sent": ex.sent,
+            "message_bytes": ring.message_bytes(params0, n_workers=axis.n),
+            "step_ms": [(e - s) * 1e3 for s, e in zip(starts, ex.ends)],
+            "exchange_ms": [ms for _, ms in ex.calls],
+            "peak": torch.cuda.max_memory_allocated(device),
+            "step0": step0[0], "final": leaf_sha256(res.params)}
+
+
+def ranks_hop(torch, axis, device) -> dict:
+    """One reduce-scatter hop at the full-width partition geometry, CUDA
+    events around RANKS_HOP_REPS calls each (a warm-up first): the
+    partition message's ppermute one step right (the wire), K5 alone
+    (the decode, add and re-encode), and both."""
+    from repro_torch.core import compression, prng
+
+    cdc = compression.codec("rq4")
+    n = axis.n
+    part, _, _ = cdc.partition_geometry(TRAIN_TOTAL, n)
+    gen = torch.Generator(device=device).manual_seed(RING_SEED + 7)
+    x = torch.randn((part,), generator=gen, device=device) * 0.01
+    pay, prm = cdc.encode_partition(x, prng.PRNGKey(1))
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    key = prng.PRNGKey(2)
+
+    def timed(fn) -> float:
+        times = []
+        for _ in range(RANKS_HOP_REPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times = sorted(times[1:])
+        return times[len(times) // 2]
+
+    return {"wire_ms": timed(lambda: axis.ppermute((pay, prm), perm)),
+            "k5_ms": timed(lambda: cdc.decode_add_encode_partition(
+                pay, prm, x, key)),
+            "hop_ms": timed(lambda: cdc.decode_add_encode_partition(
+                *axis.ppermute((pay, prm), perm), x, key)),
+            "message_bytes": pay.nbytes + prm.nbytes}
+
+
+def ranks_breakdown(torch, axis, device, problem) -> dict:
+    """Where a rank's ring step goes: its forward and backward, then the
+    stages of the ring exchange itself (``CSGDRingExchange`` on
+    ``axis``), each call timed on the host clock around a synchronize as
+    the exchange makes it: the flatten and pad, its partition's encode
+    (plain-torch draws, K1, K2), the N-1 reduce-scatter hops (ppermute,
+    K5), the N-1 all-gather ppermutes and the final decode (K3); the
+    rest of the call is ``other_ms``. Every rank runs the same calls in
+    the same order. Medians of RANKS_HOP_REPS exchanges after a warm-up;
+    fails if the exchange made other calls than these."""
+    from repro_torch.core import communicators, compression, prng
+    from repro_torch.train import steps
+
+    params0, loss_fn, make_batch, _ = problem
+    n = axis.n
+    batch = make_batch(prng.PRNGKey(77))
+    grad = steps.value_and_grad(loss_fn, params0, batch)[1]
+    ring = communicators.CSGDRingExchange(compressor="rq4")
+    cdc = compression.codec("rq4")
+    stages = [(compression.FlatLayout, "flatten", "flatten"),
+              (type(cdc), "encode_partition", "encode"),
+              (communicators.RankAxis, "ppermute", "ppermute"),
+              (type(cdc), "decode_add_encode_partition", "k5"),
+              (type(cdc), "flat_decode_partitioned", "decode")]
+    want = (["flatten", "encode"] + ["ppermute", "k5"] * (n - 1)
+            + ["ppermute"] * (n - 1) + ["decode"])
+    calls, depth = [], [0]
+
+    def timed(fn, name):
+        def wrapper(*a, **k):
+            if depth[0]:                        # a stage inside a stage
+                return fn(*a, **k)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                calls.append((name, (time.perf_counter() - t) * 1e3))
+                depth[0] -= 1
+        return wrapper
+
+    originals = [(cls, attr, vars(cls)[attr]) for cls, attr, _ in stages]
+    reps = []
+    try:
+        for cls, attr, name in stages:
+            setattr(cls, attr, timed(vars(cls)[attr], name))
+        state = ring.init(grad, axis_name=axis)
+        for _ in range(RANKS_HOP_REPS + 1):
+            calls.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ring(grad, state, prng.PRNGKey(78), axis_name=axis)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t) * 1e3
+            if [c for c, _ in calls] != want:
+                raise AssertionError("the ring exchange's stages changed: "
+                                     f"{[c for c, _ in calls]}")
+            ms = [m for _, m in calls]
+            reps.append({
+                "exchange_ms": total, "flatten_pad_ms": ms[0],
+                "encode_ms": ms[1],
+                "reduce_scatter_ms": sum(ms[2:2 * n]),
+                "reduce_scatter_wire_ms": sum(ms[2:2 * n:2]),
+                "all_gather_ms": sum(ms[2 * n:3 * n - 1]),
+                "decode_ms": ms[-1], "other_ms": total - sum(ms)})
+    finally:
+        for cls, attr, fn in originals:
+            setattr(cls, attr, fn)
+    reps = reps[1:]
+    out = {k: sorted(r[k] for r in reps)[len(reps) // 2] for k in reps[0]}
+    out["fwd_bwd_ms"] = host_ms(torch, lambda: steps.value_and_grad(
+        loss_fn, params0, batch), reps=3)
+    return out
+
+
+def ranks_dcd(torch, axis, device, problem) -> dict:
+    """RANKS_DCD_STEPS steps of DCD rq4 gossip on the ring (local SGD
+    steps, the packed deltas sent to each Birkhoff term's destination):
+    losses, each step's launches and bytes sent, and SHA-256 of this
+    rank's public copy and of its replicas, with each replica's source
+    rank."""
+    from repro_torch.core import communicators, parallel
+    from repro_torch.kernels.quant import kernel
+    from repro_torch.train import steps
+
+    params0, loss_fn, make_batch, eval_batch = problem
+    dcd = CountingExchange(communicators.DCDGossipExchange(compressor="rq4"))
+    kernel.reset_launches()
+    res = parallel.run_distributed(
+        loss_fn, lambda p: loss_fn(p, eval_batch),
+        lambda p: steps.value_and_grad(loss_fn, p, eval_batch)[1], params0,
+        lambda key, worker: make_batch(key), n_workers=axis.n,
+        steps=RANKS_DCD_STEPS, lr=RING_LR,
+        exchange=parallel.LocalExchange(), gossip=dcd, seed=RING_SEED,
+        device=device, axis_name=axis)
+    torch.cuda.synchronize()
+    state = dcd.last[1]
+    _, terms = dcd.birkhoff_terms(axis.n)
+    return {"losses": [float(v) for v in res.losses],
+            "consensus": [float(v) for v in res.consensus],
+            "launches": [{k: v for k, v in per.items() if v}
+                         for per, _ in dcd.calls],
+            "total_launches": kernel.launch_counts(),
+            "sent": dcd.sent,
+            "message_bytes": dcd.message_bytes(params0, n_workers=axis.n),
+            "mix_ms": [ms for _, ms in dcd.calls],
+            "xhat": leaf_sha256(state["xhat"]),
+            "nbr": [leaf_sha256(state["nbr"][k])
+                    for k in range(len(terms))],
+            "sources": [[s for s, d in perm if d == axis.index][0]
+                        for _, perm in terms]}
+
+
+def ranks_child(out_path: str, gloo) -> int:
+    """One rank of the ranks phase (``chip_smoke.py --ranks-rank OUT``):
+    an NCCL group from torchrun's variables (one rank a card), or
+    (``--gloo RDV RANK WORLD``) a gloo group whose ranks share card 0;
+    then ``ranks_ring``, ``ranks_hop`` and ``ranks_dcd`` to
+    ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import communicators
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0 if gloo else
+                          int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(device)
+    if gloo:
+        rdv, rank, world = gloo
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=int(rank), world_size=int(world))
+    else:
+        dist.init_process_group("nccl", device_id=device)
+    try:
+        axis = communicators.RankAxis()
+        problem = ring_problem(torch, device)
+        res = {"rank": axis.index, "world": axis.n,
+               "backend": axis.backend,
+               "ring": ranks_ring(torch, axis, device, problem)}
+        res["hop"] = ranks_hop(torch, axis, device)
+        res["breakdown"] = ranks_breakdown(torch, axis, device, problem)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["dcd"] = ranks_dcd(torch, axis, device, problem)
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def ranks_want(n: int) -> tuple:
+    """A rank's launches a step from the geometry: the ring (K1 and K2
+    encode its own partition, K5 n - 1 hops, K3 decodes n partitions)
+    and DCD rq4 on the ring (one whole-model encode, its own decode and
+    one a neighbour)."""
+    from repro_torch.core import communicators
+    from repro_torch.kernels.quant import ops
+
+    _, nb_p, _ = ops.partition_geometry(TRAIN_TOTAL, n, bits=4)
+    per = 1 if nb_p == 1 else 2          # launches an encode or a decode
+    ring = {"minmax_bucketed": 1, "encode_packed": per,
+            "decode_add_encode_bucketed": n - 1, "decode_packed": n * per}
+    k = len(communicators.DCDGossipExchange().birkhoff_terms(n)[1])
+    return ring, {"minmax_bucketed": 1, "encode_packed": 2,
+                  "decode_packed": 2 * (1 + k)}
+
+
+def ranks_check(ranks: list, backend: str, world: int, step0: list) -> None:
+    """The ranks of one run: ``backend`` at ``world``; each step's
+    launches as the geometry gives them and bytes sent equal to
+    ``message_bytes``; consensus 0 and every rank's final params, losses
+    and step-0 update equal (bit for bit), step 0 equal to the stacked
+    ring's at RING_WORKERS; DCD's replicas equal their sources' public
+    copies bit for bit."""
+    want_ring, want_dcd = ranks_want(world)
+    for res in ranks:
+        if (res["backend"], res["world"]) != (backend, world):
+            raise AssertionError(f"ran {res['backend']} at world "
+                                 f"{res['world']}, not {backend} {world}")
+        for part, want in (("ring", want_ring), ("dcd", want_dcd)):
+            run = res[part]
+            for t, per in enumerate(run["launches"]):
+                if per != want:
+                    raise AssertionError(f"{backend} rank {res['rank']} "
+                                         f"{part} step {t}: launches {per}, "
+                                         f"the geometry gives {want}")
+            if any(b != run["message_bytes"] for b in run["sent"]):
+                raise AssertionError(f"{backend} rank {res['rank']} {part}:"
+                                     f" sent {run['sent']} B, message_bytes"
+                                     f" {run['message_bytes']}")
+            if not all(math.isfinite(v) for v in run["losses"]):
+                raise AssertionError(f"{part}: non-finite loss")
+        ring = res["ring"]
+        if any(c != 0.0 for c in ring["consensus"]):
+            raise AssertionError(f"{backend}: consensus {ring['consensus']}")
+        for key in ("final", "step0", "losses"):
+            if ring[key] != ranks[0]["ring"][key]:
+                raise AssertionError(f"{backend}: replicas differ ({key})")
+        dcd = res["dcd"]
+        for src, got in zip(dcd["sources"], dcd["nbr"]):
+            if got != ranks[src]["dcd"]["xhat"]:
+                raise AssertionError(f"{backend} rank {res['rank']}: DCD "
+                                     f"replica of rank {src} differs")
+    if world == RING_WORKERS and ranks[0]["ring"]["step0"] != step0:
+        raise AssertionError(f"{backend}: step 0 differs from the stacked "
+                             "ring's")
+
+
+def ranks_summary(name: str, res: dict, card: str) -> dict:
+    ring, hop = res["ring"], res["hop"]
+    med = sorted(ring["step_ms"][1:])[len(ring["step_ms"][1:]) // 2]
+    row = {"run": name, "rank": res["rank"], "world": res["world"],
+           "backend": res["backend"], "median_step_ms": med,
+           "first_step_ms": ring["step_ms"][0],
+           "exchange_ms": ring["exchange_ms"],
+           "tokens_per_s": res["world"] * RING_BATCH * RING_SEQ / (
+               med / 1e3),
+           "sent_bytes_per_step": ring["sent"][0],
+           "hop": hop, "breakdown": res["breakdown"],
+           "dcd_mix_ms": res["dcd"]["mix_ms"],
+           "dcd_sent_bytes_per_step": res["dcd"]["sent"][0],
+           "max_memory_allocated": ring["peak"],
+           "losses": ring["losses"], "card": card}
+    if res["backend"] == "gloo":
+        row["through"] = "the host (gloo: host copies and TCP loopback)"
+    log("[ranks] " + json.dumps(row))
+    return row
+
+
+def ranks_phase(torch, card: str) -> dict:
+    """The ring cell through run_distributed(axis_name=...), one worker a
+    rank: NCCL at world = the card count where there are two cards or
+    more, and RING_WORKERS gloo ranks sharing card 0 always. Each run:
+    the replicas bit for bit, step 0 equal to the stacked ring's (at
+    RING_WORKERS), launches and bytes from the geometry; the hop's wire,
+    K5 and both timed; a short DCD rq4 run, its replicas bit for bit."""
+    import socket
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    step0 = ranks_stacked_step0(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks = {"stacked step 0": time.perf_counter() - t0}
+    tmp = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
+    n = torch.cuda.device_count()
+    runs = {}
+    if n >= 2:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        outs = [tmp / f"nccl{r}.json" for r in range(n)]
+        dp_spawn([["--ranks-rank", str(o)] for o in outs],
+                 [dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port)) for r in range(n)],
+                 timeout=RANKS_TIMEOUT)
+        runs["nccl", n] = [json.loads(o.read_text()) for o in outs]
+        marks["nccl"] = time.perf_counter() - t0
+    outs = [tmp / f"gloo{r}.json" for r in range(RING_WORKERS)]
+    dp_spawn([["--ranks-rank", str(o), "--gloo", str(tmp / "rdv"), str(r),
+               str(RING_WORKERS)] for r, o in enumerate(outs)],
+             [dict(os.environ) for _ in outs], timeout=RANKS_TIMEOUT)
+    runs["gloo", RING_WORKERS] = [json.loads(o.read_text()) for o in outs]
+    marks["gloo"] = time.perf_counter() - t0
+    rows = []
+    launches: dict = {}
+    for (backend, world), ranks in runs.items():
+        ranks_check(ranks, backend, world, step0)
+        for res in ranks:
+            rows.append(ranks_summary(f"{backend}-{world}", res, card))
+            for part in ("ring", "dcd"):
+                for k, v in res[part]["total_launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        log(f"[ranks] {backend} world {world}: replicas bit for bit, "
+            + ("step 0 equal to the stacked ring's bit for bit, "
+               if world == RING_WORKERS else "")
+            + f"{ranks[0]['ring']['sent'][0]} B sent a rank a step "
+            "(message_bytes), launches a step as the geometry gives them, "
+            "DCD's replicas equal their sources' public copies")
+    wall = time.perf_counter() - t0
+    shutil.rmtree(tmp)
+    log(f"[ranks] phase wall time {wall:.1f} s; at the end of each part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()))
+    return {"rows": rows, "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--dp-rank"]:      # one rank of the dp phase
+    if sys.argv[1:2] in (["--dp-rank"], ["--ranks-rank"]):  # one rank
         gloo = sys.argv[4:7] if sys.argv[3:4] == ["--gloo"] else None
-        return dp_child(sys.argv[2], gloo)
+        child = dp_child if sys.argv[1] == "--dp-rank" else ranks_child
+        return child(sys.argv[2], gloo)
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attn import kernel as flash
     from repro_torch.kernels.quant import kernel
@@ -4535,6 +4981,7 @@ def main() -> int:
     fronted = frontends_phase(torch)
     mesh_phase(torch)
     dp = dp_phase(torch, card)
+    ranked = ranks_phase(torch, card)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -4550,7 +4997,8 @@ def main() -> int:
                                     "families": families["launches"],
                                     "leaf": leafed["launches"],
                                     "frontends": fronted["launches"],
-                                    "dp": dp["launches"]}))
+                                    "dp": dp["launches"],
+                                    "ranks": ranked["launches"]}))
     rows = []
     for name, (replaces, source, bound_by) in KERNELS.items():
         t = timing[name]
@@ -4565,6 +5013,7 @@ def main() -> int:
                          + fronted["launches"][name])   # paths
         if name in TRAIN_KERNELS:        # and K1, K4 the dp phase's runs
             launches += dp["launches"][name]
+        launches += ranked["launches"].get(name, 0)   # the ranks' ring, DCD
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],

@@ -1,19 +1,28 @@
 """The paper's system relaxations as composable gradient/model exchanges,
-over a stacked worker dimension.
+over a stacked worker dimension or over the ranks of a process group.
 
 The port of ``repro.core.communicators``. JAX runs each exchange per
-worker under ``vmap(axis_name=...)`` with collectives over the named
-axis; here that map is written out. An exchange takes the STACKED
-gradient tree (every leaf has a leading worker dim N) and its stacked
-state, and returns the stacked update and state:
+worker under ``vmap``/``shard_map`` with collectives over a named axis.
+The port has two forms of that axis, chosen by ``axis_name``:
 
-  * ``lax.ppermute(x, perm)`` is a gather on dim 0 (``_ppermute``);
-  * ``lax.pmean`` is a mean over dim 0, broadcast back to every row;
-  * ``axis_index`` is the row number, and ``_worker_key(key)`` is
-    ``fold_in(key, i)`` for row i.
+  * ``axis_name=None`` (the default): the map written out over a
+    STACKED worker dimension on one device. An exchange takes the
+    stacked gradient tree (every leaf has a leading worker dim N) and
+    its stacked state, and returns the stacked update and state;
+    ``lax.ppermute(x, perm)`` is a gather on dim 0 (``_ppermute``),
+    ``lax.pmean`` a mean over dim 0, ``axis_index`` the row number.
+  * ``axis_name=`` a ``RankAxis`` (``RankAxis(group)`` over a
+    ``torch.distributed`` process group): one worker a rank, as JAX's
+    exchanges under ``shard_map``. An exchange takes this rank's own tree and
+    state; ``ppermute`` is point-to-point sends and receives (one
+    ``batch_isend_irecv`` a call), ``pmean`` an all-reduce and a true
+    division by N, ``axis_index`` the rank. ``init(params,
+    axis_name=...)`` (``init_stacked`` for DCD/ECD) builds one rank's
+    state from its own tree.
 
-Names, keys and argument order are otherwise JAX's, so both packages
-draw the same bits and the ring's chains are bit-identical to JAX's.
+``_worker_key`` is ``fold_in(key, i)`` for worker i in both. Names, keys
+and argument order are otherwise JAX's, so both packages draw the same
+bits and the ring's chains are bit-identical to JAX's.
 
   MbSGDExchange      distributed baseline, Eq. (2.2)        pmean
   CSGDPSExchange     Eq. (3.2)  Q(1/N sum Q(g_n))           multi-server PS form
@@ -97,6 +106,126 @@ def _pmean(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=0, keepdim=True).expand_as(x)
 
 
+class RankAxis:
+    """The worker axis over a ``torch.distributed`` process group: one
+    worker a rank, the port's counterpart of a JAX ``axis_name`` under
+    ``shard_map``.
+
+    ``n`` is the group's size and ``index`` this rank's worker id.
+    ``ppermute`` and ``psum``/``pmean`` are JAX's collectives;
+    ``sent_bytes`` counts the bytes this rank has sent to other ranks
+    through ``ppermute``. A gloo group carries CUDA tensors point to
+    point through the host, copied explicitly (gloo's send and receive
+    take CPU tensors); an NCCL group sends them from the card. A failed
+    send, receive or reduction raises.
+    """
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = group
+        self.n = dist.get_world_size(group)
+        self.index = dist.get_rank(group)
+        self.backend = str(dist.get_backend(group))
+        self.sent_bytes = 0
+        self._joined = False
+
+    def _peer(self, i: int) -> int:
+        return i if self.group is None else \
+            self._dist.get_global_rank(self.group, i)
+
+    def _join(self, device) -> None:
+        """The group's first collective includes every rank (NCCL's rule
+        for a first ``batch_isend_irecv``): one all-reduce of one
+        element at the axis's first ``ppermute``, which every rank
+        calls, whether or not it sends or receives in it."""
+        if not self._joined:
+            self._dist.all_reduce(torch.zeros((1,), device=device),
+                                  group=self.group)
+            self._joined = True
+
+    def ppermute(self, x, perm):
+        """``lax.ppermute``: worker dst receives worker src's ``x`` for
+        each (src, dst) pair of ``perm``; a rank that receives nothing
+        gets zeros, a fixed point (i, i) a local copy. ``x`` is a tensor
+        or a list/tuple of tensors, moved in ONE batch of sends and
+        receives; returns what this rank received, in the same form."""
+        dist = self._dist
+        many = isinstance(x, (list, tuple))
+        xs = list(x) if many else [x]
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+                not all(0 <= v < self.n for v in srcs + dsts):
+            raise ValueError(f"{perm} is not a permutation of {self.n} "
+                             "workers")
+        self._join(xs[0].device)
+        me = self.index
+        to = [d for s, d in perm if s == me]
+        frm = [s for s, d in perm if d == me]
+        if not frm:
+            outs = [torch.zeros_like(t) for t in xs]
+        elif frm[0] == me:
+            outs = [t.clone() for t in xs]
+        else:
+            outs = [torch.empty(tuple(t.shape), dtype=t.dtype,
+                                device=t.device) for t in xs]
+        remote_to = bool(to) and to[0] != me
+        remote_from = bool(frm) and frm[0] != me
+        if remote_to or remote_from:
+            staged = "nccl" not in self.backend and xs[0].is_cuda
+            host = (lambda t: t.detach().cpu()) if staged else \
+                (lambda t: t.detach().contiguous())
+            recv = [torch.empty(tuple(t.shape), dtype=t.dtype, device="cpu")
+                    if staged else o for t, o in zip(xs, outs)]
+            ops = []
+            if remote_to:
+                peer = self._peer(to[0])
+                for t in xs:
+                    ops.append(dist.P2POp(dist.isend, host(t), peer,
+                                          self.group))
+                self.sent_bytes += sum(t.numel() * t.element_size()
+                                       for t in xs)
+            if remote_from:
+                peer = self._peer(frm[0])
+                ops += [dist.P2POp(dist.irecv, r, peer, self.group)
+                        for r in recv]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            if staged and remote_from:
+                for o, r in zip(outs, recv):
+                    o.copy_(r)
+        return outs if many else outs[0]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum``: the sum over the workers, on every rank (a new
+        tensor)."""
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        return out
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.pmean``: the sum over the workers, truly divided by N."""
+        return self.psum(x).div_(self.n)
+
+
+def worker_axis(axis_name):
+    """The worker axis an exchange runs over: None (the stacked dim) or a
+    ``RankAxis``; anything else raises."""
+    if axis_name is None or isinstance(axis_name, RankAxis):
+        return axis_name
+    raise TypeError(f"axis_name is None or a RankAxis, not {axis_name!r}")
+
+
+def _tree_pmean(axis: RankAxis, tree):
+    """``lax.pmean`` of every leaf of a tree, as ONE all-reduce of the
+    flattened tree."""
+    layout = compression.FlatLayout.from_tree(tree)
+    return layout.unflatten(axis.pmean(layout.flatten(tree)))
+
+
 def _flatten_w(layout: compression.FlatLayout, tree_w, *,
                padded_len=None) -> torch.Tensor:
     """Stacked tree -> (N, total) fp32 buffer (each row edge-padded to
@@ -152,10 +281,13 @@ class MbSGDExchange:
 
     name: str = "mbsgd"
 
-    def init(self, params_w: PyTree) -> PyTree:
+    def init(self, params_w: PyTree, *, axis_name=None) -> PyTree:
         return ()
 
-    def __call__(self, grad: PyTree, state: PyTree, key):
+    def __call__(self, grad: PyTree, state: PyTree, key, *, axis_name=None):
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return _tree_pmean(axis, grad), state
         return pytree.tree_map(_pmean, grad), state
 
     @_sized
@@ -179,13 +311,16 @@ class CSGDPSExchange:
     name: str = "csgd_ps"
     flat: bool = True
 
-    def init(self, params_w: PyTree) -> PyTree:
+    def init(self, params_w: PyTree, *, axis_name=None) -> PyTree:
         return ()
 
-    def __call__(self, grad, state, key):
+    def __call__(self, grad, state, key, *, axis_name=None):
         cdc = compression.codec(self.compressor)
-        n = _n_workers(grad)
         skey = prng.fold_in(key, 0x5E4E4)
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return self._on_ranks(grad, key, skey, cdc, axis), state
+        n = _n_workers(grad)
         if not self.flat:
             local_q = cdc.tree_qdq_rows(grad, [_worker_key(key, i)
                                                for i in range(n)])
@@ -201,6 +336,18 @@ class CSGDPSExchange:
                                       donate=True)
         out = cdc.flat_qdq(local_q.mean(dim=0), skey, donate=True)
         return _unflatten_w(layout, out.expand_as(local_q)), state
+
+    def _on_ranks(self, grad, key, skey, cdc, axis: RankAxis):
+        """This rank's worker: its qdq, the pmean, the server's shared-key
+        qdq (so every rank holds the same bits)."""
+        wkey = _worker_key(key, axis.index)
+        if not self.flat:
+            return cdc.tree_qdq(_tree_pmean(axis, cdc.tree_qdq(grad, wkey)),
+                                skey)
+        layout = compression.FlatLayout.from_tree(grad)
+        local_q = cdc.flat_qdq(layout.flatten(grad), wkey, donate=True)
+        return layout.unflatten(cdc.flat_qdq(axis.pmean(local_q), skey,
+                                             donate=True))
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 1) -> float:
@@ -247,11 +394,14 @@ class CSGDRingExchange:
     flat: bool = True
     partitioned: bool = True
 
-    def init(self, params_w: PyTree) -> PyTree:
+    def init(self, params_w: PyTree, *, axis_name=None) -> PyTree:
         return ()
 
-    def __call__(self, grad, state, key):
+    def __call__(self, grad, state, key, *, axis_name=None):
         cdc = compression.codec(self.compressor)
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return self._on_ranks(grad, key, cdc, axis), state
         n = _n_workers(grad)
         if not self.flat:
             return self._per_leaf_chain(grad, state, key, cdc, n)
@@ -362,6 +512,101 @@ class CSGDRingExchange:
             cdc.flat_decode_partitioned(packed, out=out[i])
         return _unflatten_w(layout, out.div_(n)), state
 
+    def _on_ranks(self, grad, key, cdc, axis: RankAxis):
+        """This rank's worker of JAX's exchange: the partitioned ring, the
+        monolithic chain of one FlatPacked a hop, the per-leaf chain of
+        Packed messages, or the qdq chain (non-packable codecs, or one
+        worker); every hop is one ``ppermute`` one step right."""
+        n, i = axis.n, axis.index
+        perm = [(j, (j + 1) % n) for j in range(n)]
+        wkey = _worker_key(key, i)
+        be = compression.DEFAULT_BUCKET_ELEMS
+        if cdc.packable and n > 1:
+            if not self.flat:
+                return self._per_leaf_on_ranks(grad, wkey, cdc, axis, perm)
+            if self.partitioned:
+                return self._partitioned_on_ranks(grad, wkey, cdc, axis,
+                                                  perm)
+        layout = compression.FlatLayout.from_tree(grad)
+        gflat = layout.flatten(grad)
+        if cdc.packable and n > 1:
+            acc = cdc.flat_encode(gflat, wkey, layout, bucket_elems=be)
+            for h in range(1, n):
+                pay, prm = axis.ppermute((acc.payload, acc.params), perm)
+                shifted = compression.FlatPacked(pay, prm, layout, cdc.name,
+                                                 be)
+                acc = cdc.flat_encode(cdc.flat_decode(shifted) + gflat,
+                                      prng.fold_in(wkey, h), layout,
+                                      bucket_elems=be)
+            return layout.unflatten(cdc.flat_decode(acc).div_(n))
+        if not self.flat:
+            out = cdc.tree_qdq(grad, wkey)
+            for h in range(1, n):
+                leaves, treedef = pytree.tree_flatten(out)
+                shifted = pytree.tree_unflatten(
+                    treedef, axis.ppermute(leaves, perm))
+                out = cdc.tree_qdq(_add(shifted, grad),
+                                   prng.fold_in(wkey, h))
+            return pytree.tree_map(lambda a: a / n, out)
+        out = cdc.flat_qdq(gflat, wkey, bucket_elems=be)
+        for h in range(1, n):
+            out = cdc.flat_qdq(axis.ppermute(out, perm) + gflat,
+                               prng.fold_in(wkey, h), bucket_elems=be,
+                               donate=True)
+        return layout.unflatten(out.div_(n))
+
+    def _per_leaf_on_ranks(self, grad, wkey, cdc, axis: RankAxis, perm):
+        """The per-leaf chain: a hop moves the tree of Packed messages
+        (every payload and params) in one ``ppermute``."""
+        n = axis.n
+        acc = cdc.tree_encode(grad, wkey)
+        for h in range(1, n):
+            msgs, treedef = pytree.tree_flatten(acc)
+            moved = axis.ppermute([t for m in msgs
+                                   for t in (m.payload, m.params)], perm)
+            shifted = pytree.tree_unflatten(treedef, [
+                compression.Packed(moved[2 * j], moved[2 * j + 1], m.shape,
+                                   m.dtype, m.codec)
+                for j, m in enumerate(msgs)])
+            acc = cdc.tree_encode(_add(cdc.tree_decode(shifted), grad),
+                                  prng.fold_in(wkey, h))
+        return pytree.tree_map(lambda a: a / n, cdc.tree_decode(acc))
+
+    def _partitioned_on_ranks(self, grad, wkey, cdc, axis: RankAxis, perm):
+        """Reduce-scatter + all-gather of this rank's worker: it encodes
+        its own partition once, then each of N-1 hops receives a
+        partition message from the rank on its left, decodes it, adds its
+        own slice and re-encodes (ONE K5 call on one partition) and sends
+        the result right; N-1 all-gather hops forward finished messages
+        verbatim into the (N, rows_p, 512) backing buffer, decoded once."""
+        n, i = axis.n, axis.index
+        layout = compression.FlatLayout.from_tree(grad)
+        be = compression.DEFAULT_BUCKET_ELEMS
+        part_elems, _, _ = cdc.partition_geometry(layout.total, n,
+                                                  bucket_elems=be)
+        gparts = layout.flatten(grad, padded_len=n * part_elems).view(
+            n, part_elems)
+        pay, prm = cdc.encode_partition(gparts[i], wkey, bucket_elems=be)
+        for h in range(1, n):
+            pay, prm = axis.ppermute((pay, prm), perm)
+            pay, prm = cdc.decode_add_encode_partition(
+                pay, prm, gparts[(i - h) % n], prng.fold_in(wkey, h),
+                bucket_elems=be)
+        del gparts
+        payload_all = torch.empty((n,) + tuple(pay.shape), dtype=pay.dtype,
+                                  device=pay.device)
+        params_all = torch.empty((n,) + tuple(prm.shape), dtype=prm.dtype,
+                                 device=prm.device)
+        payload_all[(i + 1) % n] = pay
+        params_all[(i + 1) % n] = prm
+        for g in range(1, n):
+            pay, prm = axis.ppermute((pay, prm), perm)
+            payload_all[(i + 1 - g) % n] = pay
+            params_all[(i + 1 - g) % n] = prm
+        packed = compression.PartitionedFlatPacked(
+            payload_all, params_all, layout, cdc.name, be, part_elems)
+        return layout.unflatten(cdc.flat_decode_partitioned(packed).div_(n))
+
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 2) -> float:
         """Partitioned: 2(n-1) partition messages per iteration;
@@ -405,19 +650,27 @@ class ECSGDExchange:
     name: str = "ecsgd"
     flat: bool = True
 
-    def init(self, params_w: PyTree) -> PyTree:
+    def init(self, params_w: PyTree, *, axis_name=None) -> PyTree:
+        """The stacked residuals, or one rank's (``axis_name`` given:
+        ``params_w`` is its own tree, the flat buffers (total,))."""
         if not self.flat:
             z = pytree.tree_map(torch.zeros_like, params_w)
             return {"worker_err": z,
                     "server_err": pytree.tree_map(torch.zeros_like, z)}
-        n, total = _n_workers(params_w), _layout_w(params_w).total
         dev = pytree.tree_leaves(params_w)[0].device
-        return {"worker_err": torch.zeros((n, total), device=dev),
-                "server_err": torch.zeros((n, total), device=dev)}
+        if axis_name is not None:
+            shape = (compression.FlatLayout.from_tree(params_w).total,)
+        else:
+            shape = (_n_workers(params_w), _layout_w(params_w).total)
+        return {"worker_err": torch.zeros(shape, device=dev),
+                "server_err": torch.zeros(shape, device=dev)}
 
-    def __call__(self, grad, state, key):
+    def __call__(self, grad, state, key, *, axis_name=None):
         cdc = compression.codec(self.compressor)
         skey = prng.fold_in(key, 0x5E4E4)
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return self._on_ranks(grad, state, key, skey, cdc, axis)
         n = _n_workers(grad)
         if not self.flat:
             v_n = _add(grad, state["worker_err"])
@@ -438,6 +691,25 @@ class ECSGDExchange:
         out = torch.stack([cdc.flat_qdq(v[i], skey) for i in range(n)])
         return _unflatten_w(layout, out), {"worker_err": v_n.sub_(q_n),
                                            "server_err": v.sub_(out)}
+
+    def _on_ranks(self, grad, state, key, skey, cdc, axis: RankAxis):
+        """This rank's worker: its residual-corrected qdq, the pmean of
+        the workers' messages, the server's shared-key qdq."""
+        wkey = _worker_key(key, axis.index)
+        if not self.flat:
+            v_n = _add(grad, state["worker_err"])
+            q_n = cdc.tree_qdq(v_n, wkey)
+            v = _add(_tree_pmean(axis, q_n), state["server_err"])
+            out = cdc.tree_qdq(v, skey)
+            return out, {"worker_err": _sub_(v_n, q_n),
+                         "server_err": _sub_(v, out)}
+        layout = compression.FlatLayout.from_tree(grad)
+        v_n = layout.flatten(grad).add_(state["worker_err"])
+        q_n = cdc.flat_qdq(v_n, wkey)
+        v = axis.pmean(q_n).add_(state["server_err"])
+        out = cdc.flat_qdq(v, skey)
+        return layout.unflatten(out), {"worker_err": v_n.sub_(q_n),
+                                       "server_err": v.sub_(out)}
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 1) -> float:
@@ -489,7 +761,16 @@ class DelayedExchange:
         # THIS step, while s=tau still reads step t-tau un-clobbered
         return self.tau + 1 if self.schedule is not None else max(self.tau, 1)
 
-    def init(self, params_w: PyTree) -> PyTree:
+    def init(self, params_w: PyTree, *, axis_name=None) -> PyTree:
+        """The stacked state, or one rank's (``axis_name`` given: buffer
+        leaves (slots, ...), ``head`` a 0-d int32 host tensor)."""
+        if axis_name is not None:
+            buf = pytree.tree_map(
+                lambda p: torch.zeros((self._cap(),) + tuple(p.shape),
+                                      dtype=p.dtype, device=p.device),
+                params_w)
+            return {"inner": self.inner.init(params_w, axis_name=axis_name),
+                    "buffer": buf, "head": torch.zeros((), dtype=torch.int32)}
         n = _n_workers(params_w)
         buf = pytree.tree_map(
             lambda p: torch.zeros((n, self._cap()) + tuple(p.shape[1:]),
@@ -497,7 +778,12 @@ class DelayedExchange:
         return {"inner": self.inner.init(params_w), "buffer": buf,
                 "head": torch.zeros((n,), dtype=torch.int32)}
 
-    def __call__(self, grad, state, key):
+    def __call__(self, grad, state, key, *, axis_name=None):
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            fresh, inner_state = self.inner(grad, state["inner"], key,
+                                            axis_name=axis)
+            return self._on_ranks(fresh, state, inner_state, axis)
         fresh, inner_state = self.inner(grad, state["inner"], key)
         if self.schedule is not None:
             return self._delayed_by_schedule(fresh, state, inner_state)
@@ -540,6 +826,41 @@ class DelayedExchange:
         stale = pytree.tree_map(write_read, state["buffer"], fresh)
         return stale, {"inner": inner_state, "buffer": state["buffer"],
                        "head": state["head"] + 1}
+
+    def _on_ranks(self, fresh, state, inner_state, axis: RankAxis):
+        """This rank's FIFO, or its row ``axis.index`` of a 2-D
+        schedule."""
+        head, buf = int(state["head"]), state["buffer"]
+        new = {"inner": inner_state, "buffer": buf}
+        if self.schedule is None:
+            if self.tau <= 0:
+                return fresh, dict(new, head=state["head"])
+
+            def swap(b, f):
+                stale = b[head].clone()
+                b[head] = f
+                return stale
+
+            return (pytree.tree_map(swap, buf, fresh),
+                    dict(new, head=(state["head"] + 1) % self.tau))
+        sched = np.asarray(self.schedule, dtype=np.int64)
+        if sched.ndim == 2:
+            if sched.shape[0] != axis.n:
+                raise ValueError(f"2-D schedule has {sched.shape[0]} rows "
+                                 f"but there are {axis.n} workers")
+            s_t = sched[axis.index, head % sched.shape[1]]
+        else:
+            s_t = sched[head % sched.shape[0]]
+        s_t = int(np.clip(s_t, 0, self.tau))
+        cap = self._cap()
+
+        def write_read(b, f):
+            b[head % cap] = f
+            return b[(head - s_t) % cap].clone() if head >= s_t \
+                else torch.zeros_like(b[0])
+
+        return (pytree.tree_map(write_read, buf, fresh),
+                dict(new, head=state["head"] + 1))
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 1) -> float:
@@ -599,7 +920,10 @@ class GossipMix:
             return None
         return _resolve_matrix(self.w, self.topology, n)
 
-    def __call__(self, params: PyTree) -> PyTree:
+    def __call__(self, params: PyTree, *, axis_name=None) -> PyTree:
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return self._on_ranks(params, axis)
         n = _n_workers(params)
         w = self._matrix(n)
         if w is not None:
@@ -629,6 +953,35 @@ class GossipMix:
             return (x + xr + xl) / 3.0
 
         return pytree.tree_map(mix, params)
+
+    def _on_ranks(self, params, axis: RankAxis):
+        """This rank's model mixed with its neighbors': one ``ppermute``
+        of every leaf (one batch) a non-identity term."""
+        n = axis.n
+        w = self._matrix(n)
+        if n == 1:
+            return params
+        if w is None and self.topology == "full":
+            return _tree_pmean(axis, params)
+        leaves, treedef = pytree.tree_flatten(params)
+        if w is not None:
+            terms = mixing.birkhoff_decomposition(w)
+            moved = [axis.ppermute(leaves, list(perm)) if perm else None
+                     for _, perm in terms]
+            out = []
+            for j, x in enumerate(leaves):
+                acc = torch.zeros_like(x)
+                for (c, perm), m in zip(terms, moved):
+                    acc = acc + c * (x if not perm else m[j])
+                out.append(acc)
+            return pytree.tree_unflatten(treedef, out)
+        xr = axis.ppermute(leaves, [(i, (i + 1) % n) for i in range(n)])
+        if n == 2:  # both neighbors are the same worker: 1/3 self + 2/3 nbr
+            out = [x / 3.0 + 2.0 * r / 3.0 for x, r in zip(leaves, xr)]
+        else:
+            xl = axis.ppermute(leaves, [(i, (i - 1) % n) for i in range(n)])
+            out = [(x + r + l) / 3.0 for x, r, l in zip(leaves, xr, xl)]
+        return pytree.tree_unflatten(treedef, out)
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 3) -> float:
@@ -697,9 +1050,23 @@ class DCDGossipExchange:
     def degree(self, n: int) -> int:
         return mixing.degree(self._matrix(n))
 
-    def init_stacked(self, params_w: PyTree) -> PyTree:
+    def init_stacked(self, params_w: PyTree, *, axis_name=None) -> PyTree:
         """Replica state from the (n_workers, ...) stacked params:
-        nbr[w, k] starts at the term-k source's flattened params."""
+        nbr[w, k] starts at the term-k source's flattened params. With
+        ``axis_name``, one rank's state from its own params: ``xhat``
+        (total,), ``nbr`` (K, total) received from the term-k sources."""
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            layout = compression.FlatLayout.from_tree(params_w)
+            xhat = layout.flatten(params_w)
+            _, terms = self.birkhoff_terms(axis.n)
+            nbr = torch.stack([axis.ppermute(xhat, list(perm))
+                               for _, perm in terms]) if terms else \
+                torch.zeros((0, layout.total), device=xhat.device)
+            state = {"xhat": xhat, "nbr": nbr}
+            if self.error_compensated:
+                state["err"] = torch.zeros_like(xhat)
+            return state
         n = _n_workers(params_w)
         layout = _layout_w(params_w)
         xhat = _flatten_w(layout, params_w)                 # (n, total)
@@ -717,7 +1084,11 @@ class DCDGossipExchange:
             state["err"] = torch.zeros_like(xhat)
         return state
 
-    def __call__(self, params: PyTree, state: PyTree, key):
+    def __call__(self, params: PyTree, state: PyTree, key, *,
+                 axis_name=None):
+        axis = worker_axis(axis_name)
+        if axis is not None:
+            return self._on_ranks(params, state, key, axis)
         cdc = compression.codec(self.compressor)
         n = _n_workers(params)
         layout = _layout_w(params)
@@ -747,6 +1118,39 @@ class DCDGossipExchange:
         if self.error_compensated:
             new_state["err"] = v - q
         return _unflatten_w(layout, new_xhat), new_state
+
+    def _on_ranks(self, params, state, key, axis: RankAxis):
+        """This rank's worker: its delta encoded once, the packed wire
+        (payload and params) sent to each term's destination, and each
+        received message decoded into the term's replica."""
+        cdc = compression.codec(self.compressor)
+        layout = compression.FlatLayout.from_tree(params)
+        c_id, terms = self.birkhoff_terms(axis.n)
+        xhat = state["xhat"]
+        y = layout.flatten(params)
+        z = c_id * xhat
+        for k, (c, _) in enumerate(terms):
+            z = z + c * state["nbr"][k]
+        v = ((y - xhat) + z) - xhat
+        if self.error_compensated:
+            v = v + state["err"]
+        wkey = _worker_key(key, axis.index)
+        if cdc.packable:
+            wire = cdc.flat_encode(v, wkey, layout)
+            q = cdc.flat_decode(wire)
+            msg = (wire.payload, wire.params)
+        else:
+            q = msg = cdc.flat_qdq(v, wkey)
+        nbr = state["nbr"].clone()
+        for k, (_, perm) in enumerate(terms):
+            got = axis.ppermute(msg, list(perm))
+            nbr[k] += cdc.flat_decode(compression.FlatPacked(
+                *got, layout, cdc.name, wire.bucket_elems)) \
+                if cdc.packable else got
+        new_state = {"xhat": xhat + q, "nbr": nbr}
+        if self.error_compensated:
+            new_state["err"] = v - q
+        return layout.unflatten(new_state["xhat"]), new_state
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 3) -> float:

@@ -3,10 +3,15 @@
 The port of ``repro.core.parallel``, the paper-faithful algorithm tier:
 every worker has its own gradient stream, compression randomness, error
 state and (for DSGD) model replica. JAX maps one worker's step over a
-named axis with ``vmap`` and scans over steps; here the workers are the
-rows of stacked tensors on one device, their gradients a loop over the
-rows, and the steps a Python loop. The keys are JAX's, so both packages
-draw the same batches and the same codec bits:
+named axis (``vmap`` on one device, ``shard_map`` across devices) and
+scans over steps. Here the steps are a Python loop, and the workers
+either the rows of stacked tensors on one device (their gradients a
+loop over the rows), or, with ``axis_name=`` a
+``communicators.RankAxis`` (over a process group), one worker a rank: each rank runs JAX's
+per-worker step for its own worker, the exchanges' collectives go
+between the ranks, and x̄ and the consensus are all-reduces. The keys
+are JAX's, so both packages draw the same batches and the same codec
+bits:
 
     step_key = fold_in(PRNGKey(seed), t)
     batch keys = split(step_key, n_workers)      # row i samples with key i
@@ -22,8 +27,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import prng, pytree
-from repro_torch.core.communicators import GossipMix, MbSGDExchange
+from repro_torch.core import compression, prng, pytree
+from repro_torch.core.communicators import (GossipMix, MbSGDExchange,
+                                            worker_axis)
 from repro_torch.device import resolve_device
 from repro_torch.train.steps import value_and_grad
 
@@ -35,6 +41,7 @@ class RunResult:
     losses: torch.Tensor       # (steps,) f at the (averaged) iterate
     grad_norms: torch.Tensor   # (steps,) ||f'(x_bar)||^2 (the paper's metric)
     params: PyTree             # final per-worker params, leading axis N
+                               # (on ranks: this rank's worker's)
     consensus: torch.Tensor    # (steps,) mean ||x_n - x_bar||^2 (Lemma 5.2.4)
     comm_bytes_per_step: float = 0.0   # measured wire bytes one worker
                                        # puts on the wire per iteration
@@ -67,6 +74,7 @@ def run_distributed(
     gossip: Optional[GossipMix] = None,
     seed: int = 0,
     device=None,
+    axis_name=None,
 ) -> RunResult:
     """Run ``steps`` iterations of (C/EC/A/D-)SGD with ``n_workers``.
 
@@ -79,11 +87,23 @@ def run_distributed(
         stateless (GossipMix) or stateful (DCD/ECD, ``init_stacked``).
     device: where the workers' stacked tensors live (``cuda`` unless
         the caller asks for the CPU).
+    axis_name: None (the workers stacked on one device), or a
+        ``RankAxis`` of ``n_workers`` ranks, this rank running
+        its own worker (its batch is ``sample_batch(keys[rank], rank)``).
 
-    ``RunResult.params`` holds the final stacked parameters.
+    ``RunResult.params`` holds the final stacked parameters (on ranks,
+    this rank's worker's).
     """
     device = resolve_device(device)
     exchange = exchange if exchange is not None else MbSGDExchange()
+    axis = worker_axis(axis_name)
+    if axis is not None:
+        if axis.n != n_workers:
+            raise ValueError(f"{n_workers} workers on {axis.n} ranks")
+        return _run_on_ranks(loss_fn, full_loss_fn, full_grad_fn, params0,
+                             sample_batch, axis=axis, steps=steps, lr=lr,
+                             exchange=exchange, gossip=gossip, seed=seed,
+                             device=device)
     params_w = _broadcast(params0, n_workers, device)
     ex_state_w = exchange.init(params_w)
     stateful_gossip = gossip is not None and hasattr(gossip, "init_stacked")
@@ -123,6 +143,55 @@ def run_distributed(
     if gossip is not None:
         comm += float(gossip.message_bytes(params0, n_workers=n_workers))
     return RunResult(torch.stack(losses), torch.stack(gnorms), params_w,
+                     torch.stack(cons), comm)
+
+
+def _run_on_ranks(loss_fn, full_loss_fn, full_grad_fn, params0,
+                  sample_batch, *, axis, steps, lr, exchange, gossip, seed,
+                  device) -> RunResult:
+    """``run_distributed`` with one worker a rank: JAX's per-worker step
+    (``repro.core.parallel``'s ``one``) for worker ``axis.index``; x̄ is
+    an all-reduce of the float64 params, rounded once (identical replicas
+    average to themselves exactly), the consensus an all-reduce of each
+    rank's squared distance from it."""
+    n, me = axis.n, axis.index
+    params = pytree.tree_map(lambda p: p.to(device).clone(), params0)
+    ex_state = exchange.init(params, axis_name=axis)
+    stateful_gossip = gossip is not None and hasattr(gossip, "init_stacked")
+    g_state = gossip.init_stacked(params, axis_name=axis) \
+        if stateful_gossip else ()
+    layout = compression.FlatLayout.from_tree(params)
+    root = prng.PRNGKey(seed)
+    losses, gnorms, cons = [], [], []
+    for t in range(steps):
+        step_key = prng.fold_in(root, t)
+        bkey = prng.split(step_key, n)[me]
+        _, g = value_and_grad(loss_fn, params, sample_batch(bkey, me))
+        upd, ex_state = exchange(g, ex_state, step_key, axis_name=axis)
+        del g
+        params = pytree.tree_map(lambda p, u: p - lr * u, params, upd)
+        del upd
+        if stateful_gossip:
+            params, g_state = gossip(params, g_state, step_key,
+                                     axis_name=axis)
+        elif gossip is not None:
+            params = gossip(params, axis_name=axis)
+        flat = layout.flatten(params)
+        x_bar_flat = axis.psum(flat.double()).div_(n).float()
+        x_bar = layout.unflatten(x_bar_flat)
+        losses.append(full_loss_fn(x_bar).detach())
+        g_bar = full_grad_fn(x_bar)
+        gnorms.append(sum(torch.sum(g ** 2)
+                          for g in pytree.tree_leaves(g_bar)))
+        dist2 = torch.stack([torch.sum((p - m) ** 2) for p, m in zip(
+            pytree.tree_leaves(params), pytree.tree_leaves(x_bar))])
+        cons.append(axis.psum(dist2).div_(n).sum())
+    comm = 0.0
+    if hasattr(exchange, "message_bytes"):
+        comm += float(exchange.message_bytes(params0, n_workers=n))
+    if gossip is not None:
+        comm += float(gossip.message_bytes(params0, n_workers=n))
+    return RunResult(torch.stack(losses), torch.stack(gnorms), params,
                      torch.stack(cons), comm)
 
 
@@ -205,10 +274,10 @@ class LocalExchange:
 
     name = "local"
 
-    def init(self, params_w):
+    def init(self, params_w, *, axis_name=None):
         return ()
 
-    def __call__(self, grad, state, key):
+    def __call__(self, grad, state, key, *, axis_name=None):
         return grad, state
 
 
@@ -217,9 +286,11 @@ def run_quadratic(method: str, *, n_workers: int = 8, steps: int = 300,
                   d: int = 32, heterogeneity: float = 0.0,
                   exchange_kw: dict | None = None,
                   gossip_topology: str | None = None,
-                  gossip_w=None, device=None) -> RunResult:
+                  gossip_w=None, device=None, axis_name=None) -> RunResult:
     """One-call entry point: method in {gd, sgd, mbsgd, csgd_ps, csgd_ring,
-    ecsgd, asgd, dsgd, dcd, ecd}, as the JAX package's.
+    ecsgd, asgd, dsgd, dcd, ecd}, as the JAX package's; ``axis_name`` (a
+    ``RankAxis`` over a process group of ``n_workers`` ranks) runs one
+    worker a rank (``run_distributed``).
 
     dsgd/dcd/ecd accept ``gossip_topology`` in {'ring', 'torus', 'full'}
     or an explicit doubly stochastic ``gossip_w``; ``exchange_kw`` goes
@@ -273,4 +344,4 @@ def run_quadratic(method: str, *, n_workers: int = 8, steps: int = 300,
     return run_distributed(
         prob.loss_on, prob.full_loss, prob.full_grad, x0, sampler,
         n_workers=n_workers, steps=steps, lr=lr, exchange=exchange,
-        gossip=gossip, seed=seed, device=device)
+        gossip=gossip, seed=seed, device=device, axis_name=axis_name)
