@@ -25,23 +25,28 @@ rank (the ring's hops sent between processes).
 Phases (any failure raises and the script exits non-zero):
 
   1. the card's name and power limit (nvidia-smi); build the kernels;
-  2. kernels: K1 minmax_bucketed, K2 encode_packed, K3 decode_packed
-     against their plain versions on the card, bit for bit (payload,
+  2. kernels: K1 minmax_bucketed, K2 encode_packed (drawing its own
+     uniforms from the key, bucket b under fold_in(key, b)), K3
+     decode_packed against their plain versions on the card (K2's: the
+     prng draws, then the TPU kernel's function), bit for bit (payload,
      params, decoded values), at the full-width qwen1.5-0.5b geometry
-     for bits 8/4/2 and on an unaligned multi-bucket buffer; CUDA-event
-     timings at the rq8 full-width shapes beside the bytes bound, K1 in
-     turns with torch.aminmax on the same inputs;
+     for bits 8/4/2 (the tail bucket drawing from bucket nb - 1) and on
+     an unaligned multi-bucket buffer; CUDA-event timings at the rq8
+     full-width shapes beside the bound (K1, K3 bytes; K2 the larger of
+     bytes and its Threefry's integer instructions), K1 in turns with
+     torch.aminmax on the same inputs;
   3. serve: ServeConfig(reduced=False, slots=4, 8 requests) on fp32
      weights with TF32 off; 3 ticks, publish a fresh rq8 checkpoint,
      swap, run to completion; hot == cold tokens on a probe; a flipped
      bit is rejected; every kernel launched on that path;
   4. a codec cross-check on a small input: the card's published bytes
      and CRC equal the CPU's (plain versions);
-  5. train: K4 qdq_bucketed against its plain version and against
-     K3(K2(x)) on the card, bit for bit, at the full-width repro-100m
-     geometry for bits 8/4/2, on the unaligned buffers and on a bucket
-     holding an Inf and a NaN; its CUDA-event time at rq4 beside the
-     bytes bound. Then ~30 AdamW steps of full-width repro-100m (the
+  5. train: K4 qdq_bucketed (keyed, as K2) against its plain version
+     and against K3(K2(x)) under the same key on the card, bit for bit,
+     at the full-width repro-100m geometry for bits 8/4/2, on the
+     unaligned buffers and on a bucket holding an Inf and a NaN; its
+     CUDA-event time at rq4 beside the bound (bytes or its Threefry).
+     Then ~30 AdamW steps of full-width repro-100m (the
      unrolled tree, batch 8, seq 256, rq4 + error feedback) through the
      trainer's setup and step: finite, falling losses, K1 once and K4
      twice a step, comm_bytes equal to the fused message's wire bytes;
@@ -101,7 +106,8 @@ Phases (any failure raises and the script exits non-zero):
      scan) and decode on the card against the CPU;
   9. cluster: eight traces scheduled on the host, replayed on
      full-width repro-100m (4 workers, rq4: K1 once and K4 twice a codec
-     call), card against CPU on reduced replays;
+     call), the codec's share of each replay, card against CPU on
+     reduced replays;
  10. families, at full width and depth with random weights from a seed
      (fp32 with TF32 off; command-r-35b bf16): recurrentgemma-9b
      (10,664,163,328 parameters) make_prefill_step(use_flash=True,
@@ -119,12 +125,15 @@ Phases (any failure raises and the script exits non-zero):
      prefill and a train step's loss and gradients, card against CPU
      within 1e-5;
  11. leaf, the per-leaf codec tier: K4, K2 and K3 launched on leaf
-     messages (JAX's per-leaf qdq, encode_packed and decode_packed)
-     against their plain versions, bit for bit (values, payload,
-     params), over two workers' leaves at repro-100m's five leaf sizes
-     and 1,000 elements, bits 8/4/2, with and without Inf/NaN; their
-     rq4 times at the 25,165,824-element leaf beside the bytes bound,
-     and at 768 elements (the launch floor). Then run_distributed on
+     messages (JAX's per-leaf qdq, encode_packed and decode_packed; K4
+     and K2 drawing each leaf's uniforms from its own key) against their
+     plain versions, bit for bit (values, payload, params), over two
+     workers' leaves at repro-100m's five leaf sizes and 1,000 elements,
+     bits 8/4/2, with and without Inf/NaN, and over three leaves whose
+     first and last share a key; their rq4 times at the
+     25,165,824-element leaf beside the bound (bytes; K4 and K2 the
+     larger of bytes and their Threefry), and at 768 elements (the
+     launch floor). Then run_distributed on
      full-width repro-100m (the unrolled tree, 110 leaves), 4 stacked
      workers of 2 x 256, plain SGD, 3 steps each with
      CSGDRingExchange("rq4", flat=False), CSGDPSExchange("rq8",
@@ -234,6 +243,7 @@ JSON summary of the kernels.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -422,9 +432,9 @@ LEAF_LEAVES = 110
 LEAF_STEPS = 3
 LEAF_RUNS = (("csgd_ring", "rq4"), ("csgd_ps", "rq8"), ("ecsgd", "rq4"))
 # bytes a leaf element moves at rq4 (each input read once, each output
-# written once): qdq x, u in and out fp32; encode x, u in, half a byte
-# out; decode half a byte in, fp32 out
-LEAF_BYTES_PER_ELEM = {"leaf_qdq": 12.0, "leaf_encode_packed": 8.5,
+# written once): qdq x in and out fp32; encode x in, half a byte out;
+# decode half a byte in, fp32 out
+LEAF_BYTES_PER_ELEM = {"leaf_qdq": 8.0, "leaf_encode_packed": 4.5,
                        "leaf_decode_packed": 4.5}
 # kv phase: the unrolled decode with and without the int8 KV cache
 KV_ARCH = "qwen1.5-0.5b"
@@ -468,9 +478,9 @@ QUANT_SOURCE = "src/repro_torch/csrc/quant.cu"
 # None: the larger term of this run's bound)
 KERNELS = {
     "minmax_bucketed": (f"{QUANT_TPU}:246", QUANT_SOURCE, "bytes"),
-    "encode_packed": (f"{QUANT_TPU}:203", QUANT_SOURCE, "bytes"),
+    "encode_packed": (f"{QUANT_TPU}:203", QUANT_SOURCE, None),
     "decode_packed": (f"{QUANT_TPU}:394", QUANT_SOURCE, "bytes"),
-    "qdq_bucketed": (f"{QUANT_TPU}:187", QUANT_SOURCE, "bytes"),
+    "qdq_bucketed": (f"{QUANT_TPU}:187", QUANT_SOURCE, None),
     "decode_add_encode_bucketed": (f"{QUANT_TPU}:349", QUANT_SOURCE, None),
     "flash_attention_bhsd": ("src/repro/kernels/flash_attn/kernel.py:143",
                              "src/repro_torch/csrc/flash_attn.cu",
@@ -478,8 +488,8 @@ KERNELS = {
     "wkv6_bhsk": ("src/repro/kernels/wkv6/kernel.py:77",
                   "src/repro_torch/csrc/wkv6.cu", None),
     # the per-leaf Pallas calls: K4, K2, K3 launched on leaf messages
-    "leaf_qdq": (f"{QUANT_TPU}:77", QUANT_SOURCE, "bytes"),
-    "leaf_encode_packed": (f"{QUANT_TPU}:96", QUANT_SOURCE, "bytes"),
+    "leaf_qdq": (f"{QUANT_TPU}:77", QUANT_SOURCE, None),
+    "leaf_encode_packed": (f"{QUANT_TPU}:96", QUANT_SOURCE, None),
     "leaf_decode_packed": (f"{QUANT_TPU}:117", QUANT_SOURCE, "bytes"),
 }
 SERVE_KERNELS = ("minmax_bucketed", "encode_packed", "decode_packed")
@@ -567,13 +577,14 @@ def time_ms(fn, reps: int = REPS) -> float:
 
 def check_kernels(padded, total: int, key, *, bits: int, bucket_elems: int,
                   timed: bool = False) -> dict:
-    """K1/K2/K3 against their plain versions on the same card tensors;
-    returns max_abs_err per kernel (and timings when ``timed``)."""
+    """K1/K2/K3 against their plain versions on the same card tensors
+    (K2 drawing under ``key``, its plain version with prng); returns
+    max_abs_err per kernel (and timings when ``timed``)."""
     import torch
     from repro_torch.kernels.quant import kernel, ops, ref
 
-    x4, u4, x3, u3, params, (nb, rows_b, rt) = ops._bucket_views(
-        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    x4, x3, params, (nb, rows_b, rt) = ops._bucket_views(
+        padded, total, bits=bits, bucket_elems=bucket_elems)
     cap = padded.numel() // nb
     x2 = padded.view(nb, cap)
     xr = x2.view(nb, cap // ops.LANES, ops.LANES)
@@ -592,19 +603,21 @@ def check_kernels(padded, total: int, key, *, bits: int, bucket_elems: int,
     def k2():
         outs = []
         if nb > 1:
-            outs.append(kernel.encode_packed(x4, u4, params[:nb - 1],
+            outs.append(kernel.encode_packed(x4, key, params[:nb - 1],
                                              bits=bits))
-        outs.append(kernel.encode_packed(x3, u3, params[nb - 1:],
-                                         bits=bits))
+        outs.append(kernel.encode_packed(x3, key, params[nb - 1:],
+                                         bits=bits, first_bucket=nb - 1))
         return outs
 
     def k2_plain():
         outs = []
         if nb > 1:
-            outs.append(ref.encode_packed_bucketed(
-                x4, u4, params[:nb - 1, 0], params[:nb - 1, 1], bits=bits))
-        outs.append(ref.encode_packed_bucketed(
-            x3, u3, params[nb - 1:, 0], params[nb - 1:, 1], bits=bits))
+            outs.append(ref.encode_packed_keyed(
+                x4, ref.fold_keys(key, 0, nb - 1), params[:nb - 1, 0],
+                params[:nb - 1, 1], bits=bits))
+        outs.append(ref.encode_packed_keyed(
+            x3, ref.fold_keys(key, nb - 1, 1), params[nb - 1:, 0],
+            params[nb - 1:, 1], bits=bits))
         return outs
 
     got, want = k2(), k2_plain()
@@ -668,9 +681,9 @@ def check_kernels(padded, total: int, key, *, bits: int, bucket_elems: int,
             f"{lib[1]:.4f}) on the same inputs: K1 <= aminmax: "
             f"{sum(k1) <= sum(lib)}")
         res["encode_packed"].update(
-            ms=time_ms(k2), plain_ms=time_ms(k2_plain), library_ms=None,
-            bound_ms=(elems * 8 + elems // pack + nb * 8)
-            / HBM_BYTES_PER_S * 1e3)
+            ms=time_ms(k2), plain_ms=time_ms(k2_plain, reps=3),
+            library_ms=None,
+            **threefry_bound(elems, elems * 4 + elems // pack + nb * 8))
         res["decode_packed"].update(
             ms=time_ms(k3), plain_ms=time_ms(k3_plain), library_ms=None,
             bound_ms=(elems // pack + elems * 4 + nb * 8)
@@ -840,9 +853,10 @@ def host_ms(torch, fn, reps: int = 5) -> float:
 
 def breakdown(torch, eng, pub) -> dict:
     """Where the serve path's time goes, piece by piece at full width:
-    one decode step over the 4 slots, one 32-token bulk prefill, one
-    bucket's threefry uniform draw (of the 111 a publish makes), the
-    host CRC over the checkpoint, and the decode of it (K3)."""
+    one decode step over the 4 slots, one 32-token bulk prefill, the
+    encode of the checkpoint a publish makes (flatten, K1, K2 drawing
+    its 111 buckets' uniforms), the host CRC over it, and the decode of
+    it (K3)."""
     from repro_torch.core import compression, prng
     from repro_torch.serve import engine as engine_mod
 
@@ -855,8 +869,8 @@ def breakdown(torch, eng, pub) -> dict:
             eng.params, state, {"tokens": eng._tokens})),
         "prefill_32_ms": host_ms(torch, lambda: eng._prefill(
             toks, prng.PRNGKey(0)), reps=2),
-        "uniform_draw_per_bucket_ms": host_ms(torch, lambda: prng.uniform(
-            prng.PRNGKey(0), (1, 8192, 512), device="cuda")),
+        "tree_encode_ms": host_ms(torch, lambda: codec.tree_encode_flat(
+            eng.params, prng.PRNGKey(0)), reps=3),
         "crc_ms": host_ms(torch, lambda: compression.wire_crc32(pub.packed),
                           reps=2),
         "tree_decode_ms": host_ms(torch, lambda: codec.tree_decode_flat(
@@ -896,22 +910,25 @@ def cross_device_check(torch) -> None:
 
 def check_qdq(padded, total: int, key, *, bits: int, bucket_elems: int,
               timed: bool = False) -> dict:
-    """K4 (head buckets + tail, as qdq_flat launches it) against its
-    plain version and against K3(K2(x)) on the same card tensors."""
+    """K4 (head buckets + tail, as qdq_flat launches it, drawing under
+    ``key``) against its plain version and against K3(K2(x)) under the
+    same key on the same card tensors."""
     import torch
     from repro_torch.kernels.quant import kernel, ops, ref
 
-    x4, u4, x3, u3, params, (nb, _, _) = ops._bucket_views(
-        padded, total, key, bits=bits, bucket_elems=bucket_elems)
-    parts = ([(x4, u4, params[:nb - 1])] if nb > 1 else []) \
-        + [(x3, u3, params[nb - 1:])]
+    x4, x3, params, (nb, _, _) = ops._bucket_views(
+        padded, total, bits=bits, bucket_elems=bucket_elems)
+    # (x, params, first bucket)
+    parts = ([(x4, params[:nb - 1], 0)] if nb > 1 else []) \
+        + [(x3, params[nb - 1:], nb - 1)]
 
     def k4():
-        return [kernel.qdq_bucketed(x, u, p, bits=bits) for x, u, p in parts]
+        return [kernel.qdq_bucketed(x, key, p, bits=bits, first_bucket=f)
+                for x, p, f in parts]
 
     def k4_plain():
-        return [ref.qdq_bucketed(x, u, p[:, 0], p[:, 1], bits=bits)
-                for x, u, p in parts]
+        return [ref.qdq_keyed(x, ref.fold_keys(key, f, x.shape[0]), p[:, 0],
+                              p[:, 1], bits=bits) for x, p, f in parts]
 
     got, want = k4(), k4_plain()
     if not all(same_bits(g, w) for g, w in zip(got, want)):
@@ -920,8 +937,9 @@ def check_qdq(padded, total: int, key, *, bits: int, bucket_elems: int,
     res = {"max_abs_err": max(max_abs(g, w) for g, w in zip(got, want))}
     finite = bool(torch.isfinite(params).all())
     if finite:
-        via = [kernel.decode_packed(kernel.encode_packed(x, u, p, bits=bits),
-                                    p, bits=bits) for x, u, p in parts]
+        via = [kernel.decode_packed(kernel.encode_packed(
+            x, key, p, bits=bits, first_bucket=f), p, bits=bits)
+            for x, p, f in parts]
         if not all(bits_equal(g, v) for g, v in zip(got, via)):
             raise AssertionError(f"K4 != K3(K2(x)) (bits={bits}, "
                                  f"total={total})")
@@ -929,9 +947,9 @@ def check_qdq(padded, total: int, key, *, bits: int, bucket_elems: int,
     del got, want
     if timed:
         elems = sum(x.numel() for x, _, _ in parts)
-        res.update(ms=time_ms(k4), plain_ms=time_ms(k4_plain),
+        res.update(ms=time_ms(k4), plain_ms=time_ms(k4_plain, reps=3),
                    library_ms=None,
-                   bound_ms=(elems * 12 + nb * 8) / HBM_BYTES_PER_S * 1e3)
+                   **threefry_bound(elems, elems * 8 + nb * 8))
     return res
 
 
@@ -1059,7 +1077,8 @@ def train_phase(torch) -> dict:
 
 
 def train_breakdown(torch, run, state, batch) -> dict:
-    """Where a full-width rq4 + EF step's time goes, piece by piece."""
+    """Where a full-width rq4 + EF step's time goes, piece by piece (K4
+    draws its uniforms itself: no draw is timed apart)."""
     from repro_torch.core import compression, prng, pytree
     from repro_torch.kernels.quant import kernel, ops
     from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
@@ -1071,25 +1090,18 @@ def train_breakdown(torch, run, state, batch) -> dict:
     _, grads = steps.value_and_grad(loss_fn, params, batch)
     grads, _ = clip_by_global_norm(grads, 1.0)
     layout = compression.FlatLayout.from_tree(grads)
-    pack, cap, nb, rows_b, _ = ops.flat_geometry(layout.total, bits=4)
+    _, cap, nb, _, _ = ops.flat_geometry(layout.total, bits=4)
     key = prng.PRNGKey(0)
     v = layout.flatten(grads).add_(state["ec_err"])
     padded = ops.edge_pad(v, nb * cap)
-    x4, u4, x3, u3, par, (_, _, rt) = ops._bucket_views(
-        padded, layout.total, key, bits=4,
-        bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
-
-    def draws():
-        for b in range(nb - 1):
-            prng.uniform(ops.bucket_key(key, b), (pack, rows_b, ops.LANES),
-                         device="cuda")
-        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
-                     device="cuda")
+    x4, x3, par, _ = ops._bucket_views(
+        padded, layout.total, bits=4, bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
 
     def k4():
         if nb > 1:
-            kernel.qdq_bucketed(x4, u4, par[:nb - 1], bits=4)
-        kernel.qdq_bucketed(x3, u3, par[nb - 1:], bits=4)
+            kernel.qdq_bucketed(x4, key, par[:nb - 1], bits=4)
+        kernel.qdq_bucketed(x3, key, par[nb - 1:], bits=4,
+                            first_bucket=nb - 1)
 
     # the update runs on copies: the trained state stays as it is
     scratch = pytree.tree_map(torch.clone, params)
@@ -1101,8 +1113,7 @@ def train_breakdown(torch, run, state, batch) -> dict:
         "clip_ms": host_ms(torch, lambda: clip_by_global_norm(grads, 1.0)),
         "flatten_ef_ms": host_ms(torch, lambda: layout.flatten(grads).add_(
             state["ec_err"])),
-        "uniform_draws_ms": host_ms(torch, draws, reps=2),
-        "uniform_draws_buckets": nb,
+        "buckets": nb,
         "k1_bucket_params_ms": host_ms(torch, lambda: ops.bucket_params(
             padded.view(nb, cap), bits=4)),
         "k4_ms": host_ms(torch, k4),
@@ -1184,6 +1195,7 @@ def train_cross_device_check(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock (nvidia-smi), in MHz."""
     out = subprocess.run(
@@ -1213,6 +1225,7 @@ def sass_opcodes(library) -> dict:
     return funcs
 
 
+@functools.lru_cache(maxsize=None)
 def threefry_int_ops() -> dict:
     """The device Threefry's 32-bit integer instructions per element,
     counted in the built SASS: the check kernel that hashes one counter a
@@ -1250,10 +1263,28 @@ def threefry_int_ops() -> dict:
             "by_opcode": by_op}
 
 
+def threefry_bound(elems: int, nbytes: float) -> dict:
+    """The bound of a kernel that hashes one Threefry counter for each
+    of ``elems`` elements and moves ``nbytes``: the larger of the bytes
+    at the HBM rate and the hash's integer instructions (counted in the
+    SASS, per pipe) at the card's SM clock, with both terms."""
+    clock = sm_clock_mhz()
+    int_ops = threefry_int_ops()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    int_ms = elems * int_ops["clocks_per_element"] / (SMS * clock * 1e6) \
+        * 1e3
+    return {"bound_ms": max(bytes_ms, int_ms),
+            "bound_by": "bytes" if bytes_ms >= int_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "int_bound_ms": int_ms,
+            "int_ops_per_element": int_ops["per_element"],
+            "sm_clock_mhz": clock}
+
+
 def threefry_check(torch) -> None:
-    """The card's Threefry (K5's draws, csrc/threefry.cuh) against
-    prng.random_bits / prng.uniform, bit for bit: 4Mi counters from 0
-    under three keys, 4Mi across 2**24 and 4Mi up to 2**32."""
+    """The card's Threefry (the draws of K2, K4 and K5,
+    csrc/threefry.cuh) against prng.random_bits / prng.uniform, bit for
+    bit: 4Mi counters from 0 under three keys, 4Mi across 2**24 and 4Mi
+    up to 2**32."""
     from repro_torch.core import prng
     from repro_torch.kernels.quant import kernel
 
@@ -1315,7 +1346,7 @@ def check_hop(n: int, part: int, seed: int, *, bits: int,
               bucket_elems: int, nonfinite: bool = False,
               timed: bool = False) -> dict:
     """K5 over one hop of n workers (one call) against its keyed plain
-    version, against K3 -> add -> K1 -> K2 on the same draws, and against
+    version, against K3 -> add -> K1 -> K2 under the same keys, and against
     n one-worker hops through decode_add_encode_flat, bit for bit."""
     import torch
     from repro_torch.kernels.quant import kernel, ops, ref
@@ -1335,7 +1366,7 @@ def check_hop(n: int, part: int, seed: int, *, bits: int,
         return ref.decode_add_encode_hop(pays, prms, locs, keys, bits=bits,
                                          rows_b=rows_b, rt=rt)
 
-    def composed():    # K3, add, K1 + K2 on prng.uniform draws, per worker
+    def composed():    # K3, add, K1 + K2 (drawing on the card), per worker
         outs = [ops.encode_flat(ops.decode_flat(
             p, q, total=part, bits=bits, bucket_elems=bucket_elems).add_(x),
             key, bits=bits, bucket_elems=bucket_elems)
@@ -1373,23 +1404,15 @@ def check_hop(n: int, part: int, seed: int, *, bits: int,
                                     ).tolist()
     if timed:
         elems = n * part
-        clock = sm_clock_mhz()
         int_ops = threefry_int_ops()
-        bytes_ms = (elems * (2 * bits / 8 + 4) + 16 * n * nb) \
-            / HBM_BYTES_PER_S * 1e3
-        int_ms = elems * int_ops["clocks_per_element"] / (
-            SMS * clock * 1e6) * 1e3
         res.update(
             ms=time_ms(k5),
             plain_ms=time_ms(k5_plain, reps=3),
             composed_ms=time_ms(composed, reps=3), library_ms=None,
-            bound_ms=max(bytes_ms, int_ms),
-            bound_by="bytes" if bytes_ms >= int_ms else "operations",
-            bytes_bound_ms=bytes_ms, int_bound_ms=int_ms,
-            int_ops_per_element=int_ops["per_element"],
+            **threefry_bound(elems, elems * (2 * bits / 8 + 4) + 16 * n * nb),
             int_alu_ops=int_ops["alu"], int_fma_ops=int_ops["fma"],
             int_bound_by=int_ops["bound_by"],
-            int_ops_by_opcode=int_ops["by_opcode"], sm_clock_mhz=clock,
+            int_ops_by_opcode=int_ops["by_opcode"],
             design_floor_ms=(elems * (2 * (bits / 8 + 4) + bits / 8)
                              + 16 * n * nb) / HBM_BYTES_PER_S * 1e3,
             workers=n, elements=elems, buckets_per_worker=nb)
@@ -1620,9 +1643,9 @@ def ring_phase(torch) -> dict:
 
 def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
     """Where a full-width ring step's time goes, piece by piece, each
-    timed alone on the host clock around a synchronize. Uniforms are
-    drawn in plain torch for the N initial encodes only: K5 draws the
-    hops' own."""
+    timed alone on the host clock around a synchronize. K2 draws the N
+    initial encodes' uniforms and K5 the hops' own: none is drawn in
+    plain torch."""
     from repro_torch.core import communicators as C
     from repro_torch.core import compression, prng, pytree
     from repro_torch.kernels.quant import kernel, ops
@@ -1638,16 +1661,10 @@ def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
     del g
     layout = C._layout_w(grads_w)
     pe, nb, _ = cdc.partition_geometry(layout.total, n)
-    pack, cap, _, rows_b, rows_kept = ops.flat_geometry(pe, bits=4)
-    rt = rows_kept - (nb - 1) * rows_b
+    _, cap, _, _, _ = ops.flat_geometry(pe, bits=4)
     gparts = C._flatten_w(layout, grads_w, padded_len=n * pe).view(n, n, pe)
     msgs = [cdc.encode_partition(gparts[i, i], prng.fold_in(key, i))
             for i in range(n)]
-
-    def draws_one_partition():
-        ops._head_uniforms(key, nb, pack, rows_b, "cuda")
-        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
-                     device="cuda")
 
     def k5_hops():     # the N - 1 reduce-scatter hops, one call each
         pay, prm = [m[0] for m in msgs], [m[1] for m in msgs]
@@ -1658,18 +1675,19 @@ def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
                 [gparts[i, (i - h) % n] for i in range(n)],
                 [prng.fold_in(key, 10 * i + h) for i in range(n)])
 
-    # K1 + K2 of the N initial partition encodes, on drawn uniforms
-    x4, u4, x3, u3, _, _ = ops._bucket_views(
-        ops.edge_pad(gparts[0, 0], nb * cap), pe, key, bits=4,
+    # K1 + K2 of the N initial partition encodes
+    x4, x3, _, _ = ops._bucket_views(
+        ops.edge_pad(gparts[0, 0], nb * cap), pe, bits=4,
         bucket_elems=ops.DEFAULT_BUCKET_ELEMS)
 
-    def encode_no_draws():
+    def initial_encodes():
         for i in range(n):
             prm = ops.bucket_params(ops.edge_pad(gparts[i, i], nb * cap).view(
                 nb, cap), bits=4)
             if nb > 1:
-                kernel.encode_packed(x4, u4, prm[:nb - 1], bits=4)
-            kernel.encode_packed(x3, u3, prm[nb - 1:], bits=4)
+                kernel.encode_packed(x4, key, prm[:nb - 1], bits=4)
+            kernel.encode_packed(x3, key, prm[nb - 1:], bits=4,
+                                 first_bucket=nb - 1)
 
     payload_all = torch.empty((n, n) + tuple(msgs[0][0].shape),
                               dtype=torch.uint8, device="cuda")
@@ -1689,16 +1707,12 @@ def ring_breakdown(torch, loss_fn, params_w, make_batch) -> dict:
                 cdc.decode_partition(*msgs[j], part_elems=pe,
                                      out=out[i, j * pe:(j + 1) * pe])
 
-    n_draws = n        # the initial encodes; K5 draws its own in the hops
     return {
         "fwd_bwd_per_worker_ms": host_ms(torch, lambda: steps.value_and_grad(
             loss_fn, p0, batch), reps=3),
         "fwd_bwd_workers": n,
-        "draws_per_partition_ms": host_ms(torch, draws_one_partition,
-                                          reps=3),
-        "draws_partitions_per_step": n_draws,
         "k5_per_step_ms": host_ms(torch, k5_hops, reps=3),
-        "k1_k2_initial_encodes_ms": host_ms(torch, encode_no_draws),
+        "k1_k2_initial_encodes_ms": host_ms(torch, initial_encodes),
         "all_gather_copies_ms": host_ms(torch, all_gather),
         "final_decodes_k3_ms": host_ms(torch, decode_all),
         "flatten_pad_ms": host_ms(torch, lambda: C._flatten_w(
@@ -2488,23 +2502,17 @@ def codec_calls(tr) -> int:
     raise ValueError(f"no call count for protocol {p}")
 
 
-def cluster_draws_ms(torch) -> float:
-    """Host-clock ms of the plain-torch uniform draws of one full-width
-    rq4 gradient (31 buckets and the tail), the part of a codec call that
-    is not K1 or K4."""
+def cluster_codec_ms(torch) -> float:
+    """Host-clock ms of one codec call on a full-width rq4 gradient
+    (``ops.qdq_flat``: the edge pad, K1, and K4 over 31 buckets and the
+    tail, drawing their uniforms)."""
     from repro_torch.core import prng
     from repro_torch.kernels.quant import ops
 
-    pack, _, nb, rows_b, rows_kept = ops.flat_geometry(TRAIN_TOTAL, bits=4)
-    rt = rows_kept - (nb - 1) * rows_b
-    key = prng.PRNGKey(3)
-
-    def draws():
-        ops._head_uniforms(key, nb, pack, rows_b, "cuda")
-        prng.uniform(ops.bucket_key(key, nb - 1), (1, pack, rt, ops.LANES),
-                     device="cuda")
-
-    return host_ms(torch, draws, reps=2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(TRAIN_TOTAL, generator=g, device="cuda") * 0.01
+    return host_ms(torch, lambda: ops.qdq_flat(x, prng.PRNGKey(3), bits=4),
+                   reps=5)
 
 
 def cluster_replay(torch, tr, wl) -> dict:
@@ -2544,10 +2552,11 @@ def cluster_phase(torch) -> dict:
     total = compression.FlatLayout.from_tree(wl.params0).total
     if total != TRAIN_TOTAL:
         raise AssertionError(f"{TRAIN_ARCH}: {total} parameters")
-    draws_ms = cluster_draws_ms(torch)
+    codec_ms = cluster_codec_ms(torch)
     log(f"[cluster] {card}; {len(traces)} traces of {CLUSTER_WORKERS} "
         f"workers, {CLUSTER_SIZE_MB} MB fp32 messages on the rq4 wire; "
-        f"the plain-torch draws of one gradient take {draws_ms:.1f} ms")
+        f"one codec call (K1 + K4, draws inside) on a gradient takes "
+        f"{codec_ms:.3f} ms")
     rows, launches = [], {k: 0 for k in CLUSTER_KERNELS}
     for label, tr in traces:
         run = cluster_replay(torch, tr, wl)
@@ -2571,7 +2580,7 @@ def cluster_phase(torch) -> dict:
                "codec_calls": calls, "launches": got,
                "final_loss": res.final_loss,
                "losses": [float(v) for v in res.losses],
-               "draws_share": calls * draws_ms / wall_ms,
+               "codec_share": calls * codec_ms / wall_ms,
                "max_memory_allocated": run["max_memory_allocated"],
                "card": card}
         log(f"[cluster] {label}: {res.updates_applied} updates, max "
@@ -2579,7 +2588,7 @@ def cluster_phase(torch) -> dict:
             f"s simulated, {row['ms_per_update']:.1f} ms wall an update, "
             f"final loss {res.final_loss:.5f}, K1 {got['minmax_bucketed']}"
             f" K4 {got['qdq_bucketed']} (trace: {calls} codec calls), "
-            f"draws {100 * row['draws_share']:.1f} %, peak "
+            f"codec {100 * row['codec_share']:.1f} %, peak "
             f"{run['max_memory_allocated']} B, {card}")
         rows.append(row)
         del run, res
@@ -2591,7 +2600,7 @@ def cluster_phase(torch) -> dict:
     cluster_cross_device_check(torch, traces)
     wall = time.perf_counter() - t0
     log(f"[cluster] phase wall time {wall:.1f} s")
-    return {"replays": rows, "draws_ms": draws_ms, "launches": launches,
+    return {"replays": rows, "codec_ms": codec_ms, "launches": launches,
             "wall_s": wall}
 
 
@@ -2934,11 +2943,13 @@ def families_phase(torch) -> dict:
 
 
 def check_leaf(torch, n: int, bits: int, seed: int, *, rows: int = 2,
-               special: bool = False) -> dict:
+               special: bool = False, repeat: bool = False) -> dict:
     """K4, K2 and K3 as per-leaf launches over ``rows`` workers' leaves of
-    n elements, against their plain versions on the same card tensors
-    (and the params against the plain per-leaf ``ref.quant_params``),
-    bit for bit; returns max_abs_err per kernel."""
+    n elements, each drawing under its worker's key (with ``repeat`` the
+    last leaf a copy of the first under the same key), against their
+    plain versions on the same card tensors (and the params against the
+    plain per-leaf ``ref.quant_params``), bit for bit; returns
+    max_abs_err per kernel."""
     from repro_torch.core import prng
     from repro_torch.kernels.quant import kernel, ops, ref
 
@@ -2948,22 +2959,30 @@ def check_leaf(torch, n: int, bits: int, seed: int, *, rows: int = 2,
         x[0, 3], x[0, n - 2] = math.inf, -math.inf
         x[rows - 1, 5] = math.nan
     keys = [prng.PRNGKey(seed + i) for i in range(rows)]
-    x4, u4, params = ops._leaf_rows(x, keys, bits=bits)
+    if repeat:
+        x[rows - 1] = x[0]
+        keys[rows - 1] = keys[0]
+    x4, params = ops._leaf_rows(x, keys, bits=bits)
     for i in range(rows):
         lo, scale = ref.quant_params(x[i], bits)
         if not same_bits(params[i], torch.stack([lo, scale])):
             raise AssertionError(f"leaf params != ref.quant_params (n={n})")
     lo, scale = params[:, 0], params[:, 1]
-    q = kernel.leaf_qdq(x4, u4, params, bits=bits)
-    want_q = ref.qdq_bucketed(x4, u4, lo, scale, bits=bits)
-    pay = kernel.leaf_encode_packed(x4, u4, params, bits=bits)
-    want_pay = ref.encode_packed_bucketed(x4, u4, lo, scale, bits=bits)
+    q = kernel.leaf_qdq(x4, keys, params, bits=bits)
+    want_q = ref.qdq_keyed(x4, keys, lo, scale, bits=bits)
+    pay = kernel.leaf_encode_packed(x4, keys, params, bits=bits)
+    want_pay = ref.encode_packed_keyed(x4, keys, lo, scale, bits=bits)
     dec = kernel.leaf_decode_packed(pay, params, bits=bits)
     want_dec = ref.decode_packed_bucketed(pay, lo, scale, bits=bits)
     if not (same_bits(q, want_q) and bits_equal(pay, want_pay)
             and same_bits(dec, want_dec) and same_bits(dec, q)):
         raise AssertionError(f"per-leaf K2/K3/K4 != plain (n={n}, "
-                             f"bits={bits}, special={special})")
+                             f"bits={bits}, special={special}, "
+                             f"repeat={repeat})")
+    if repeat and not (bits_equal(q[0], q[rows - 1])
+                       and bits_equal(pay[0], pay[rows - 1])):
+        raise AssertionError(f"per-leaf K2/K4: a repeated key drew other "
+                             f"uniforms (n={n}, bits={bits})")
     return {"leaf_qdq": max_abs(q, want_q),
             "leaf_encode_packed": max_abs(pay.float(), want_pay.float()),
             "leaf_decode_packed": max_abs(dec, want_dec)}
@@ -2971,31 +2990,37 @@ def check_leaf(torch, n: int, bits: int, seed: int, *, rows: int = 2,
 
 def time_leaf(torch, n: int, seed: int) -> dict:
     """rq4 CUDA-event times of the three per-leaf launches on ONE leaf of
-    n elements (B = 1) beside their plain versions and the bytes bound
-    (LEAF_BYTES_PER_ELEM over the zero-padded leaf, plus the params)."""
+    n elements (B = 1) beside their plain versions and the bound: the
+    bytes (LEAF_BYTES_PER_ELEM over the zero-padded leaf, plus the
+    params), for K4 and K2 against their Threefry's integer
+    instructions, whichever is larger."""
     from repro_torch.core import prng
     from repro_torch.kernels.quant import kernel, ops, ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((1, n), generator=g, device="cuda") * 0.02
-    x4, u4, params = ops._leaf_rows(x, [prng.PRNGKey(seed)], bits=4)
+    keys = [prng.PRNGKey(seed)]
+    x4, params = ops._leaf_rows(x, keys, bits=4)
     lo, scale = params[:, 0], params[:, 1]
-    pay = kernel.leaf_encode_packed(x4, u4, params, bits=4)
-    fns = {"leaf_qdq": (lambda: kernel.leaf_qdq(x4, u4, params, bits=4),
-                        lambda: ref.qdq_bucketed(x4, u4, lo, scale, bits=4)),
+    pay = kernel.leaf_encode_packed(x4, keys, params, bits=4)
+    fns = {"leaf_qdq": (lambda: kernel.leaf_qdq(x4, keys, params, bits=4),
+                        lambda: ref.qdq_keyed(x4, keys, lo, scale, bits=4)),
            "leaf_encode_packed": (
-               lambda: kernel.leaf_encode_packed(x4, u4, params, bits=4),
-               lambda: ref.encode_packed_bucketed(x4, u4, lo, scale,
-                                                  bits=4)),
+               lambda: kernel.leaf_encode_packed(x4, keys, params, bits=4),
+               lambda: ref.encode_packed_keyed(x4, keys, lo, scale,
+                                               bits=4)),
            "leaf_decode_packed": (
                lambda: kernel.leaf_decode_packed(pay, params, bits=4),
                lambda: ref.decode_packed_bucketed(pay, lo, scale, bits=4))}
     out = {}
     for name, (k, plain) in fns.items():
-        out[name] = {
-            "ms": time_ms(k), "plain_ms": time_ms(plain), "library_ms": None,
-            "bound_ms": (x4.numel() * LEAF_BYTES_PER_ELEM[name] + 8)
-            / HBM_BYTES_PER_S * 1e3, "elems": n, "padded": x4.numel()}
+        nbytes = x4.numel() * LEAF_BYTES_PER_ELEM[name] + 8
+        bound = ({"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "bound_by": "bytes"} if name == "leaf_decode_packed"
+                 else threefry_bound(x4.numel(), nbytes))
+        out[name] = {"ms": time_ms(k), "plain_ms": time_ms(plain),
+                     "library_ms": None, **bound, "elems": n,
+                     "padded": x4.numel()}
     return out
 
 
@@ -3087,9 +3112,8 @@ def leaf_run(torch, name: str, compressor: str, params0, loss_fn,
 def leaf_breakdown(torch, loss_fn, params0, make_batch) -> dict:
     """Where a per-leaf step's time goes, each piece timed alone on the
     host clock around a synchronize: one worker's forward + backward,
-    one worker's uniform draws for the whole tree (plain torch threefry,
-    a gradient's worth), and each per-leaf kernel launched over every
-    leaf for the 4 workers on pre-drawn uniforms."""
+    and each per-leaf kernel launched over every leaf for the 4 workers
+    (K4 and K2 drawing each worker's uniforms under its key)."""
     from repro_torch.core import prng, pytree
     from repro_torch.kernels.quant import kernel, ops
     from repro_torch.train import steps
@@ -3099,37 +3123,29 @@ def leaf_breakdown(torch, loss_fn, params0, make_batch) -> dict:
     g = steps.value_and_grad(loss_fn, params0, batch)[1]
     leaves = pytree.tree_leaves(g)
     keys = prng.split(prng.PRNGKey(79), len(leaves))
+    wkeys = [[prng.fold_in(keys[j], i) for i in range(n)]
+             for j in range(len(leaves))]
     views = [ops._leaf_rows(leaf.unsqueeze(0).expand((n,) + tuple(
-        leaf.shape)), [prng.fold_in(keys[j], i) for i in range(n)], bits=4)
-        for j, leaf in enumerate(leaves)]
-    pays = [kernel.leaf_encode_packed(x4, u4, p, bits=4)
-            for x4, u4, p in views]
-
-    def draws():
-        for j, (x4, _, _) in enumerate(views):
-            prng.uniform(keys[j], tuple(x4.shape[1:]), device="cuda")
+        leaf.shape)), wkeys[j], bits=4) for j, leaf in enumerate(leaves)]
+    pays = [kernel.leaf_encode_packed(x4, k, p, bits=4)
+            for (x4, p), k in zip(views, wkeys)]
 
     out = {
         "fwd_bwd_per_worker_ms": host_ms(torch, lambda: steps.value_and_grad(
             loss_fn, params0, batch), reps=3),
-        "draws_per_gradient_ms": host_ms(torch, draws, reps=3),
         "k4_all_leaves_ms": host_ms(torch, lambda: [
-            kernel.leaf_qdq(x4, u4, p, bits=4) for x4, u4, p in views]),
+            kernel.leaf_qdq(x4, k, p, bits=4)
+            for (x4, p), k in zip(views, wkeys)]),
         "k2_all_leaves_ms": host_ms(torch, lambda: [
-            kernel.leaf_encode_packed(x4, u4, p, bits=4)
-            for x4, u4, p in views]),
+            kernel.leaf_encode_packed(x4, k, p, bits=4)
+            for (x4, p), k in zip(views, wkeys)]),
         "k3_all_leaves_ms": host_ms(torch, lambda: [
             kernel.leaf_decode_packed(pay, p, bits=4)
-            for pay, (_, _, p) in zip(pays, views)]),
+            for pay, (_, p) in zip(pays, views)]),
         "params_all_leaves_ms": host_ms(torch, lambda: [
             ops.leaf_params(leaf.reshape(1, -1).expand(n, -1), bits=4)
             for leaf in leaves]),
         "leaves": len(leaves),
-        # gradient-sized draws a step: the ring N (1 + (N - 1)) encodes;
-        # the PS N workers + 1 server; ECSGD N workers + 1 (the server's
-        # shared key draws once)
-        "draws_per_step": {"csgd_ring": n * n, "csgd_ps": n + 1,
-                           "ecsgd": n + 1},
     }
     del views, pays, g
     torch.cuda.empty_cache()
@@ -3197,9 +3213,15 @@ def leaf_phase(torch, flat_ring_ms: float) -> dict:
                                  special=special)
                 for k, v in res.items():
                     errs[k] = max(errs.get(k, 0.0), v)
+    for bits in (8, 4, 2):
+        res = check_leaf(torch, LEAF_ODD, bits, seed=60 + bits, rows=3,
+                         repeat=True)
+        for k, v in res.items():
+            errs[k] = max(errs.get(k, 0.0), v)
     log(f"[leaf] K4, K2, K3 as per-leaf launches over 2 workers' leaves at "
         f"{list(LEAF_SIZES)} and {LEAF_ODD} elements, bits 8/4/2, with and "
-        "without Inf/NaN: bit-identical to plain")
+        "without Inf/NaN, and over 3 leaves whose first and last share a "
+        "key: bit-identical to plain, K4 and K2 drawing on the card")
     timing = time_leaf(torch, LEAF_SIZES[-1], seed=41)
     floor = time_leaf(torch, LEAF_SIZES[0], seed=42)
     for name in LEAF_KERNELS:
@@ -4649,7 +4671,7 @@ def ranks_breakdown(torch, axis, device, problem) -> dict:
     stages of the ring exchange itself (``CSGDRingExchange`` on
     ``axis``), each call timed on the host clock around a synchronize as
     the exchange makes it: the flatten and pad, its partition's encode
-    (plain-torch draws, K1, K2), the N-1 reduce-scatter hops (ppermute,
+    (K1, K2 drawing its uniforms), the N-1 reduce-scatter hops (ppermute,
     K5), the N-1 all-gather ppermutes and the final decode (K3); the
     rest of the call is ``other_ms``. Every rank runs the same calls in
     the same order. Medians of RANKS_HOP_REPS exchanges after a warm-up;

@@ -8,9 +8,12 @@ and 32 random bits are ``hash_0 ^ hash_1``. ``fold_in`` and ``split``
 use the same fold-like layout. The legacy (non-partitionable) layout is
 not implemented: ``check_layout`` refuses it.
 
-Every codec draw goes through here (``bucket_key = fold_in(key, b)``,
-then ``uniform(k, (pack, R, 512))``), which is what lets the port's
-published checkpoint bytes equal the JAX package's.
+The codec's draws follow it (``bucket_key = fold_in(key, b)``, then
+``uniform(k, (pack, R, 512))``), which is what lets the port's
+published checkpoint bytes equal the JAX package's: on the CPU the
+kernels' plain versions draw here; on the card K2, K4 and K5 hash the
+same counters themselves (``csrc/threefry.cuh``), and only the keys'
+derivations run here, on Python ints.
 
 Arithmetic is int64 holding uint32 values with ``& 0xFFFFFFFF`` after
 every add and shift, in plain torch on either device. The same round

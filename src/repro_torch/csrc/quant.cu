@@ -2,10 +2,10 @@
 // checkpoint wire, the training step's gradient compression and the ring
 // AllReduce: per-bucket min/max (K1), quantize + bit-pack (K2), unpack +
 // dequantize (K3), the fused stochastic quantize -> dequantize (K4) and the
-// fused ring hop decode + add + re-encode of every worker, with its own
-// uniform draws (K5). Plain C interface, loaded with ctypes by
-// repro_torch/kernels/quant/kernel.py, which allocates every buffer,
-// checks shapes and passes PyTorch's current stream.
+// fused ring hop decode + add + re-encode of every worker (K5). K2, K4 and
+// K5 draw their own uniforms (threefry.cuh). Plain C interface, loaded with
+// ctypes by repro_torch/kernels/quant/kernel.py, which allocates every
+// buffer, checks shapes and passes PyTorch's current stream.
 //
 // Build (done at first use by kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
@@ -19,14 +19,13 @@
 // params is (B, 2) fp32: [lo, scale] per bucket for K2-K5, K1 writes
 // [lo, hi].
 //
-// K1-K4 are bound by device memory, not arithmetic: each element is read
-// once and written once, with coalesced accesses (neighbouring threads
+// K1 and K3 are bound by device memory, not arithmetic: each element is
+// read once and written once, with coalesced accesses (neighbouring threads
 // touch neighbouring addresses in every segment). A bucket is spread over
 // many blocks (grid.y = bucket, grid.x strides over it), so the 110-odd
-// buckets of a full-width checkpoint fill all 132 SMs. K5 hashes a
-// Threefry counter for every element it encodes and is bound by the
+// buckets of a full-width checkpoint fill all 132 SMs. K2, K4 and K5 hash
+// a Threefry counter for every element they round and are bound by the
 // card's integer rate (see K5).
-
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -160,40 +159,89 @@ unsigned k1_blocks(long long n4, long long n_buckets) {
 }
 
 // ---------------------------------------------------------------------------
+// The keys K2 and K4 draw under, in the launch's argument block. Row b of a
+// launch (grid.y = b: a bucket, or a leaf message) draws its uniforms under
+//   fold: fold_in(root, first + b), one Threefry hash of the counter
+//         (0, first + b) under the root key, taken once per block: the
+//         bucketed tier, whose bucket b draws under fold_in(key, b) (the
+//         tail bucket is a launch of one row with first = nb - 1);
+//   else: key[b] itself: the per-leaf tier, one key a worker's leaf.
+// Element i of the row's pack * R * 512 run (in flat (pack, R, 512) order,
+// which is also the per-leaf (R * pack, 512) order) takes
+// threefry::uniform(key_b, i): the bit prng.uniform(key_b, (pack, R, 512))
+// would have drawn, so no uniform ever reaches device memory.
+// ---------------------------------------------------------------------------
+constexpr int kMaxRowKeys = 256;      // own keys in one launch (the wrapper
+                                      // cuts a larger launch)
+
+struct RowKeys {
+  uint32_t root[2];
+  uint32_t first;
+  int fold;
+  uint32_t key[kMaxRowKeys][2];
+};
+
+__device__ __forceinline__ threefry::Key row_key(const RowKeys& k,
+                                                 unsigned b) {
+  if (k.fold) {
+    const uint2 y = threefry::hash(threefry::make_key(k.root[0], k.root[1]),
+                                   0u, k.first + b);
+    return threefry::make_key(y.x, y.y);
+  }
+  return threefry::make_key(k.key[b][0], k.key[b][1]);
+}
+
+// ---------------------------------------------------------------------------
 // K2 encode_packed. Replaces repro/kernels/quant/kernel.py
-// encode_packed_bucketed (full buckets; the flat tier's tail as B = 1) and
-// encode_packed (:96, the per-leaf message: B leaves of B stacked workers,
-// one params row each; a leaf of 25,165,824 elements is one bucket). One thread per output byte: it reads the pack segment
-// values and uniforms of its byte position, rounds each stochastically
-// and ORs code << k*bits. The division is __fdiv_rn, the correctly
-// rounded fp32 quotient XLA computes for (x - lo) / scale.
-// Bound: bytes — reads 8 B per element (x and u), writes 1/pack B.
+// encode_packed_bucketed (:203; full buckets, the flat tier's tail as B = 1)
+// and encode_packed (:96, the per-leaf message: B leaves of B stacked
+// workers, one params row each; a leaf of 25,165,824 elements is one
+// bucket), each together with the jax.random.uniform draw beside it
+// (repro/kernels/quant/ops.py:121, :310, :315). Each thread takes 4
+// neighbouring byte positions of a row: one 16-byte load of x a segment,
+// the 4 x pack uniforms drawn from the row's key (in registers), and one
+// 4-byte store of the packed bytes. Per element it rounds stochastically
+// and ORs code << k*bits; the division is __fdiv_rn, the correctly
+// rounded fp32 quotient XLA computes for (x - lo) / scale, and a NaN code
+// packs as 0 (fmaxf drops the NaN, as the float -> uint8 casts give).
+// Bound: the larger of the bytes (x 4 B an element, 1/pack B out) and the
+// Threefry's integer instructions an element (as K5): operations.
 // ---------------------------------------------------------------------------
 template <int BITS>
-__global__ void encode_packed_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ u,
-                                     const float* __restrict__ params,
-                                     uint8_t* __restrict__ out,
-                                     long long row_elems) {
+__global__ void __launch_bounds__(kThreads)
+encode_packed_kernel(const float* __restrict__ x,
+                     const float* __restrict__ params,
+                     uint8_t* __restrict__ out, long long row_elems,
+                     const __grid_constant__ RowKeys keys) {
   constexpr int kPack = 8 / BITS;
   constexpr float kLevels = (float)((1 << BITS) - 1);
-  const long long b = blockIdx.y;
+  const unsigned b = blockIdx.y;
   const float lo = params[2 * b];
   const float scale = params[2 * b + 1];
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < row_elems; i += (long long)gridDim.x * kThreads) {
+  const threefry::Key key = row_key(keys, b);
+  const float* xb = x + (long long)b * kPack * row_elems;
+  unsigned* ob = reinterpret_cast<unsigned*>(out + (long long)b * row_elems);
+  const long long n4 = row_elems / 4;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * kThreads) {
     unsigned acc = 0;
 #pragma unroll
     for (int k = 0; k < kPack; ++k) {
-      const long long j = (b * kPack + k) * row_elems + i;
-      const float norm = __fdiv_rn(x[j] - lo, scale);
-      const float fl = floorf(norm);
-      const float frac = norm - fl;
-      float q = fl + (u[j] < frac ? 1.0f : 0.0f);
-      q = fminf(fmaxf(q, 0.0f), kLevels);
-      acc |= ((unsigned)q) << (k * BITS);
+      const long long j = k * row_elems + 4 * i;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xb + j));
+      const float xs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float norm = __fdiv_rn(xs[e] - lo, scale);
+        const float fl = floorf(norm);
+        const float frac = norm - fl;
+        const float u = threefry::uniform(key, (uint32_t)j + (uint32_t)e);
+        float q = fl + (u < frac ? 1.0f : 0.0f);
+        q = fminf(fmaxf(q, 0.0f), kLevels);
+        acc |= ((unsigned)q) << (8 * e + k * BITS);
+      }
     }
-    out[b * row_elems + i] = (uint8_t)acc;
+    ob[i] = acc;
   }
 }
 
@@ -231,10 +279,14 @@ __global__ void decode_packed_kernel(const uint8_t* __restrict__ payload,
 // K4 qdq_bucketed. Replaces repro/kernels/quant/kernel.py qdq_bucketed
 // (:187, the full buckets of the training step's qdq_flat, its tail as
 // B = 1) and qdq (:77, the per-leaf qdq: B leaves of B stacked workers,
-// one params row each). Elementwise: the segment layout only
-// orders the uniforms, and that order is flat element order, so a bucket
-// is seen as one run of `elems` values and grid.y picks its params row.
-// Per element, as the reference rounds:
+// one params row each), each together with the jax.random.uniform draw
+// beside it (repro/kernels/quant/ops.py:96, :310, :315). Elementwise: the
+// segment layout only orders the uniforms, and that order is flat element
+// order, so a bucket is seen as one run of `elems` values, grid.y picks
+// its params row and key (RowKeys) and element i draws counter i. Each
+// thread takes 4 neighbouring elements: one 16-byte load and store, four
+// counters hashed under the key in registers. Per element, as the
+// reference rounds:
 //   norm = (x - lo) / scale          __fdiv_rn, the true fp32 quotient
 //   q    = floor(norm) + (u < frac)  then clip to [0, levels], NaN kept
 //                                    (XLA's min/max propagate NaN;
@@ -245,24 +297,39 @@ __global__ void decode_packed_kernel(const uint8_t* __restrict__ payload,
 // x and out may be the same buffer (the caller donates its input): each
 // element is read and then written by the same thread, so neither pointer
 // is __restrict__.
-// Bound: bytes — reads 8 B per element (x and u), writes 4 B.
+// Bound: the larger of the bytes (x in, out: 8 B an element) and the
+// Threefry's integer instructions an element (as K5): operations.
 // ---------------------------------------------------------------------------
 template <int BITS>
-__global__ void qdq_kernel(const float* x, const float* __restrict__ u,
-                           const float* __restrict__ params, float* out,
-                           long long elems) {
+__device__ __forceinline__ float qdq1(float x, float lo, float scale,
+                                      float u) {
   constexpr float kLevels = (float)((1 << BITS) - 1);
-  const long long b = blockIdx.y;
+  const float norm = __fdiv_rn(x - lo, scale);
+  const float fl = floorf(norm);
+  float q = fl + (u < norm - fl ? 1.0f : 0.0f);
+  q = nan_min(nan_max(q, 0.0f), kLevels);
+  return __fmaf_rn(q, scale, lo);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+qdq_kernel(const float4* x, const float* __restrict__ params, float4* out,
+           long long n4, const __grid_constant__ RowKeys keys) {
+  const unsigned b = blockIdx.y;
   const float lo = params[2 * b];
   const float scale = params[2 * b + 1];
-  const long long base = b * elems;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < elems; i += (long long)gridDim.x * kThreads) {
-    const float norm = __fdiv_rn(x[base + i] - lo, scale);
-    const float fl = floorf(norm);
-    float q = fl + (u[base + i] < norm - fl ? 1.0f : 0.0f);
-    q = nan_min(nan_max(q, 0.0f), kLevels);
-    out[base + i] = __fmaf_rn(q, scale, lo);
+  const threefry::Key key = row_key(keys, b);
+  const long long base = (long long)b * n4;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * kThreads) {
+    const float4 v = x[base + i];
+    const uint32_t c = (uint32_t)(4 * i);
+    float4 o;
+    o.x = qdq1<BITS>(v.x, lo, scale, threefry::uniform(key, c));
+    o.y = qdq1<BITS>(v.y, lo, scale, threefry::uniform(key, c + 1u));
+    o.z = qdq1<BITS>(v.z, lo, scale, threefry::uniform(key, c + 2u));
+    o.w = qdq1<BITS>(v.w, lo, scale, threefry::uniform(key, c + 3u));
+    out[base + i] = o;
   }
 }
 
@@ -568,6 +635,23 @@ unsigned blocks_per_bucket(long long elems, long long n_buckets) {
   return (unsigned)(want < 1 ? 1 : want);
 }
 
+// The RowKeys of a launch of n_rows rows: fold != 0 takes keys[0..1] as the
+// root key and row b's key as fold_in(root, first + b); fold == 0 takes
+// keys as n_rows (k0, k1) pairs (n_rows <= kMaxRowKeys).
+bool row_keys(const unsigned* keys, int fold, unsigned first,
+              long long n_rows, RowKeys* k) {
+  if (keys == nullptr || (!fold && n_rows > kMaxRowKeys)) return false;
+  k->fold = fold ? 1 : 0;
+  k->first = first;
+  k->root[0] = fold ? keys[0] : 0u;
+  k->root[1] = fold ? keys[1] : 0u;
+  for (long long i = 0; i < (fold ? 0 : n_rows); ++i) {
+    k->key[i][0] = keys[2 * i];
+    k->key[i][1] = keys[2 * i + 1];
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,23 +679,32 @@ int quant_k1_blocks(long long n_buckets, long long cap) {
 }
 
 
-// x, u: (B, pack, R, 512) fp32; params: (B, 2); out: (B, R, 512) uint8.
-int quant_encode_packed(const void* x, const void* u, const void* params,
-                        void* out, long long n_buckets, long long rows,
-                        int bits, void* stream) {
-  if (n_buckets < 1 || n_buckets > 65535 || rows < 1)
+// x: (B, pack, R, 512) fp32, 16-byte aligned; params: (B, 2); out:
+// (B, R, 512) uint8, 4-byte aligned; keys, fold, first: see row_keys. A
+// row's pack * R * 512 counters stay below 2**32.
+int quant_encode_packed(const void* x, const void* params, void* out,
+                        long long n_buckets, long long rows, int bits,
+                        const unsigned* keys, int fold, unsigned first,
+                        void* stream) {
+  RowKeys k;
+  if ((bits != 8 && bits != 4 && bits != 2) || n_buckets < 1 ||
+      n_buckets > 65535 || rows < 1 ||
+      (8 / bits) * rows * 512 > 0x100000000LL ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 3) != 0 ||
+      !row_keys(keys, fold, first, n_buckets, &k))
     return (int)cudaErrorInvalidValue;
   const long long row_elems = rows * 512;
-  const dim3 grid(blocks_per_bucket(row_elems, n_buckets), (unsigned)n_buckets);
+  const dim3 grid(blocks_per_bucket(row_elems / 4, n_buckets),
+                  (unsigned)n_buckets);
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
-  const float* uf = (const float*)u;
   const float* pf = (const float*)params;
   uint8_t* o = (uint8_t*)out;
   switch (bits) {
-    case 8: encode_packed_kernel<8><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
-    case 4: encode_packed_kernel<4><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
-    case 2: encode_packed_kernel<2><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, row_elems); break;
+    case 8: encode_packed_kernel<8><<<grid, kThreads, 0, s>>>(xf, pf, o, row_elems, k); break;
+    case 4: encode_packed_kernel<4><<<grid, kThreads, 0, s>>>(xf, pf, o, row_elems, k); break;
+    case 2: encode_packed_kernel<2><<<grid, kThreads, 0, s>>>(xf, pf, o, row_elems, k); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -638,23 +731,30 @@ int quant_decode_packed(const void* payload, const void* params, void* out,
   return (int)cudaGetLastError();
 }
 
-// x, u, out: (B, elems) fp32 (elems = pack * R * 512); params: (B, 2).
-// out may equal x.
-int quant_qdq_bucketed(const void* x, const void* u, const void* params,
-                       void* out, long long n_buckets, long long elems,
-                       int bits, void* stream) {
-  if (n_buckets < 1 || n_buckets > 65535 || elems < 1)
+// x, out: (B, elems) fp32 (elems = pack * R * 512 < 2**32 + 1), 16-byte
+// aligned; out may equal x; params: (B, 2); keys, fold, first: see
+// row_keys.
+int quant_qdq_bucketed(const void* x, const void* params, void* out,
+                       long long n_buckets, long long elems, int bits,
+                       const unsigned* keys, int fold, unsigned first,
+                       void* stream) {
+  RowKeys k;
+  if (n_buckets < 1 || n_buckets > 65535 || elems < 4 || elems % 4 != 0 ||
+      elems > 0x100000000LL ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
+       & 15) != 0 ||
+      !row_keys(keys, fold, first, n_buckets, &k))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_per_bucket(elems, n_buckets), (unsigned)n_buckets);
+  const long long n4 = elems / 4;
+  const dim3 grid(blocks_per_bucket(n4, n_buckets), (unsigned)n_buckets);
   cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const float* uf = (const float*)u;
+  const float4* xf = (const float4*)x;
   const float* pf = (const float*)params;
-  float* o = (float*)out;
+  float4* o = (float4*)out;
   switch (bits) {
-    case 8: qdq_kernel<8><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
-    case 4: qdq_kernel<4><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
-    case 2: qdq_kernel<2><<<grid, kThreads, 0, s>>>(xf, uf, pf, o, elems); break;
+    case 8: qdq_kernel<8><<<grid, kThreads, 0, s>>>(xf, pf, o, n4, k); break;
+    case 4: qdq_kernel<4><<<grid, kThreads, 0, s>>>(xf, pf, o, n4, k); break;
+    case 2: qdq_kernel<2><<<grid, kThreads, 0, s>>>(xf, pf, o, n4, k); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

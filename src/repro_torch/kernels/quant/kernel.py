@@ -5,18 +5,22 @@
   K2 ``encode_packed``    quantize + bit-pack       (B, pack, R, 512) -> (B, R, 512) u8
   K3 ``decode_packed``    unpack + dequantize       (B, R, 512) u8 -> (B, pack, R, 512)
   K4 ``qdq_bucketed``     quantize -> dequantize    (B, pack, R, 512) -> same shape
-  K5 ``decode_add_encode_bucketed``  one ring hop of N workers, drawing
-                                     its own uniforms: N x ((rows, 512) u8
-                                     + (pack * rows * 512,) f32) -> (N, rows, 512) u8
+  K5 ``decode_add_encode_bucketed``  one ring hop of N workers:
+                                     N x ((rows, 512) u8 + (pack * rows * 512,) f32)
+                                     -> (N, rows, 512) u8
 
-K2-K4 each replace a pair of the JAX package's Pallas kernels: the
-bucketed form (the full buckets of the flat tier, and its tail bucket as
-B = 1) and the per-leaf form, launched through ``leaf_encode_packed``,
-``leaf_decode_packed`` and ``leaf_qdq`` on B leaf messages (a leaf of
-each of B stacked workers) and counted apart. K5 replaces the fused
-ring hop and the uniform draws beside it, for every worker's full
-buckets and tail in one call; its plain version is
-``ref.decode_add_encode_hop``.
+K2, K4 and K5 draw their stochastic rounding's uniforms themselves, on
+the card (``csrc/threefry.cuh``), the bits ``core.prng.uniform`` gives
+JAX's ``jax.random.uniform``: K2 and K4 take a key, not a uniform
+tensor. K2-K4 each replace a pair of the JAX package's Pallas kernels,
+with the draw beside it: the bucketed form (the full buckets of the flat
+tier, bucket b drawing under ``fold_in(key, b)``, and its tail bucket as
+B = 1 from ``first_bucket`` nb - 1) and the per-leaf form, launched
+through ``leaf_encode_packed``, ``leaf_decode_packed`` and ``leaf_qdq``
+on B leaf messages (a leaf of each of B stacked workers, drawing under
+its own key) and counted apart. K5 replaces the fused ring hop and the
+draws beside it, for every worker's full buckets and tail in one call;
+its plain version is ``ref.decode_add_encode_hop``.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version in
 ``ref.py``; a CUDA tensor launches the kernel on PyTorch's current
@@ -31,6 +35,7 @@ this module needs no compiler and no card.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from pathlib import Path
 from typing import Optional, Union
@@ -47,6 +52,12 @@ LANES = 512
 # workers, and their (worker, bucket) keys in the launch's argument block
 HOP_MAX_WORKERS = 8
 HOP_MAX_KEYS = 256
+# The own keys one K2 or K4 launch carries (csrc/quant.cu kMaxRowKeys): a
+# per-leaf launch of more rows is cut into several
+ROW_MAX_KEYS = 256
+# K2 and K4 hash counters below 2**32 (threefry::bits): their wrappers
+# raise for a bucket or leaf message of more elements
+MAX_ROW_ELEMS = (1 << 32) - 1
 SOURCE = nvcc.CSRC / "quant.cu"
 LIBRARY = nvcc.BUILD_DIR / "libquant.so"
 
@@ -70,10 +81,11 @@ def _load() -> ctypes.CDLL:
             lib.quant_minmax_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i,
                                                   vp]
             lib.quant_k1_blocks.argtypes = [ll, ll]
-            lib.quant_encode_packed.argtypes = [vp, vp, vp, vp, ll, ll, i,
-                                                vp]
+            lib.quant_encode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp, i,
+                                                ctypes.c_uint, vp]
             lib.quant_decode_packed.argtypes = [vp, vp, vp, ll, ll, i, vp]
-            lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, vp, ll, ll, i, vp]
+            lib.quant_qdq_bucketed.argtypes = [vp, vp, vp, ll, ll, i, vp, i,
+                                               ctypes.c_uint, vp]
             lib.quant_decode_add_encode_hop.argtypes = [vp, vp, vp, vp, i, i,
                                                         ll, ll, i, vp]
             lib.quant_hop_slices.argtypes = [i, i, ll, ll, i]
@@ -181,43 +193,100 @@ def minmax_bucketed(x3: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _encode_packed(count, x4: torch.Tensor, u4: torch.Tensor,
-                   params: torch.Tensor, bits: int,
-                   out: Optional[torch.Tensor]) -> torch.Tensor:
-    """K2's dispatch; a launch is counted on ``count``."""
+def _check_keys(x4: torch.Tensor, what: str, first_bucket: int,
+                keys) -> None:
+    """Raise where a row's counters or the buckets pass 32 bits, or
+    ``keys`` (the per-leaf forms' one key a row) is not one a row."""
+    b, row = x4.shape[0], math.prod(x4.shape[1:])
+    if row > MAX_ROW_ELEMS:
+        raise ValueError(f"{what}: {row} elements a row; the card's "
+                         "Threefry counts below 2**32")
+    if keys is None and not (0 <= first_bucket
+                             and first_bucket + b <= 1 << 32):
+        raise ValueError(f"{what}: buckets {first_bucket} .. "
+                         f"{first_bucket + b - 1} outside 32 bits")
+    if keys is not None and len(keys) != b:
+        raise ValueError(f"{what}: {b} rows but {len(keys)} keys")
+
+
+def _plain_keys(b: int, key, first_bucket: int, keys) -> list:
+    """The row keys the plain versions draw under: ``keys``, or bucket
+    b's ``fold_in(key, first_bucket + b)``."""
+    return list(keys) if keys is not None else \
+        ref.fold_keys(key, first_bucket, b)
+
+
+def _key_words(keys) -> np.ndarray:
+    """(len(keys), 2) uint32 words of the keys, on the host."""
+    return np.array([prng.key_words(k) for k in keys],
+                    dtype=np.uint32).reshape(-1, 2)
+
+
+def _launch_rows(launch, b: int, key, first_bucket: int, keys) -> None:
+    """Run ``launch(rows, key_words, fold, first)`` over the b rows: one
+    launch for the bucketed forms (``keys`` None: the root key, folded
+    with the bucket on the card), launches of at most ROW_MAX_KEYS rows
+    for the per-leaf forms (their keys in each launch's argument
+    block)."""
+    if keys is None:
+        launch(slice(0, b), _key_words([key]), 1, first_bucket)
+        return
+    words = _key_words(keys)
+    for r0 in range(0, b, ROW_MAX_KEYS):
+        rows = slice(r0, min(b, r0 + ROW_MAX_KEYS))
+        launch(rows, np.ascontiguousarray(words[rows]), 0, 0)
+
+
+def _encode_packed(count, x4: torch.Tensor, params: torch.Tensor, bits: int,
+                   out: Optional[torch.Tensor], key=None,
+                   first_bucket: int = 0, keys=None) -> torch.Tensor:
+    """K2's dispatch; a call is counted on ``count``."""
     what = count.__name__
     pack = _bits_ok(bits)
     if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
         raise ValueError(f"{what}: need (B, {pack}, R, {LANES}) for "
                          f"bits={bits}, got {tuple(x4.shape)}")
     b, _, r, _ = x4.shape
+    _check_keys(x4, what, first_bucket, keys)
     if not _on_cuda(x4, what):
-        res = ref.encode_packed_bucketed(x4, u4, params[:, 0], params[:, 1],
-                                         bits=bits)
+        res = ref.encode_packed_keyed(
+            x4, _plain_keys(b, key, first_bucket, keys), params[:, 0],
+            params[:, 1], bits=bits)
         if out is None:
             return res
         out.copy_(res)
         return out
     dev = x4.device
     _require(x4, f"{what} x", torch.float32, (b, pack, r, LANES), dev)
-    _require(u4, f"{what} u", torch.float32, (b, pack, r, LANES), dev)
     _require(params, f"{what} params", torch.float32, (b, 2), dev)
     if out is None:
         out = torch.empty((b, r, LANES), dtype=torch.uint8, device=dev)
     _require(out, f"{what} out", torch.uint8, (b, r, LANES), dev)
-    _check(_load().quant_encode_packed(x4.data_ptr(), u4.data_ptr(),
-                                       params.data_ptr(), out.data_ptr(), b,
-                                       r, bits, _stream()), what)
+    if x4.data_ptr() % 16 or out.data_ptr() % 4:
+        raise ValueError(f"{what}: x must be 16-byte aligned and out 4-byte "
+                         "aligned")
+    lib = _load()
+
+    def launch(rows, words, fold, first):
+        _check(lib.quant_encode_packed(
+            x4[rows].data_ptr(), params[rows].data_ptr(),
+            out[rows].data_ptr(), rows.stop - rows.start, r, bits,
+            words.ctypes.data, fold, first, _stream()), what)
+
+    _launch_rows(launch, b, key, first_bucket, keys)
     count.launches += 1
     return out
 
 
-def encode_packed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
-                  *, bits: int, out: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-    """K2: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
-    (B, R, 512) uint8 payload (into ``out`` when given)."""
-    return _encode_packed(encode_packed, x4, u4, params, bits, out)
+def encode_packed(x4: torch.Tensor, key, params: torch.Tensor, *,
+                  bits: int, first_bucket: int = 0,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: x4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
+    (B, R, 512) uint8 payload (into ``out`` when given), bucket b
+    rounded against ``prng.uniform(fold_in(key, first_bucket + b),
+    (pack, R, 512))``, drawn on the card."""
+    return _encode_packed(encode_packed, x4, params, bits, out, key=key,
+                          first_bucket=first_bucket)
 
 
 def _decode_packed(count, payload: torch.Tensor, params: torch.Tensor,
@@ -257,18 +326,20 @@ def decode_packed(payload: torch.Tensor, params: torch.Tensor, *, bits: int,
     return _decode_packed(decode_packed, payload, params, bits, out)
 
 
-def _qdq(count, x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
-         bits: int, out: Optional[torch.Tensor]) -> torch.Tensor:
-    """K4's dispatch; a launch is counted on ``count``."""
+def _qdq(count, x4: torch.Tensor, params: torch.Tensor, bits: int,
+         out: Optional[torch.Tensor], key=None, first_bucket: int = 0,
+         keys=None) -> torch.Tensor:
+    """K4's dispatch; a call is counted on ``count``."""
     what = count.__name__
     pack = _bits_ok(bits)
     if x4.dim() != 4 or x4.shape[1] != pack or x4.shape[3] != LANES:
         raise ValueError(f"{what}: need (B, {pack}, R, {LANES}) for "
                          f"bits={bits}, got {tuple(x4.shape)}")
     b, _, r, _ = x4.shape
+    _check_keys(x4, what, first_bucket, keys)
     if not _on_cuda(x4, what):
-        res = ref.qdq_bucketed(x4, u4, params[:, 0], params[:, 1],
-                               bits=bits)
+        res = ref.qdq_keyed(x4, _plain_keys(b, key, first_bucket, keys),
+                            params[:, 0], params[:, 1], bits=bits)
         if out is None:
             return res
         out.copy_(res)
@@ -276,47 +347,59 @@ def _qdq(count, x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
     dev = x4.device
     shape = (b, pack, r, LANES)
     _require(x4, f"{what} x", torch.float32, shape, dev)
-    _require(u4, f"{what} u", torch.float32, shape, dev)
     _require(params, f"{what} params", torch.float32, (b, 2), dev)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     _require(out, f"{what} out", torch.float32, shape, dev)
-    _check(_load().quant_qdq_bucketed(x4.data_ptr(), u4.data_ptr(),
-                                      params.data_ptr(), out.data_ptr(), b,
-                                      pack * r * LANES, bits, _stream()),
-           what)
+    if x4.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{what}: x and out must be 16-byte aligned")
+    lib = _load()
+
+    def launch(rows, words, fold, first):
+        _check(lib.quant_qdq_bucketed(
+            x4[rows].data_ptr(), params[rows].data_ptr(),
+            out[rows].data_ptr(), rows.stop - rows.start, pack * r * LANES,
+            bits, words.ctypes.data, fold, first, _stream()), what)
+
+    _launch_rows(launch, b, key, first_bucket, keys)
     count.launches += 1
     return out
 
 
-def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor,
-                 *, bits: int, out: Optional[torch.Tensor] = None
+def qdq_bucketed(x4: torch.Tensor, key, params: torch.Tensor, *, bits: int,
+                 first_bucket: int = 0, out: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """K4: x4, u4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] ->
-    the stochastically quantized and dequantized x4, same shape, fp32
-    (into ``out`` when given; ``out`` may be ``x4`` itself)."""
-    return _qdq(qdq_bucketed, x4, u4, params, bits, out)
+    """K4: x4 (B, pack, R, 512) fp32 + params (B, 2) [lo, scale] -> the
+    stochastically quantized and dequantized x4, same shape, fp32 (into
+    ``out`` when given; ``out`` may be ``x4`` itself), bucket b rounded
+    against ``prng.uniform(fold_in(key, first_bucket + b), (pack, R,
+    512))``, drawn on the card."""
+    return _qdq(qdq_bucketed, x4, params, bits, out, key=key,
+                first_bucket=first_bucket)
 
 
 # The per-leaf forms: the same kernels launched on B leaf messages (one
-# zero-padded leaf of each of B workers, one [lo, scale] row each), the
-# ported forms of the JAX package's per-leaf Pallas calls, counted apart
-# from the bucketed launches above.
+# zero-padded leaf of each of B workers, one [lo, scale] row and one key
+# each), the ported forms of the JAX package's per-leaf Pallas calls with
+# their draws, counted apart from the bucketed launches above. More than
+# ROW_MAX_KEYS leaves take several launches, one count.
 
 
-def leaf_qdq(x4: torch.Tensor, u4: torch.Tensor, params: torch.Tensor, *,
-             bits: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def leaf_qdq(x4: torch.Tensor, keys, params: torch.Tensor, *, bits: int,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4 as the per-leaf ``qdq`` (``repro/kernels/quant/kernel.py:77``):
-    B leaves, each (pack, R, 512) with its own params row."""
-    return _qdq(leaf_qdq, x4, u4, params, bits, out)
+    B leaves, each (pack, R, 512) with its own params row, leaf w
+    rounded against ``prng.uniform(keys[w], (pack, R, 512))``."""
+    return _qdq(leaf_qdq, x4, params, bits, out, keys=keys)
 
 
-def leaf_encode_packed(x4: torch.Tensor, u4: torch.Tensor,
-                       params: torch.Tensor, *, bits: int,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def leaf_encode_packed(x4: torch.Tensor, keys, params: torch.Tensor, *,
+                       bits: int, out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """K2 as the per-leaf ``encode_packed`` (``kernel.py:96``): B leaves
-    -> B (R, 512) payloads."""
-    return _encode_packed(leaf_encode_packed, x4, u4, params, bits, out)
+    -> B (R, 512) payloads, leaf w drawing under ``keys[w]``."""
+    return _encode_packed(leaf_encode_packed, x4, params, bits, out,
+                          keys=keys)
 
 
 def leaf_decode_packed(payload: torch.Tensor, params: torch.Tensor, *,
@@ -330,7 +413,7 @@ def leaf_decode_packed(payload: torch.Tensor, params: torch.Tensor, *,
 def hop_keys(keys, n_buckets: int) -> np.ndarray:
     """K5's key table: ``fold_in(keys[w], b)`` for each worker w and
     bucket b, as (N, n_buckets, 2) uint32 words, computed on the host
-    with Python ints (``ops.bucket_key`` per bucket)."""
+    with Python ints (``prng.fold_in`` per bucket)."""
     words = []
     for key in keys:
         k0, k1 = prng.key_words(key)

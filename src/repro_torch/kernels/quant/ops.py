@@ -1,4 +1,4 @@
-"""The codec's geometry, uniform draws and kernel dispatch: the per-leaf
+"""The codec's geometry and kernel dispatch: the per-leaf
 tier (one message per leaf) and the bucketed flat-buffer tier.
 
 The port of ``repro.kernels.quant.ops``: the per-leaf
@@ -19,10 +19,13 @@ layout is the JAX package's, byte for byte:
     ONE bucketed kernel launch; the last (tail) bucket is padded only to
     the pack*512 granule, gets its own Rt = ceil(t / granule) rows, and
     goes as a B = 1 launch of the same kernel;
-  * bucket b draws its uniforms under ``bucket_key(key, b)`` =
-    ``fold_in(key, b)`` with the port's threefry (K5 hashes the same
-    counters on the card itself), which gives the JAX package's bits — so the published payload equals JAX's, and
-    ``qdq_flat`` equals ``decode_flat(encode_flat(...))`` bit for bit.
+  * bucket b draws its uniforms under ``fold_in(key, b)`` (the JAX
+    package's ``bucket_key``) with the port's threefry, which gives the JAX
+    package's bits — so the published payload equals JAX's, and
+    ``qdq_flat`` equals ``decode_flat(encode_flat(...))`` bit for bit. K2,
+    K4 and K5 draw them on the card themselves from the root key and the
+    bucket's index; on the CPU their plain versions draw with
+    ``core.prng``. No uniform tensor is made on the card.
 
 Dispatch follows the tensor's device (see ``kernel.py``): the CUDA
 kernels for a CUDA buffer, the plain versions for a CPU one.
@@ -34,7 +37,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import prng
 from repro_torch.kernels.quant import kernel, ref
 from repro_torch.obs import flight as obs_flight
 
@@ -90,7 +92,8 @@ def leaf_payload_rows(n: int, *, bits: int) -> int:
 #   * (lo, scale) come from the UNPADDED leaf, the scale as ``ref.scale_of``;
 #   * ONE draw ``uniform(key, (pack * R, 512))``, whose flat order is both
 #     qdq's (R*pack, 512) view and encode's (pack, R, 512) view, so
-#     decode(encode(x, k)) == quantize_dequantize(x, k) bit for bit.
+#     decode(encode(x, k)) == quantize_dequantize(x, k) bit for bit; K4
+#     and K2 draw it themselves, from the leaf's key.
 # The ``*_rows`` forms take one leaf of each of N stacked workers (a leading
 # dim N, one key each) and launch ONE kernel over the N leaf messages, as N
 # buckets of the bucketed kernel with a params row each; the single-leaf
@@ -109,32 +112,20 @@ def leaf_params(x2: torch.Tensor, *, bits: int) -> torch.Tensor:
 
 
 def _leaf_rows(x_w: torch.Tensor, keys, *, bits: int):
-    """A stacked leaf (N, ...) -> (x4, u4) (N, pack, R, 512): each row
-    zero-padded, in fp32, with its uniforms drawn under its key (drawn
-    once for keys that repeat), and (N, 2) params from the unpadded
-    rows."""
+    """A stacked leaf (N, ...) -> x4 (N, pack, R, 512), each row
+    zero-padded, in fp32, and (N, 2) params from the unpadded rows; the
+    kernels draw each row's uniforms under its key."""
     nw = x_w.shape[0]
     if len(keys) != nw:
         raise ValueError(f"{nw} rows but {len(keys)} keys")
     n = x_w[0].numel()
     pack = 8 // bits
     rows = leaf_payload_rows(n, bits=bits)
-    dev = x_w.device
     x4 = torch.zeros((nw, pack, rows, LANES), dtype=torch.float32,
-                     device=dev)
+                     device=x_w.device)
     xf = x4.view(nw, -1)
     xf[:, :n] = x_w.reshape(nw, n)
-    params = leaf_params(xf[:, :n], bits=bits)
-    u4 = torch.empty_like(x4)
-    drawn: dict = {}
-    for i, key in enumerate(keys):
-        words = prng.key_words(key)
-        if words in drawn:
-            u4[i] = u4[drawn[words]]
-        else:
-            u4[i] = prng.uniform(key, (pack, rows, LANES), device=dev)
-            drawn[words] = i
-    return x4, u4, params
+    return x4, leaf_params(xf[:, :n], bits=bits)
 
 
 def _leaf_out(out4: torch.Tensor, shape: tuple, dtype) -> torch.Tensor:
@@ -151,8 +142,8 @@ def quantize_dequantize_rows(x_w: torch.Tensor, keys, *, bits: int = 8
     """Per-leaf stochastic quantize -> dequantize of each row of a
     stacked leaf (N, ...) under its key: ONE K4 launch (``leaf_qdq``)
     over the N leaf messages. Same shape and dtype as ``x_w``."""
-    x4, u4, params = _leaf_rows(x_w, keys, bits=bits)
-    out = kernel.leaf_qdq(x4, u4, params, bits=bits, out=x4)
+    x4, params = _leaf_rows(x_w, keys, bits=bits)
+    out = kernel.leaf_qdq(x4, keys, params, bits=bits, out=x4)
     return _leaf_out(out, tuple(x_w.shape[1:]), x_w.dtype)
 
 
@@ -161,8 +152,8 @@ def encode_rows(x_w: torch.Tensor, keys, *, bits: int = 8):
     """Per-leaf encode of each row of a stacked leaf: ONE K2 launch
     (``leaf_encode_packed``) -> (payload (N, R, 512) uint8, params
     (N, 2))."""
-    x4, u4, params = _leaf_rows(x_w, keys, bits=bits)
-    return kernel.leaf_encode_packed(x4, u4, params, bits=bits), params
+    x4, params = _leaf_rows(x_w, keys, bits=bits)
+    return kernel.leaf_encode_packed(x4, keys, params, bits=bits), params
 
 
 @obs_flight.kernel_annotation("quant.decode")
@@ -233,11 +224,6 @@ def edge_pad(flat: torch.Tensor, padded_len: int) -> torch.Tensor:
     return out
 
 
-def bucket_key(key, b: int):
-    """Bucket b's uniform-draw key: fold_in(key, b)."""
-    return prng.fold_in(key, b)
-
-
 def bucket_params(x2: torch.Tensor, *, bits: int) -> torch.Tensor:
     """Per-bucket (n_buckets, 2) [lo, scale] rows from ONE read of the
     (n_buckets, cap) view (K1), scale finalized in plain torch."""
@@ -247,10 +233,11 @@ def bucket_params(x2: torch.Tensor, *, bits: int) -> torch.Tensor:
     return torch.stack([lo, ref.scale_of(lo, hi, bits)], dim=1)
 
 
-def _bucket_views(padded: torch.Tensor, total: int, key, *, bits: int,
+def _bucket_views(padded: torch.Tensor, total: int, *, bits: int,
                   bucket_elems: int):
-    """Head/tail segment views of an edge-padded buffer, their uniforms
-    and the per-bucket params."""
+    """Head/tail segment views of an edge-padded buffer and the
+    per-bucket params; the kernels draw bucket b's uniforms under
+    ``fold_in(key, b)``."""
     pack, cap, nb, rows_b, _ = flat_geometry(total, bits=bits,
                                              bucket_elems=bucket_elems)
     if padded.shape != (nb * cap,) or padded.dtype != torch.float32:
@@ -258,35 +245,31 @@ def _bucket_views(padded: torch.Tensor, total: int, key, *, bits: int,
                          f"got {tuple(padded.shape)} {padded.dtype}")
     granule = pack * LANES
     head_elems = (nb - 1) * cap
-    t = total - head_elems
-    rt = -(-t // granule)
-    dev = padded.device
+    rt = -(-(total - head_elems) // granule)
     params = bucket_params(padded.view(nb, cap), bits=bits)
-    x4 = u4 = None
+    x4 = None
     if nb > 1:
         x4 = padded[:head_elems].view(nb - 1, pack, rows_b, LANES)
-        u4 = _head_uniforms(key, nb, pack, rows_b, dev)
     x3 = padded[head_elems:head_elems + rt * granule].view(1, pack, rt,
                                                            LANES)
-    u3 = prng.uniform(bucket_key(key, nb - 1), (1, pack, rt, LANES),
-                      device=dev)
-    return x4, u4, x3, u3, params, (nb, rows_b, rt)
+    return x4, x3, params, (nb, rows_b, rt)
 
 
 def encode_padded(padded: torch.Tensor, total: int, key, *, bits: int = 8,
                   bucket_elems: int = DEFAULT_BUCKET_ELEMS):
     """``encode_flat`` of a buffer already edge-padded to n_buckets * cap
     (what ``FlatLayout.flatten(tree, padded=True)`` produces)."""
-    x4, u4, x3, u3, params, (nb, rows_b, rt) = _bucket_views(
-        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    x4, x3, params, (nb, rows_b, rt) = _bucket_views(
+        padded, total, bits=bits, bucket_elems=bucket_elems)
     head_rows = (nb - 1) * rows_b
     payload = torch.empty((head_rows + rt, LANES), dtype=torch.uint8,
                           device=padded.device)
     if nb > 1:
-        kernel.encode_packed(x4, u4, params[:nb - 1], bits=bits,
+        kernel.encode_packed(x4, key, params[:nb - 1], bits=bits,
                              out=payload[:head_rows].view(nb - 1, rows_b,
                                                           LANES))
-    kernel.encode_packed(x3, u3, params[nb - 1:], bits=bits,
+    kernel.encode_packed(x3, key, params[nb - 1:], bits=bits,
+                         first_bucket=nb - 1,
                          out=payload[head_rows:].view(1, rt, LANES))
     return payload, params
 
@@ -348,40 +331,32 @@ def qdq_flat(flat: torch.Tensor, key, *, bits: int = 8,
     """Fused per-bucket stochastic quantize -> dequantize of a flat fp32
     buffer (the training step's gradient compression): the full buckets
     in ONE K4 launch, the tail bucket as a B = 1 launch, with the
-    uniforms and params of ``encode_flat`` — so the result equals
+    draws and params of ``encode_flat`` — so the result equals
     ``decode_flat(encode_flat(flat, key))`` bit for bit.
 
     K4 writes over the edge-padded buffer when the pad made one (it is
     this function's own), and over ``flat`` itself when ``donate`` is
-    set and no pad was needed; otherwise into a new buffer. Returns a
-    (total,) fp32 tensor."""
+    set and no pad was needed; otherwise into a new buffer. The tail
+    launch writes in place too, so nothing else of a bucket's size is
+    made. Returns a (total,) fp32 tensor."""
     flat = flat.reshape(-1).float()
     total = flat.shape[0]
     _, cap, nb, _, _ = flat_geometry(total, bits=bits,
                                      bucket_elems=bucket_elems)
     padded = edge_pad(flat, nb * cap)
-    x4, u4, x3, u3, params, _ = _bucket_views(
-        padded, total, key, bits=bits, bucket_elems=bucket_elems)
+    x4, x3, params, _ = _bucket_views(
+        padded, total, bits=bits, bucket_elems=bucket_elems)
     out = padded if (padded is not flat or donate) \
         else torch.empty_like(padded)
     head_elems = (nb - 1) * cap
     if nb > 1:
-        kernel.qdq_bucketed(x4, u4, params[:nb - 1], bits=bits,
+        kernel.qdq_bucketed(x4, key, params[:nb - 1], bits=bits,
                             out=out[:head_elems].view(x4.shape))
-    tail = kernel.qdq_bucketed(x3, u3, params[nb - 1:], bits=bits)
-    out[head_elems:total] = tail.reshape(-1)[:total - head_elems]
+    kernel.qdq_bucketed(x3, key, params[nb - 1:], bits=bits,
+                        first_bucket=nb - 1,
+                        out=out[head_elems:head_elems + x3.numel()].view(
+                            x3.shape))
     return out[:total]
-
-
-def _head_uniforms(key, nb: int, pack: int, rows_b: int, device):
-    """The (nb - 1, pack, Rb, 512) uniforms of the full buckets, bucket b
-    drawn under ``bucket_key(key, b)``."""
-    u4 = torch.empty((nb - 1, pack, rows_b, LANES), dtype=torch.float32,
-                     device=device)
-    for b in range(nb - 1):
-        u4[b] = prng.uniform(bucket_key(key, b), (pack, rows_b, LANES),
-                             device=device)
-    return u4
 
 
 @obs_flight.kernel_annotation("quant.decode_add_encode_flat")

@@ -18,10 +18,11 @@ Layouts follow ``repro.kernels.quant``: a bucket of pack * R * 512
 elements is pack contiguous (R, 512) segments, and payload byte (r, c)
 packs ``code_k << k * bits`` over the segments k.
 
-K5 draws its uniforms itself, so its plain version
-(``decode_add_encode_hop``) takes the buckets' keys, draws with
-``core.prng`` and runs ``decode_add_encode_bucketed``, the literal form
-of the TPU kernel that takes them as an input.
+K2, K4 and K5 draw their uniforms themselves, so their plain versions
+(``encode_packed_keyed``, ``qdq_keyed``, ``decode_add_encode_hop``) take
+the keys, draw with ``core.prng`` and run the literal form of the TPU
+kernel that takes the uniforms as an input (``encode_packed_bucketed``,
+``qdq_bucketed``, ``decode_add_encode_bucketed``).
 """
 from __future__ import annotations
 
@@ -120,6 +121,45 @@ def qdq_bucketed(x4: torch.Tensor, u4: torch.Tensor, lo: torch.Tensor,
     return qdq(x4, u4, _bcast(lo), _bcast(scale), bits=bits)
 
 
+def fold_keys(key, first: int, n: int) -> list:
+    """The keys of buckets first .. first + n - 1 of a flat buffer drawn
+    under ``key``: ``fold_in(key, b)`` each."""
+    return [prng.fold_in(key, first + b) for b in range(n)]
+
+
+def keyed_uniforms(keys, shape, *, device) -> torch.Tensor:
+    """(len(keys), *shape) fp32: row b is ``prng.uniform(keys[b],
+    shape)``, drawn once for a key that repeats."""
+    u = torch.empty((len(keys),) + tuple(shape), dtype=torch.float32,
+                    device=device)
+    drawn: dict = {}
+    for i, key in enumerate(keys):
+        words = prng.key_words(key)
+        if words in drawn:
+            u[i] = u[drawn[words]]
+        else:
+            u[i] = prng.uniform(key, tuple(shape), device=device)
+            drawn[words] = i
+    return u
+
+
+def encode_packed_keyed(x4: torch.Tensor, keys, lo: torch.Tensor,
+                        scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """K2's plain version: bucket (or leaf) b of the (B, pack, R, C) x4
+    against ``prng.uniform(keys[b], (pack, R, C))`` -> (B, R, C)."""
+    u4 = keyed_uniforms(keys, x4.shape[1:], device=x4.device)
+    return encode_packed_bucketed(x4, u4, lo, scale, bits=bits)
+
+
+def qdq_keyed(x4: torch.Tensor, keys, lo: torch.Tensor, scale: torch.Tensor,
+              *, bits: int) -> torch.Tensor:
+    """K4's plain version: ``qdq_bucketed`` of x4 against the uniforms of
+    ``keys`` (one a bucket or leaf), as ``encode_packed_keyed`` draws
+    them."""
+    u4 = keyed_uniforms(keys, x4.shape[1:], device=x4.device)
+    return qdq_bucketed(x4, u4, lo, scale, bits=bits)
+
+
 def decode_packed_bucketed(payload: torch.Tensor, lo: torch.Tensor,
                            scale: torch.Tensor, *,
                            bits: int) -> torch.Tensor:
@@ -193,18 +233,15 @@ def decode_add_encode_keyed(payload: torch.Tensor, params: torch.Tensor,
     head_elems = head_rows * pack * lanes
     parts = []
     if nb > 1:
-        u4 = torch.empty((nb - 1, pack, rows_b, lanes), dtype=torch.float32,
-                         device=local.device)
-        for b in range(nb - 1):
-            u4[b] = prng.uniform(prng.fold_in(key, b), (pack, rows_b, lanes),
-                                 device=local.device)
+        u4 = keyed_uniforms(fold_keys(key, 0, nb - 1), (pack, rows_b, lanes),
+                            device=local.device)
         parts.append(decode_add_encode_bucketed(
             payload[:head_rows].view(nb - 1, rows_b, lanes), params[:nb - 1],
             local[:head_elems].view(nb - 1, pack, rows_b, lanes), u4,
             bits=bits))
         del u4
-    u3 = prng.uniform(prng.fold_in(key, nb - 1), (1, pack, rt, lanes),
-                      device=local.device)
+    u3 = keyed_uniforms(fold_keys(key, nb - 1, 1), (pack, rt, lanes),
+                        device=local.device)
     parts.append(decode_add_encode_bucketed(
         payload[head_rows:].view(1, rt, lanes), params[nb - 1:],
         local[head_elems:].view(1, pack, rt, lanes), u3, bits=bits))

@@ -142,14 +142,103 @@ def test_wrappers_refuse_bad_cuda_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         kernel.minmax_bucketed(torch.zeros((2, 2, 512), device=card)[:, :1])
     with pytest.raises(ValueError, match="expected"):
-        kernel.encode_packed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512),
+        kernel.encode_packed(x.view(2, 1, 1, 512), prng.PRNGKey(0),
                              torch.zeros((2, 2)), bits=8)        # CPU params
     with pytest.raises(TypeError, match="dtype"):
         kernel.decode_packed(torch.zeros((1, 1, 512), device=card),
                              torch.zeros((1, 2), device=card), bits=8)
     with pytest.raises(ValueError, match="expected"):
-        kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512),
+        kernel.qdq_bucketed(x.view(2, 1, 1, 512), prng.PRNGKey(0),
                             torch.zeros((2, 2)), bits=8)         # CPU params
+    with pytest.raises(ValueError, match="aligned"):
+        kernel.qdq_bucketed(torch.zeros(1025, device=card)[1:].view(
+            2, 1, 1, 512), prng.PRNGKey(0),
+            torch.zeros((2, 2), device=card), bits=8)
+
+
+# K2 and K4 draw their uniforms on the card (csrc/threefry.cuh): held
+# against their plain versions (prng draws, then the TPU kernel's function)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("b,first", [(3, 0), (1, 7)])
+def test_keyed_k2_k4_bucketed_bit_equal_to_plain(card, bits, b, first):
+    """K2 and K4 with bucket b drawing under fold_in(key, first + b):
+    head buckets from 0 (bucket 1 holding an Inf, bucket 2 a NaN) and a
+    tail bucket (B = 1) from 7, against ref.encode_packed_keyed /
+    ref.qdq_keyed on the same card tensors, bit for bit, one launch each;
+    K4 in place gives the same bits, and K4 == K3(K2(x)) where finite."""
+    from repro_torch.kernels.quant import ref
+    pack = 8 // bits
+    g = torch.Generator(device=card).manual_seed(bits + b)
+    x4 = torch.randn((b, pack, 24, 512), generator=g, device=card) * 0.05
+    if b > 1:
+        x4[1, 0, 1, 7] = float("inf")
+        x4[b - 1, pack - 1, 2, 9] = float("nan")
+    params = ops.bucket_params(x4.view(b, -1), bits=bits)
+    key = prng.PRNGKey(40 + bits)
+    kernel.reset_launches()
+    q = kernel.qdq_bucketed(x4, key, params, bits=bits, first_bucket=first)
+    pay = kernel.encode_packed(x4, key, params, bits=bits,
+                               first_bucket=first)
+    assert (kernel.qdq_bucketed.launches,
+            kernel.encode_packed.launches) == (1, 1)
+    keys = ref.fold_keys(key, first, b)
+    lo, scale = params[:, 0], params[:, 1]
+    assert _same_bits(q, ref.qdq_keyed(x4, keys, lo, scale, bits=bits))
+    assert torch.equal(pay, ref.encode_packed_keyed(x4, keys, lo, scale,
+                                                    bits=bits))
+    inplace = x4.clone()
+    kernel.qdq_bucketed(inplace, key, params, bits=bits, first_bucket=first,
+                        out=inplace)
+    assert _same_bits(inplace, q)
+    fin = torch.isfinite(params).all(dim=1)
+    dec = kernel.decode_packed(pay, params, bits=bits)
+    assert _same_bits(q[fin], dec[fin])
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_keyed_leaf_k2_k4_over_repeated_keys_and_many_rows(card, bits):
+    """leaf_qdq / leaf_encode_packed with one key a row over
+    ROW_MAX_KEYS + 44 leaves (two launches, one count), keys repeating
+    every 7 rows over rows of equal data: bit for bit their plain
+    versions, and equal keys give equal rows."""
+    from repro_torch.kernels.quant import ref
+    n_rows = kernel.ROW_MAX_KEYS + 44
+    g = torch.Generator(device=card).manual_seed(bits)
+    x = torch.randn((7, 1000), generator=g, device=card).repeat(
+        n_rows // 7 + 1, 1)[:n_rows] * 0.02
+    keys = [prng.PRNGKey(i % 7) for i in range(n_rows)]
+    x4, params = ops._leaf_rows(x, keys, bits=bits)
+    kernel.reset_launches()
+    q = kernel.leaf_qdq(x4, keys, params, bits=bits)
+    pay = kernel.leaf_encode_packed(x4, keys, params, bits=bits)
+    assert (kernel.leaf_qdq.launches,
+            kernel.leaf_encode_packed.launches) == (1, 1)
+    lo, scale = params[:, 0], params[:, 1]
+    assert _same_bits(q, ref.qdq_keyed(x4, keys, lo, scale, bits=bits))
+    assert torch.equal(pay, ref.encode_packed_keyed(x4, keys, lo, scale,
+                                                    bits=bits))
+    assert torch.equal(q[0], q[7]) and torch.equal(q[0], q[n_rows - 6])
+    assert torch.equal(pay[3], pay[3 + 7 * 37])      # across the launches
+
+
+def test_qdq_flat_allocates_less_than_one_buckets_uniforms(card):
+    """qdq_flat over 8 full 4Mi buckets, donated: K4 draws on the card,
+    so the call allocates less than one bucket's 16 MiB of uniforms
+    (drawing them in torch would take 8 x 16 MiB)."""
+    be = ops.DEFAULT_BUCKET_ELEMS
+    x = torch.randn(8 * be, device=card)
+    want = ops.qdq_flat(x.cpu(), prng.PRNGKey(2), bits=4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q = ops.qdq_flat(x, prng.PRNGKey(2), bits=4, donate=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert q.data_ptr() == x.data_ptr()
+    assert extra < be * 4, extra
+    assert _same_bits(q, want)
 
 
 def test_k1_bit_equal_on_nan_and_inf_buckets_over_calls_of_two_sizes(card):
@@ -777,19 +866,19 @@ def test_leaf_kernels_at_the_embedding_leaf_bit_equal_to_plain(card, bits):
     g = torch.Generator(device=card).manual_seed(bits)
     x = torch.randn((2, LEAF_EMBED), generator=g, device=card) * 0.02
     keys = [prng.PRNGKey(1), prng.PRNGKey(2)]
-    x4, u4, params = ops._leaf_rows(x, keys, bits=bits)
+    x4, params = ops._leaf_rows(x, keys, bits=bits)
     kernel.reset_launches()
-    q = kernel.leaf_qdq(x4, u4, params, bits=bits)
-    pay = kernel.leaf_encode_packed(x4, u4, params, bits=bits)
+    q = kernel.leaf_qdq(x4, keys, params, bits=bits)
+    pay = kernel.leaf_encode_packed(x4, keys, params, bits=bits)
     dec = kernel.leaf_decode_packed(pay, params, bits=bits)
     assert (kernel.leaf_qdq.launches, kernel.leaf_encode_packed.launches,
             kernel.leaf_decode_packed.launches) == (1, 1, 1)
     assert kernel.qdq_bucketed.launches == kernel.encode_packed.launches \
         == kernel.decode_packed.launches == 0
     lo, scale = params[:, 0], params[:, 1]
-    assert _same_bits(q, ref.qdq_bucketed(x4, u4, lo, scale, bits=bits))
-    assert torch.equal(pay, ref.encode_packed_bucketed(x4, u4, lo, scale,
-                                                       bits=bits))
+    assert _same_bits(q, ref.qdq_keyed(x4, keys, lo, scale, bits=bits))
+    assert torch.equal(pay, ref.encode_packed_keyed(x4, keys, lo, scale,
+                                                    bits=bits))
     assert _same_bits(dec, ref.decode_packed_bucketed(pay, lo, scale,
                                                       bits=bits))
     assert _same_bits(dec, q)

@@ -4,7 +4,8 @@ The plain versions of K1 (minmax_bucketed), K2 (encode_packed) and K3
 (decode_packed) — what the kernel wrappers run on a CPU tensor — are
 bit-equal to the JAX package's jnp reference and its Pallas kernels
 (interpret mode) for bits 8/4/2 over single-bucket, multi-bucket and
-unaligned totals, given the same key. The CUDA kernels themselves are
+unaligned totals, given the same key (K2 and K4 take the key and draw
+JAX's uniforms themselves). The CUDA kernels themselves are
 held against the same plain versions on the card
 (tests/test_torch_cuda.py and chip_smoke.py).
 """
@@ -83,14 +84,24 @@ def test_minmax_plain_equals_jax(nb, rows):
     np.testing.assert_array_equal(mm[:, 1].numpy(), np.asarray(hi))
 
 
+def _jax_bucket_uniforms(seed, first, shape):
+    """JAX's draws of buckets first .. first + shape[0] - 1 under
+    PRNGKey(seed): jax.random.uniform(fold_in(key, b), shape[1:])."""
+    key = jax.random.PRNGKey(seed)
+    return np.stack([np.asarray(jax.random.uniform(
+        jax.random.fold_in(key, first + b), shape[1:], jnp.float32))
+        for b in range(shape[0])])
+
+
 @pytest.mark.parametrize("bits", [8, 4, 2])
 def test_packed_kernels_plain_equal_jax_ref(bits):
     """K2/K3 wrappers on CPU tensors == ref.encode/decode_packed_bucketed
-    of the JAX package, given identical x, u, params."""
+    of the JAX package, given identical x and params and K2's key: bucket
+    b rounds against JAX's jax.random.uniform(fold_in(key, first + b))."""
     pack = 8 // bits
     rng = np.random.default_rng(bits)
     x4 = rng.normal(size=(3, pack, 4, 512)).astype(np.float32)
-    u4 = rng.random(size=x4.shape).astype(np.float32)
+    u4 = _jax_bucket_uniforms(bits, 5, x4.shape)
     lo = x4.reshape(3, -1).min(1)
     scale = np.asarray(jref.quant_params(jnp.asarray(x4[0]), bits)[1])
     scale = np.full(3, scale, np.float32)
@@ -98,8 +109,9 @@ def test_packed_kernels_plain_equal_jax_ref(bits):
     want = np.asarray(jax.jit(jref.encode_packed_bucketed,
                               static_argnames="bits")(
         x4, u4, lo, scale, bits=bits))
-    got = kernel.encode_packed(torch.from_numpy(x4), torch.from_numpy(u4),
-                               torch.from_numpy(params), bits=bits)
+    got = kernel.encode_packed(torch.from_numpy(x4), prng.PRNGKey(bits),
+                               torch.from_numpy(params), bits=bits,
+                               first_bucket=5)
     np.testing.assert_array_equal(got.numpy(), want)
     dwant = np.asarray(jax.jit(jref.decode_packed_bucketed,
                                static_argnames="bits")(
@@ -170,19 +182,18 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     x = torch.zeros((2, 1, 512))
     kernel.minmax_bucketed(x)
     params = torch.tensor([[0.0, 1.0], [0.0, 1.0]])
-    pay = kernel.encode_packed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512),
-                               params, bits=8)
+    pay = kernel.encode_packed(x.view(2, 1, 1, 512), prng.PRNGKey(0), params,
+                               bits=8)
     kernel.decode_packed(pay, params, bits=8)
-    kernel.qdq_bucketed(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
-                        bits=8)
+    kernel.qdq_bucketed(x.view(2, 1, 1, 512), prng.PRNGKey(0), params,
+                        bits=8, first_bucket=3)
     kernel.decode_add_encode_bucketed([pay.view(2, 512)], [params],
                                       [x.view(-1)], [prng.PRNGKey(0)],
                                       bits=8, rows_b=1, rt=1)
-    kernel.leaf_qdq(x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params,
-                    bits=8)
+    keys = [prng.PRNGKey(1), prng.PRNGKey(2)]
+    kernel.leaf_qdq(x.view(2, 1, 1, 512), keys, params, bits=8)
     kernel.leaf_decode_packed(kernel.leaf_encode_packed(
-        x.view(2, 1, 1, 512), x.view(2, 1, 1, 512), params, bits=8),
-        params, bits=8)
+        x.view(2, 1, 1, 512), keys, params, bits=8), params, bits=8)
     assert kernel.launch_counts() == {"minmax_bucketed": 0,
                                       "encode_packed": 0,
                                       "decode_packed": 0,
@@ -240,22 +251,23 @@ def test_qdq_flat_bit_equal_to_pallas_interpret(n, bits):
 @pytest.mark.parametrize("bits", [8, 4, 2])
 def test_qdq_plain_equals_jax_ref_and_keeps_nan(bits):
     """K4's plain version == the JAX package's jitted
-    ref.qdq_bucketed given the same x, u, params; a NaN input stays
+    ref.qdq_bucketed given the same x and params, K4's key standing for
+    JAX's jax.random.uniform(fold_in(key, b)) draws; a NaN input stays
     NaN (the reference's clip keeps it)."""
     pack = 8 // bits
     rng = np.random.default_rng(bits)
     x4 = rng.normal(size=(3, pack, 2, 512)).astype(np.float32)
-    u4 = rng.random(size=x4.shape).astype(np.float32)
+    u4 = _jax_bucket_uniforms(bits + 1, 0, x4.shape)
     lo = x4.reshape(3, -1).min(1)
     scale = ((x4.reshape(3, -1).max(1) - lo) / 15).astype(np.float32)
     want = np.asarray(jax.jit(jref.qdq_bucketed, static_argnames="bits")(
         x4, u4, lo, scale, bits=bits))
     params = torch.from_numpy(np.stack([lo, scale], 1))
-    got = kernel.qdq_bucketed(torch.from_numpy(x4), torch.from_numpy(u4),
+    got = kernel.qdq_bucketed(torch.from_numpy(x4), prng.PRNGKey(bits + 1),
                               params, bits=bits)
     np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
     x4[1, 0, 0, 3] = np.nan
-    got = kernel.qdq_bucketed(torch.from_numpy(x4), torch.from_numpy(u4),
+    got = kernel.qdq_bucketed(torch.from_numpy(x4), prng.PRNGKey(bits + 1),
                               params, bits=bits)
     assert np.isnan(got[1, 0, 0, 3]) and np.isfinite(got[0]).all()
 
