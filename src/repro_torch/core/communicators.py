@@ -180,19 +180,25 @@ class RankAxis:
             recv = [torch.empty(tuple(t.shape), dtype=t.dtype, device="cpu")
                     if staged else o for t, o in zip(xs, outs)]
             ops = []
+            sent = got = 0
             if remote_to:
                 peer = self._peer(to[0])
                 for t in xs:
                     ops.append(dist.P2POp(dist.isend, host(t), peer,
                                           self.group))
-                self.sent_bytes += sum(t.numel() * t.element_size()
-                                       for t in xs)
+                sent = sum(t.numel() * t.element_size() for t in xs)
+                self.sent_bytes += sent
             if remote_from:
                 peer = self._peer(frm[0])
                 ops += [dist.P2POp(dist.irecv, r, peer, self.group)
                         for r in recv]
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+                got = sum(r.numel() * r.element_size() for r in recv)
+            with obs.span("comm.sendrecv", args={
+                    "sent_bytes": sent, "recv_bytes": got,
+                    "to": to[0] if remote_to else None,
+                    "from": frm[0] if remote_from else None}):
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
             if staged and remote_from:
                 for o, r in zip(outs, recv):
                     o.copy_(r)
@@ -578,34 +584,44 @@ class CSGDRingExchange:
         partition message from the rank on its left, decodes it, adds its
         own slice and re-encodes (ONE K5 call on one partition) and sends
         the result right; N-1 all-gather hops forward finished messages
-        verbatim into the (N, rows_p, 512) backing buffer, decoded once."""
+        verbatim into the (N, rows_p, 512) backing buffer, decoded once.
+        Spans: ``ring.exchange`` around ``ring.encode``, N-1 ``ring.hop``
+        (wire + K5), N-1 ``ring.gather`` and ``ring.decode``."""
         n, i = axis.n, axis.index
-        layout = compression.FlatLayout.from_tree(grad)
-        be = compression.DEFAULT_BUCKET_ELEMS
-        part_elems, _, _ = cdc.partition_geometry(layout.total, n,
-                                                  bucket_elems=be)
-        gparts = layout.flatten(grad, padded_len=n * part_elems).view(
-            n, part_elems)
-        pay, prm = cdc.encode_partition(gparts[i], wkey, bucket_elems=be)
-        for h in range(1, n):
-            pay, prm = axis.ppermute((pay, prm), perm)
-            pay, prm = cdc.decode_add_encode_partition(
-                pay, prm, gparts[(i - h) % n], prng.fold_in(wkey, h),
-                bucket_elems=be)
-        del gparts
-        payload_all = torch.empty((n,) + tuple(pay.shape), dtype=pay.dtype,
-                                  device=pay.device)
-        params_all = torch.empty((n,) + tuple(prm.shape), dtype=prm.dtype,
-                                 device=prm.device)
-        payload_all[(i + 1) % n] = pay
-        params_all[(i + 1) % n] = prm
-        for g in range(1, n):
-            pay, prm = axis.ppermute((pay, prm), perm)
-            payload_all[(i + 1 - g) % n] = pay
-            params_all[(i + 1 - g) % n] = prm
-        packed = compression.PartitionedFlatPacked(
-            payload_all, params_all, layout, cdc.name, be, part_elems)
-        return layout.unflatten(cdc.flat_decode_partitioned(packed).div_(n))
+        with obs.span("ring.exchange", args={"workers": n}):
+            with obs.span("ring.encode"):
+                layout = compression.FlatLayout.from_tree(grad)
+                be = compression.DEFAULT_BUCKET_ELEMS
+                part_elems, _, _ = cdc.partition_geometry(layout.total, n,
+                                                          bucket_elems=be)
+                gparts = layout.flatten(grad, padded_len=n * part_elems
+                                        ).view(n, part_elems)
+                pay, prm = cdc.encode_partition(gparts[i], wkey,
+                                                bucket_elems=be)
+            for h in range(1, n):
+                with obs.span("ring.hop", args={"hop": h}):
+                    pay, prm = axis.ppermute((pay, prm), perm)
+                    pay, prm = cdc.decode_add_encode_partition(
+                        pay, prm, gparts[(i - h) % n], prng.fold_in(wkey, h),
+                        bucket_elems=be)
+            del gparts
+            payload_all = torch.empty((n,) + tuple(pay.shape),
+                                      dtype=pay.dtype, device=pay.device)
+            params_all = torch.empty((n,) + tuple(prm.shape),
+                                     dtype=prm.dtype, device=prm.device)
+            payload_all[(i + 1) % n] = pay
+            params_all[(i + 1) % n] = prm
+            for g in range(1, n):
+                with obs.span("ring.gather", args={"hop": g}):
+                    pay, prm = axis.ppermute((pay, prm), perm)
+                    payload_all[(i + 1 - g) % n] = pay
+                    params_all[(i + 1 - g) % n] = prm
+            with obs.span("ring.decode"):
+                packed = compression.PartitionedFlatPacked(
+                    payload_all, params_all, layout, cdc.name, be,
+                    part_elems)
+                return layout.unflatten(
+                    cdc.flat_decode_partitioned(packed).div_(n))
 
     @_sized
     def message_bytes(self, tree, *, n_workers: int = 2) -> float:

@@ -45,6 +45,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.core import pytree
 from repro_torch.dist import sharding
 from repro_torch.models import attention, layers, mla, moe, rglru, rwkv
@@ -181,7 +182,9 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
                 memory_kv: tuple = None, use_flash: bool = False) -> tuple:
     """One pre-norm block over the full sequence -> (x, aux), aux the
     MoE FFN's router loss (0.0 for a dense FFN); with ``memory_kv`` an
-    enc-dec decoder block, whose cross attention follows the mixer."""
+    enc-dec decoder block, whose cross attention follows the mixer.
+    Spans ``block.mixer`` (norm, mixer, residual) and ``block.ffn``
+    (norm, FFN, residual), args ``layer``: ``layer_idx``."""
     if kind not in BLOCK_KINDS:
         raise ValueError(kind)
     if kind == "rwkv":
@@ -189,27 +192,32 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
         x = x + mix
         ffn_out, _ = rwkv.channel_mix(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
         return x + ffn_out, 0.0
-    h = _norm(cfg, p["ln1"], x)
-    if kind == "mla":
-        mixer_out = mla.mla_attention(p["mixer"], cfg, h, positions)
-    elif kind == "rglru":
-        mixer_out, _ = rglru.rglru_block(p["mixer"], cfg, h)
-    else:
-        window = cfg.local_window if kind == "local_attn" else 0
-        mixer_out = attention.attention(p["mixer"], cfg, h, positions,
-                                        causal=True, window=window,
-                                        use_flash=use_flash)
+    with obs.span("block.mixer", args={"layer": layer_idx}):
+        h = _norm(cfg, p["ln1"], x)
+        if kind == "mla":
+            mixer_out = mla.mla_attention(p["mixer"], cfg, h, positions)
+        elif kind == "rglru":
+            mixer_out, _ = rglru.rglru_block(p["mixer"], cfg, h)
+        else:
+            window = cfg.local_window if kind == "local_attn" else 0
+            mixer_out = attention.attention(p["mixer"], cfg, h, positions,
+                                            causal=True, window=window,
+                                            use_flash=use_flash)
+        if not cfg.parallel_block:
+            # on a mesh: the row-parallel projection's partial sums are
+            # reduced here, into the batch placement (the identity on a
+            # plain tensor)
+            x = sharding.constrain_act(x + mixer_out)
     if cfg.parallel_block:
-        ffn_out, aux = _ffn_apply(p["ffn"], cfg, h, layer_idx)
+        with obs.span("block.ffn", args={"layer": layer_idx}):
+            ffn_out, aux = _ffn_apply(p["ffn"], cfg, h, layer_idx)
         return x + mixer_out + ffn_out, aux
-    # on a mesh: the row-parallel projection's partial sums are reduced
-    # here, into the batch placement (the identity on a plain tensor)
-    x = sharding.constrain_act(x + mixer_out)
     if memory_kv is not None:
         x = sharding.constrain_act(x + _cross(p, cfg, x, memory_kv))
-    h2 = _norm(cfg, p["ln2"], x)
-    ffn_out, aux = _ffn_apply(p["ffn"], cfg, h2, layer_idx)
-    return x + ffn_out, aux
+    with obs.span("block.ffn", args={"layer": layer_idx}):
+        h2 = _norm(cfg, p["ln2"], x)
+        ffn_out, aux = _ffn_apply(p["ffn"], cfg, h2, layer_idx)
+        return x + ffn_out, aux
 
 
 def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor, memory_kv: tuple

@@ -1,9 +1,13 @@
 """Telemetry tier of the port: stdlib copies of ``repro.obs`` —
-switches, metrics, the wall/sim-span tracer and its scheduler-trace
+switches, metrics, the span/sim-span tracer and its scheduler-trace
 renderer, the flight recorder and run identity. Off by default
-(``REPRO_OBS=1`` or ``obs.enable()`` turns it on); ``kernel_scope``
-opens a ``torch.profiler.record_function`` range only while tracing is
-on. ``python -m repro_torch.obs.export trace`` writes a timeline.
+(``REPRO_OBS=1`` or ``obs.enable()`` turns it on). ``span`` is the one
+span of the program: it records while tracing is on or a
+``torch.profiler`` runs (a profiler range and a record on the
+profiler's clock, with the span's CUDA stream time; ``kernel_scope`` is
+a span under a kernel's name), and is a shared nullcontext otherwise.
+``tracer().spans()`` / ``span_stats`` read the record;
+``python -m repro_torch.obs.export trace`` writes a timeline.
 """
 from repro_torch.obs.flight import (kernel_scope, record as flight_record,
                                     recorder as flight_recorder)

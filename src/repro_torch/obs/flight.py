@@ -17,15 +17,13 @@ Dumps land in ``REPRO_OBS_DIR`` (default: the current directory) as
 cross-referenceable with BENCH rows and exported timelines through the
 shared ``run_id``.
 
-``kernel_scope(name)`` is the profiler annotation hook for the kernel
-calls: ``torch.profiler.record_function`` when tracing is enabled (the
-name shows up as a range in ``torch.profiler`` traces), a free
-nullcontext otherwise. torch is imported lazily so the obs package stays
-stdlib-only.
+``kernel_scope(name)`` is the span of a kernel call: ``obs.span``
+under the kernel's name (a ``torch.profiler`` range and a record of the
+tracer while tracing is on or a profiler runs), a free nullcontext
+otherwise.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import itertools
 import json
@@ -35,6 +33,7 @@ from collections import deque
 from typing import Optional
 
 from repro_torch.obs import state
+from repro_torch.obs import trace as _trace
 
 DEFAULT_CAPACITY = 4096
 
@@ -137,19 +136,15 @@ def guarded(scope: str):
 
 
 def kernel_scope(name: str):
-    """``torch.profiler.record_function`` around a kernel call when
-    tracing is on — the range shows up in torch.profiler timelines —
-    else a free nullcontext."""
-    if not state.enabled("trace"):
-        return contextlib.nullcontext()
-    import torch
-
-    return torch.profiler.record_function(name)
+    """``obs.span(name)`` around a kernel call: nested in the phase's
+    span, a range of torch.profiler timelines; else a free
+    nullcontext."""
+    return _trace.span(name)
 
 
 def kernel_annotation(name: str):
     """Decorator form of ``kernel_scope`` for kernel entry points: the
-    scope opens on every call, one switch lookup when tracing is off."""
+    scope opens on every call, one switch check when nothing records."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):

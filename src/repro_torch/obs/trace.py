@@ -4,8 +4,11 @@ A stdlib copy of ``repro.obs.trace``.
 
 Two clocks, one event stream:
 
-  * **wall spans** (``Tracer.span`` context manager) — host-side phases
-    (a replay, a benchmark row, an export) timed on the monotonic clock;
+  * **spans** (``obs.span`` / ``Tracer.span``) — phases of the program
+    (a train step and its phases, a prefill and its blocks, a ring
+    exchange and its hops, a kernel call, a replay) on the host's
+    Unix-epoch clock (``time.time_ns``), the clock ``torch.profiler``
+    stamps its events with;
   * **sim spans / instants** (``Tracer.sim_span`` / ``Tracer.instant``)
     — events at explicit *simulated* times, the currency of the cluster
     scheduler: every span carries the worker (``PS = -1`` is the
@@ -32,16 +35,35 @@ disagree with the ledgers it renders. Live scheduler instrumentation
 (compute spans) adds rows to the same tracks when tracing is enabled
 during scheduling.
 
-Sim seconds are exported as microseconds (ts = t * 1e6); wall spans use
-microseconds since the tracer's first event. Zero dependencies beyond
-the stdlib.
+A span records while tracing is on (``REPRO_OBS=trace``,
+``obs.enable()``) or while a ``torch.profiler`` runs; otherwise
+``span`` returns one shared ``nullcontext`` after one switch lookup and
+one call. A recording span opens a ``torch.profiler.record_function``
+range of its name (so it is a host range of the profiler's own trace,
+around the device work it launches) and keeps a record: name, id, the
+enclosing span's id (``parent``, from a per-thread stack: a thread with
+no span of its own open, such as autograd's backward thread, nests under
+the newest span open on another), the root span's id, host start and end
+(``t0_ns``, ``t1_ns``), args and ``stream_ms``: on a card the
+``elapsed_time`` of two CUDA events recorded on the current stream at
+its start and end (from the stream reaching the span to the stream
+finishing its work), on the CPU the host duration. Pending event pairs
+are read, and their events reused, when the record is read
+(``spans``, ``span_stats``, the export) or once ``MAX_PENDING`` wait.
+
+Sim seconds are exported as microseconds (ts = t * 1e6); spans use
+microseconds since the tracer's first span. torch is looked up only
+once it is loaded: the module needs nothing beyond the stdlib.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
+import sys
 import threading
 import time
-from contextlib import contextmanager
+from collections import namedtuple
 from typing import Optional
 
 from repro_torch.obs import state
@@ -56,6 +78,23 @@ _WORKER_PID0 = 100
 
 # lane -> tid, one per track kind; unknown lanes get allocated past these
 _LANES = ("compute", "uplink", "downlink", "gossip", "faults", "host")
+
+MAX_PENDING = 16384  # CUDA event pairs held before the finished are read
+_NULL = contextlib.nullcontext()
+_profiler_enabled = None   # torch.autograd._profiler_enabled, once loaded
+
+SpanStats = namedtuple("SpanStats", "count host_s stream_s")
+
+
+def _profiling() -> bool:
+    """Is a ``torch.profiler`` running (False while torch is not loaded)?"""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None or not hasattr(torch, "autograd"):
+            return False
+        _profiler_enabled = torch.autograd._profiler_enabled
+    return _profiler_enabled()
 
 
 def _pid(worker: int) -> int:
@@ -82,6 +121,11 @@ class Tracer:
         self._events: list[dict] = []
         self._tracks: dict = {}      # (worker, lane) -> tid
         self._t0_ns: Optional[int] = None
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        self._stacks: list = []      # every thread's stack of open spans
+        self._pending: list = []     # (record, start, end, device)
+        self._free: dict = {}        # device -> reusable CUDA events
 
     # -- recording --------------------------------------------------------
 
@@ -122,26 +166,85 @@ class Tracer:
         self._append({"name": name, "ph": "C", "ts": t * 1e6,
                       "pid": _pid(worker), "args": dict(values)})
 
-    @contextmanager
     def span(self, name: str, *, cat: str = "host",
              args: Optional[dict] = None):
-        """Wall-clock span on the host track (monotonic clock); records
-        only if tracing is enabled at entry."""
-        if not state.enabled("trace"):
-            yield
-            return
-        if self._t0_ns is None:
-            self._t0_ns = time.perf_counter_ns()
-        t0 = time.perf_counter_ns()
-        try:
-            yield
-        finally:
-            t1 = time.perf_counter_ns()
-            self._append({"name": name, "cat": cat, "ph": "X",
-                          "ts": (t0 - self._t0_ns) / 1e3,
-                          "dur": (t1 - t0) / 1e3, "pid": _pid(HOST),
-                          "tid": self._tid(HOST, "host"),
-                          "args": args or {}})
+        """A span of the program (see the module's docstring): records
+        while tracing is on or a profiler runs, else a shared
+        ``nullcontext``."""
+        if not (state.enabled("trace") or _profiling()):
+            return _NULL
+        return _Span(self, name, cat, args)
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+            with self._lock:
+                self._stacks.append(st)
+        return st
+
+    def _newest_open(self) -> Optional[dict]:
+        """The newest span open on any thread."""
+        best = None
+        for st in list(self._stacks):
+            try:
+                top = st[-1]
+            except IndexError:
+                continue
+            if best is None or top["id"] > best["id"]:
+                best = top
+        return best
+
+    def _event(self, torch, dev: int):
+        free = self._free.get(dev)
+        if free:
+            return free.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _resolve(self, wait: bool) -> None:
+        """Read the stream times of the pending event pairs, in order,
+        and keep their events for reuse; without ``wait`` stop at the
+        first pair the device has not finished."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for k, (rec, start, end, dev) in enumerate(pending):
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                with self._lock:
+                    self._pending[:0] = pending[k:]
+                return
+            rec["stream_ms"] = start.elapsed_time(end)
+            self._free.setdefault(dev, []).extend((start, end))
+
+    def spans(self) -> list[dict]:
+        """The spans recorded, each with its stream time (pending device
+        times are waited for)."""
+        self._resolve(wait=True)
+        with self._lock:
+            return [e for e in self._events if "t0_ns" in e]
+
+    def span_stats(self, name: str, under: Optional[str] = None
+                   ) -> SpanStats:
+        """(count, host seconds, stream seconds) summed over the spans
+        named ``name``; with ``under``, only those inside a span of that
+        name (at any depth)."""
+        spans = self.spans()
+        by_id = {e["id"]: e for e in spans}
+
+        def inside(e):
+            p = by_id.get(e["parent"])
+            while p is not None:
+                if p["name"] == under:
+                    return True
+                p = by_id.get(p["parent"])
+            return False
+
+        mine = [e for e in spans if e["name"] == name
+                and (under is None or inside(e))]
+        return SpanStats(len(mine),
+                         sum(e["t1_ns"] - e["t0_ns"] for e in mine) * 1e-9,
+                         sum(e["stream_ms"] for e in mine) * 1e-3)
 
     # -- export -----------------------------------------------------------
 
@@ -159,6 +262,7 @@ class Tracer:
 
     def to_chrome_trace(self) -> dict:
         """The Perfetto-loadable JSON object (metadata + events)."""
+        self._resolve(wait=True)
         with self._lock:
             events = list(self._events)
         return {"traceEvents": self._metadata() + events,
@@ -171,6 +275,7 @@ class Tracer:
         return path
 
     def reset(self) -> None:
+        self._resolve(wait=True)
         with self._lock:
             self._events.clear()
             self._tracks.clear()
@@ -185,6 +290,64 @@ class Tracer:
             return list(self._events)
 
 
+class _Span:
+    """A recording span: a profiler range of its name, its record, and on
+    a card a pair of timing events on the current stream."""
+
+    __slots__ = ("_tr", "_rec", "_range", "_start", "_dev", "_torch")
+
+    def __init__(self, tr: Tracer, name: str, cat: str,
+                 args: Optional[dict]):
+        self._tr = tr
+        self._rec = {"name": name, "cat": cat, "ph": "X",
+                     "args": args or {}}
+
+    def __enter__(self):
+        tr, rec = self._tr, self._rec
+        stack = tr._stack()
+        parent = stack[-1] if stack else tr._newest_open()
+        rec["id"] = next(tr._ids)
+        rec["parent"] = parent["id"] if parent else None
+        rec["root"] = parent["root"] if parent else rec["id"]
+        rec["t0_ns"] = time.time_ns()
+        stack.append(rec)
+        self._torch = torch = sys.modules.get("torch")
+        self._range = self._start = None
+        if torch is not None:
+            self._range = torch.profiler.record_function(rec["name"])
+            self._range.__enter__()
+            if torch.cuda.is_initialized():
+                self._dev = torch.cuda.current_device()
+                self._start = tr._event(torch, self._dev)
+                self._start.record()
+        return self
+
+    def __exit__(self, *exc):
+        tr, rec = self._tr, self._rec
+        end = None
+        if self._start is not None:
+            end = tr._event(self._torch, self._dev)
+            end.record()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        rec["t1_ns"] = t1 = time.time_ns()
+        tr._stack().pop()
+        t0 = rec["t0_ns"]
+        rec["stream_ms"] = None if end is not None else (t1 - t0) * 1e-6
+        with tr._lock:
+            if tr._t0_ns is None:
+                tr._t0_ns = t0
+            rec.update(ts=(t0 - tr._t0_ns) / 1e3, dur=(t1 - t0) / 1e3,
+                       pid=_pid(HOST), tid=tr._tid(HOST, "host"))
+            tr._events.append(rec)
+            if end is not None:
+                tr._pending.append((rec, self._start, end, self._dev))
+            full = len(tr._pending) >= MAX_PENDING
+        if full:
+            tr._resolve(wait=False)
+        return False
+
+
 _TRACER = Tracer()
 
 
@@ -197,11 +360,10 @@ def reset() -> None:
     _TRACER.reset()
 
 
-@contextmanager
 def span(name: str, *, cat: str = "host", args: Optional[dict] = None):
-    """Module-level wall-span shorthand: ``with obs.span("replay"):``."""
-    with _TRACER.span(name, cat=cat, args=args):
-        yield
+    """A span on the process-global tracer: ``with obs.span("replay"):``;
+    a shared ``nullcontext`` unless tracing is on or a profiler runs."""
+    return _TRACER.span(name, cat=cat, args=args)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import compression, prng, pytree
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
@@ -174,9 +175,11 @@ def value_and_grad(loss_fn, params, batch) -> tuple:
     leaves, treedef = pytree.tree_flatten(params)
     with torch.enable_grad():
         live = [leaf.detach().requires_grad_(True) for leaf in leaves]
-        loss = loss_fn(pytree.tree_unflatten(treedef, live), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
+        with obs.span("train.forward"):
+            loss = loss_fn(pytree.tree_unflatten(treedef, live), batch)
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
     # on a mesh each gradient takes its parameter's placement
     grads = [sharding.like(g, p) for g, p in zip(grads, leaves)]
     return loss.detach(), pytree.tree_unflatten(treedef, grads)
@@ -215,6 +218,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     loss_fn = make_loss_fn(cfg, step_cfg)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        with obs.span("train.step", args={"step": int(state["step"])}):
+            return phases(state, batch)
+
+    def phases(state: dict, batch: dict) -> tuple[dict, dict]:
+        """The step, a span a phase: ``train.forward`` and
+        ``train.backward`` (``value_and_grad``), ``train.clip``,
+        ``train.compress`` and ``train.optimizer``."""
         split = False
         if mesh is not None:
             batch, split = sharding.local_batch(batch, mesh)
@@ -225,7 +235,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             loss_val, grads = value_and_grad(loss_fn, state["params"],
                                              batch)
         if step_cfg.grad_clip > 0:
-            grads, grad_norm = clip_by_global_norm(grads, step_cfg.grad_clip)
+            with obs.span("train.clip"):
+                grads, grad_norm = clip_by_global_norm(grads,
+                                                       step_cfg.grad_clip)
         else:
             grad_norm = torch.zeros(())
         new_state = dict(state)
@@ -234,10 +246,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             qkey = prng.fold_in(state["rng"], int(state["step"]))
             ec = state["ec_err"] if step_cfg.error_feedback else None
             # the residual is updated in place (new_state shares it)
-            grads, _, comm_bytes = compress_grads(q_codec, grads, qkey, ec)
-        updates, new_opt = optimizer.update(grads, state["opt"],
-                                            state["params"])
-        new_state["params"] = apply_updates(state["params"], updates)
+            with obs.span("train.compress"):
+                grads, _, comm_bytes = compress_grads(q_codec, grads, qkey,
+                                                      ec)
+        with obs.span("train.optimizer"):
+            updates, new_opt = optimizer.update(grads, state["opt"],
+                                                state["params"])
+            new_state["params"] = apply_updates(state["params"], updates)
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1
         metrics = {"loss": loss_val, "grad_norm": grad_norm,
@@ -304,8 +319,9 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False,
         kw = {}
         if scan_layers:
             kw["logits_positions"] = logits_positions
-        logits = impl.apply(params, cfg, batch, use_flash=use_flash,
-                            remat=scan_layers, **kw)
-        return logits[:, -1]
+        with obs.span("prefill.step"):
+            logits = impl.apply(params, cfg, batch, use_flash=use_flash,
+                                remat=scan_layers, **kw)
+            return logits[:, -1]
 
     return prefill_step
