@@ -49,8 +49,9 @@ Phases (any failure raises and the script exits non-zero):
      Then ~30 AdamW steps of full-width repro-100m (the
      unrolled tree, batch 8, seq 256, rq4 + error feedback) through the
      trainer's setup and step: finite, falling losses, K1 once and K4
-     twice a step, comm_bytes equal to the fused message's wire bytes;
-     step time, tokens/s, peak memory and a breakdown of the step; the
+     twice a step, K6 and K6b once a layer a step (the attention's
+     flash route under autograd), comm_bytes equal to the fused
+     message's wire bytes; step time, tokens/s, peak memory and a breakdown of the step; the
      trained state through save_state / load_state bit for bit; and one
      reduced step on the card against the CPU;
   6. ring: the device Threefry (K5's draws) against prng.random_bits
@@ -89,6 +90,12 @@ Phases (any failure raises and the script exits non-zero):
      prefills, K6 once per layer, its share of the prefill, peak memory,
      and the last-position logits against the same prefill without
      flash. Then a reduced flash prefill on the card against the CPU;
+     then K6b (flash attention's backward, after K6 with its lse)
+     against its plain version on the card (rtol = atol = 1e-4) at the
+     train cell's attention (8 x 16/16 x 2048 x 64, causal) and at GQA
+     32/8, D 128, a second call bit for bit; its time beside its bound
+     (10 * D flops a triple at the 3xTF32 rate), the plain version's and
+     SDPA's memory-efficient backward (a yardstick only);
   8. rwkv: K7 wkv6_bhsk against its plain version on the card (rtol =
      atol = 1e-4, out and state) at the prefill's shape of one layer
      (B 1, H 40, S 32768, K 64), at the JAX tests' shapes and at 37
@@ -343,6 +350,16 @@ PREFILL_TOL = 1e-3
 REDUCED_TOL = 1e-5
 # bf16: K6 against its plain version (bf16 rounds to 2**-8 relative)
 BF16_TOL = 0.05
+# K6b (flash attention's backward) against its plain version on the card:
+# (name, B, Hq, Hkv, D, S), causal fp32; the train cell's attention first
+FLASH_BACKWARD_GEOMETRIES = (
+    ("qwen1.5-0.5b train 8 x 2048", 8, 16, 16, 64, 2048),
+    ("granite-8b GQA 32/8 2 x 2048", 2, 32, 8, 128, 2048),
+)
+# gradients of unit normals reach ~10 and sum 2,048 terms: 3xTF32 and
+# other summation orders put K6b ~1e-5 from the plain backward
+K6B_TOL = 1e-4
+FP32_3XTF32_FLOPS_PER_S = TF32_FLOPS_PER_S / FLASH_FP32_PRODUCTS
 # a bf16 model's flash prefill logits against its non-flash prefill, by
 # relative L2 (|flash - ref| / |ref|): at full width bf16 rounding
 # carried through 40 layers sets correct paths 0.17-0.19 apart in max
@@ -1013,6 +1030,7 @@ def train_phase(torch) -> dict:
     """Full-width repro-100m, rq4 + error feedback, TRAIN_STEPS AdamW
     steps through the trainer's setup and step function."""
     from repro_torch.core import compression
+    from repro_torch.kernels.flash_attn import kernel as fk
     from repro_torch.kernels.quant import kernel
     from repro_torch.launch import train
 
@@ -1028,10 +1046,16 @@ def train_phase(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     kernel.reset_launches()
+    fk.reset_launches()
+    # the attention's flash route under autograd: K6 once a layer (twice
+    # under remat: the recompute) and K6b once a layer, a step
+    flash_want = {"flash_attention_bhsd": run["cfg"].n_layers * (
+        1 + args.remat), "flash_attention_bwd_bhsd": run["cfg"].n_layers}
     losses, gnorms, step_ms = [], [], []
     for t in range(TRAIN_STEPS):
         batch = train.to_device(data.batch_at(t), run["device"])
         before = kernel.launch_counts()
+        flash_before = {k: getattr(fk, k).launches for k in flash_want}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = train_step(state, batch)
@@ -1041,6 +1065,11 @@ def train_phase(torch) -> dict:
         per = {k: after[k] - before[k] for k in TRAIN_KERNELS}
         if per != {"minmax_bucketed": 1, "qdq_bucketed": 2}:
             raise AssertionError(f"step {t}: launches {per}")
+        flash_per = {k: getattr(fk, k).launches - flash_before[k]
+                     for k in flash_want}
+        if flash_per != flash_want:
+            raise AssertionError(f"step {t}: flash launches {flash_per}, "
+                                 f"want {flash_want}")
         if float(m["comm_bytes"]) != float(torch.tensor(wire)):
             raise AssertionError(f"comm_bytes {float(m['comm_bytes'])} != "
                                  f"wire {wire}")
@@ -1062,7 +1091,10 @@ def train_phase(torch) -> dict:
            "last5_loss": last5, "median_step_ms": med,
            "tokens_per_s": args.batch * args.seq / (med / 1e3),
            "max_memory_allocated": peak, "comm_bytes": wire,
-           "launches": launches}
+           "launches": launches,
+           "flash_launches": {k: getattr(fk, k).launches
+                              for k in flash_want}}
+    log(f"[train] flash launches a step: {json.dumps(flash_want)}")
     log(f"[train] median step {med:.3f} ms (first step {step_ms[0]:.1f} "
         "ms)")
     log(f"[train] tokens/s {out['tokens_per_s']:.1f}")
@@ -2040,6 +2072,82 @@ def prefill_phase(torch) -> dict:
     return {"geometries": geoms, "runs": runs, "k6": k6,
             "launches": {"flash_attention_bhsd": sum(r["launches"]
                                                      for r in runs)}}
+
+
+def check_flash_backward(torch, b: int, hq: int, hkv: int, d: int,
+                         s: int, *, seed: int) -> dict:
+    """K6b on unit-normal (B, H, S, D) fp32 card tensors, causal, after
+    K6 with its lse: against the plain backward on the same card tensors
+    (rtol = atol = K6B_TOL), a second call bit for bit; CUDA-event times
+    of K6b, the plain backward and, as the yardstick only, PyTorch's
+    memory-efficient SDPA backward on the same inputs (K and V repeated
+    to the q heads beforehand), beside K6b's bound: 10 * D flops per
+    attended (q-head, query, key) triple, the five products of one
+    backward, at the 3xTF32 rate."""
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attn import kernel as fk
+
+    rng = np.random.default_rng(seed)
+
+    def draw(h):
+        return torch.from_numpy(rng.standard_normal(
+            (b, h, s, d), dtype=np.float32)).to("cuda")
+
+    q, k, v, dout = draw(hq), draw(hkv), draw(hkv), draw(hq)
+    out, lse = fk.flash_attention_bhsd(q, k, v, causal=True, window=0,
+                                       softcap=0.0, block_q=256,
+                                       block_k=128, s_valid=s,
+                                       with_lse=True)
+    bw = dict(causal=True, window=0, s_valid=s)
+    got = fk.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, **bw)
+    again = fk.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, **bw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"K6b reruns differ at {(b, hq, hkv, d, s)}")
+    del again
+    want = fk.flash_attention_backward_plain(q, k, v, out, dout, lse, **bw)
+    err = max(max_abs(a, w) for a, w in zip(got, want))
+    if not all(torch.allclose(a, w, rtol=K6B_TOL, atol=K6B_TOL)
+               for a, w in zip(got, want)):
+        raise AssertionError(f"K6b != plain at {(b, hq, hkv, d, s)}: max "
+                             f"abs err {err} (tolerance {K6B_TOL})")
+    del got, want
+    flops = 10 * d * hq * b * attended_pairs(s, True, 0)
+    res = {"shape": [b, hq, hkv, s, d], "max_abs_err": err,
+           "tolerance": K6B_TOL, "bit_identical": True,
+           "ms": time_ms(lambda: fk.flash_attention_bwd_bhsd(
+               q, k, v, out, dout, lse, **bw), reps=5),
+           "plain_ms": time_ms(lambda: fk.flash_attention_backward_plain(
+               q, k, v, out, dout, lse, **bw), reps=3),
+           "flops": flops, "bound_ms": flops / FP32_3XTF32_FLOPS_PER_S * 1e3,
+           "bound_by": "operations"}
+    g = hq // hkv
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (
+        q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        res["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib, (qs, ks, vs), dout, retain_graph=True), reps=5)
+    res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def flash_backward_phase(torch) -> dict:
+    """K6b at the train cell's attention and at GQA 32/8, D 128
+    (FLASH_BACKWARD_GEOMETRIES); the first is the kernels line's K6b
+    row."""
+    out = []
+    for i, (name, b, hq, hkv, d, s) in enumerate(FLASH_BACKWARD_GEOMETRIES):
+        res = check_flash_backward(torch, b, hq, hkv, d, s, seed=200 + i)
+        res["name"] = name
+        log(f"[k6b] {name}: == plain within {K6B_TOL} (max abs err "
+            f"{res['max_abs_err']:.3g}), reruns bit for bit; "
+            + json.dumps(res))
+        out.append(res)
+        torch.cuda.empty_cache()
+    return {"geometries": out, "k6b": out[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -4993,6 +5101,7 @@ def main() -> int:
     timing["decode_add_encode_bucketed"] = ringed["dae"]
     prefilled = prefill_phase(torch)
     timing["flash_attention_bhsd"] = prefilled["k6"]
+    backward = flash_backward_phase(torch)
     rwkv = rwkv_phase(torch)
     timing["wkv6_bhsk"] = rwkv["k7"]
     clustered = cluster_phase(torch)
@@ -5048,6 +5157,13 @@ def main() -> int:
                         "launches": row["launches"],
                         "library_ms": t["library_ms"]}))
         rows.append(row)
+    k6b = backward["k6b"]      # replaces no TPU kernel: its own line
+    log(json.dumps({"kernel": "flash_attention_bwd_bhsd",
+                    "kernel_ms": k6b["ms"], "plain_ms": k6b["plain_ms"],
+                    "bound_ms": k6b["bound_ms"],
+                    "launches": trained["flash_launches"][
+                        "flash_attention_bwd_bhsd"],
+                    "library_ms": k6b["library_ms"]}))
     log(json.dumps({"kernels": rows}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,48 @@
 // dynamic shared memory after
 // cudaFuncSetAttribute; a refused launch is returned by
 // cudaGetLastError() and raised by the wrapper.
+// flash_fwd<T, D, true> also stores each row's log-sum-exp, m + log(l)
+// in fp32 (B, Hq, S), for the backward, after the key loop; it is built
+// for fp32 at D 64 and 128 alone (what K6b covers). A prefill passes no
+// lse pointer and runs flash_fwd<T, D, false>, whose code has no store.
+//
+// K6b: the backward of K6's fp32 function without softcap, which no TPU
+// kernel has (the Pallas kernel is forward-only; the JAX package trains
+// through its plain attention, whose gradient this computes). Given q,
+// k, v, out, dout and lse it returns dq, dk, dv:
+//   P = exp((q * scale) . k - lse) where attended, else 0
+//   delta = rowsum(dout * out); dS = P * (dout . v - delta)
+//   dv = P^T . dout, dk = dS^T . (q * scale)  (summed over the group)
+//   dq = scale * dS . k
+// What bounds it: five products of 2 * D flops a triple (S, dP, dV, dK,
+// dQ), 10 * D a (q-head, query, key) triple, at 165 TFLOP/s for 3xTF32;
+// this design recomputes S and dP in its dQ pass (seven products).
+// Every product is 3xTF32 with K6's split and term order. Design:
+//   * flash_bwd_delta: delta, a warp a row;
+//   * flash_bwd_dkdv, a block per (batch, KV head, 128 keys), 16 keys a
+//     warp: the block's K and V stay in shared memory, and it walks the
+//     q-heads of its group and the query tiles (64 queries, 32 at D =
+//     128) that the causal, window and s_valid masks leave, cp.async
+//     double-buffered with their lse and delta. A warp computes S^T = k
+//     . (q * scale)^T and dP^T = v . dout^T with k, v as A fragments and
+//     q, dout as B fragments (ldmatrix, as K6 reads k), P^T and dS^T in
+//     the accumulator registers, which become the A fragments of dV +=
+//     P^T . dout and dK += dS^T . (q * scale) by K6's key permutation
+//     (here the queries: A column t is query 2t, t + 4 query 2t + 1,
+//     read from shared memory at rows 2t, 2t + 1). Summing the group
+//     inside one block keeps dk and dv free of atomics;
+//   * flash_bwd_dq, a block per K6 block (the same folded rows, the
+//     same k range and edge tests): S and dP again, dS, and dQ += dS .
+//     k; its q and dout rows stay in shared memory, k and v tiles are
+//     double-buffered;
+//   * a tile's dV, dK and dQ products sum in fresh registers, added to
+//     the running sums once (the tensor core truncates as it
+//     accumulates, as in K6's P.v);
+//   * no float atomics: the same inputs give the same bits on every
+//     call; a warp skips a tile its masks leave empty, and only tiles
+//     on a mask edge are masked elementwise.
+// Shared memory: dK/dV (2 * 128 + 4 * BQ) * (D + 4) + 4 * BQ floats,
+// dQ (2 * 128 + 4 * BK) * (D + 4); at most 203,264 bytes (D = 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +161,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes global -> shared (bytes = 0: zeros)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -199,10 +247,11 @@ __device__ __forceinline__ bool attends(long long kp, long long qp,
          (window <= 0 || kp > qp - window);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(Cfg<T, D>::THREADS, Cfg<T, D>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int hq, int hkv,
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ lse, int hq, int hkv,
           long long s, long long s_valid, int causal, int window,
           float scale, float cap, float inv_cap, int skip, int gh, int bq,
           int n_chunks) {
@@ -565,6 +614,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= rows || gi >= group || qpos[i] >= s) continue;
     const long long h = (long long)kvh * group + gi;
     T* orow = out + ((b * hq + h) * s + qpos[i]) * D + 2 * t;
+    if constexpr (LSE) {
+      if (t == 0) lse[(b * hq + h) * s + qpos[i]] = m[i] + logf(l[i]);
+    }
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int n = 0; n < C::ND; ++n)
@@ -572,9 +624,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   long long b, int hq, int hkv, long long s,
+                   float* lse, long long b, int hq, int hkv, long long s,
                    long long s_valid, int causal, int window, float scale,
                    float cap, float inv_cap, int skip, cudaStream_t stream) {
   using C = Cfg<T, D>;
@@ -585,46 +637,542 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long n_x = (s + bq - 1) / bq * hkv * n_chunks;
   if (n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)n_x, 1u, (unsigned)b);
-  flash_fwd<T, D><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_fwd<T, D, LSE><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, s, s_valid,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, s,
+      s_valid,
       causal, window, scale, cap, inv_cap, skip, gh, bq, n_chunks);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* out, long long b, int hq, int hkv, long long s,
-                     long long s_valid, int causal, int window, float scale,
-                     float cap, float inv_cap, int skip,
+                     void* out, float* lse, long long b, int hq, int hkv,
+                     long long s, long long s_valid, int causal, int window,
+                     float scale, float cap, float inv_cap, int skip,
                      cudaStream_t stream) {
+  if (lse != nullptr) {  // built where K6b covers the backward
+    if constexpr (Cfg<T, 64>::F32) {
+      if (d == 64)
+        return launch<T, 64, true>(q, k, v, out, lse, b, hq, hkv, s, s_valid,
+                                   causal, window, scale, cap, inv_cap, skip,
+                                   stream);
+      if (d == 128)
+        return launch<T, 128, true>(q, k, v, out, lse, b, hq, hkv, s,
+                                    s_valid, causal, window, scale, cap,
+                                    inv_cap, skip, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, out, b, hq, hkv, s, s_valid, causal,
-                           window, scale, cap, inv_cap, skip, stream);
+      return launch<T, 32, false>(q, k, v, out, nullptr, b, hq, hkv, s,
+                                  s_valid, causal, window, scale, cap,
+                                  inv_cap, skip, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, b, hq, hkv, s, s_valid, causal,
-                           window, scale, cap, inv_cap, skip, stream);
+      return launch<T, 64, false>(q, k, v, out, nullptr, b, hq, hkv, s,
+                                  s_valid, causal, window, scale, cap,
+                                  inv_cap, skip, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, b, hq, hkv, s, s_valid, causal,
-                            window, scale, cap, inv_cap, skip, stream);
+      return launch<T, 128, false>(q, k, v, out, nullptr, b, hq, hkv, s,
+                                   s_valid, causal, window, scale, cap,
+                                   inv_cap, skip, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, b, hq, hkv, s, s_valid, causal,
-                            window, scale, cap, inv_cap, skip, stream);
+      return launch<T, 256, false>(q, k, v, out, nullptr, b, hq, hkv, s,
+                                   s_valid, causal, window, scale, cap,
+                                   inv_cap, skip, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ------------------------------------------------------------------ K6b --
+
+template <int D>
+struct BwdCfg {
+  static constexpr int THREADS = 256;            // 8 warps, 16 rows each
+  static constexpr int STR = D + 4;              // padded shared row
+  static constexpr int CH = D / 4;               // 16-byte chunks of a row
+  static constexpr int KD = D / 8;               // k-steps over D
+  static constexpr int ND = D / 8;               // n-tiles over D
+  static constexpr int NG = D == 128 ? 4 : 8;    // n-tiles summed at a time
+  // dK/dV pass: BKV keys a block, query tiles of BQ
+  static constexpr int BKV = 128;
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int NQ = BQ / 8;
+  static constexpr size_t SMEM_KV =
+      ((size_t)2 * BKV * STR + 4 * BQ * STR + 4 * BQ) * sizeof(float);
+  // dQ pass: ROWS folded rows a block (K6's), key tiles of BK
+  static constexpr int ROWS = 128;
+  static constexpr int BK = D == 128 ? 32 : 64;
+  static constexpr int NK = BK / 8;
+  static constexpr size_t SMEM_Q =
+      ((size_t)2 * ROWS * STR + 4 * BK * STR) * sizeof(float);
+};
+
+// four fp32 words by ldmatrix (an A fragment, or the B fragments of two
+// n-tiles), scaled by mul and split
+__device__ __forceinline__ void ldsm4_split(uint32_t addr, float mul,
+                                            uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
+  uint32_t raw[4];
+  ldsm4(raw, addr);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split(__uint_as_float(raw[e]) * mul, big[e], small[e]);
+}
+
+// acc[n] += x . y for the warp's 16 rows, where x (16 x 8 * NX) is held
+// as accumulator fragments (x[c][e]: row g + 8 * (e >> 1), column 8c + 2t
+// + (e & 1)) and y (8 * NX x D) lies row-major in shared memory at
+// stride STR (scaled by mul): a k-step per n-tile c of x, columns
+// permuted (A column t is x's column 2t, t + 4 is 2t + 1; y's rows read
+// alike). Each group of NG output n-tiles sums in fresh registers, added
+// to acc once.
+template <int D, int NX>
+__device__ __forceinline__ void acc_xy(float (&acc)[D / 8][4],
+                                       float (&x)[NX][4],
+                                       const float* y, float mul, int g,
+                                       int t) {
+  using C = BwdCfg<D>;
+  constexpr int STR = C::STR, NG = C::NG;
+#pragma unroll
+  for (int n0 = 0; n0 < C::ND; n0 += NG) {
+    float part[NG][4];
+#pragma unroll
+    for (int nn = 0; nn < NG; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nn][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      uint32_t xb[4], xs[4];
+      split(x[c][0], xb[0], xs[0]);
+      split(x[c][2], xb[1], xs[1]);
+      split(x[c][1], xb[2], xs[2]);
+      split(x[c][3], xb[3], xs[3]);
+      const float* y0 = y + (8 * c + 2 * t) * STR + g + 8 * n0;
+#pragma unroll
+      for (int nn = 0; nn < NG; ++nn) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split(y0[8 * nn] * mul, bb0, bs0);
+        split(y0[STR + 8 * nn] * mul, bb1, bs1);
+        mma_3xtf32(part[nn], xb, xs, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < NG; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + nn][e] += part[nn][e];
+  }
+}
+
+// sc[j] (16 x 8 * NX) = a . b^T over D for the warp's 16 rows: a's rows
+// at the A-fragment ldmatrix address a_addr (scaled by amul), b's rows
+// (8 * NX of them) at the B-fragment address b_addr (scaled by bmul)
+template <int D, int NX>
+__device__ __forceinline__ void scores(float (&sc)[NX][4], uint32_t a_addr,
+                                       float amul, uint32_t b_addr,
+                                       float bmul) {
+  constexpr int STR = BwdCfg<D>::STR;
+#pragma unroll
+  for (int j = 0; j < NX; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BwdCfg<D>::KD; ++kk) {
+    uint32_t ab[4], as[4];
+    ldsm4_split(a_addr + kk * 32, amul, ab, as);
+#pragma unroll
+    for (int j = 0; j < NX; j += 2) {
+      uint32_t bb[4], bs[4];
+      ldsm4_split(b_addr + (j * 8 * STR + kk * 8) * 4, bmul, bb, bs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mma_3xtf32(sc[j + h], ab, as, bb[2 * h], bb[2 * h + 1], bs[2 * h],
+                   bs[2 * h + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const float* __restrict__ out,
+                const float* __restrict__ dout, float* __restrict__ delta,
+                long long rows, int d) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* o = out + row * d;
+  const float* g = dout + row * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(o[c], g[c], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS, 1)
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, int hq, int hkv, long long s,
+               long long s_valid, int causal, int window, float scale) {
+  using C = BwdCfg<D>;
+  constexpr int STR = C::STR, CH = C::CH, BKV = C::BKV, BQ = C::BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);   // BKV x STR
+  float* vs = ks + BKV * STR;                       // BKV x STR
+  float* qs = vs + BKV * STR;                       // 2 stages of BQ x STR
+  float* gs = qs + 2 * BQ * STR;                    // dout, 2 stages
+  float* ls = gs + 2 * BQ * STR;                    // lse, 2 stages of BQ
+  float* es = ls + 2 * BQ;                          // delta, 2 stages
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = hq / hkv;
+  // x enumerates (key tile, KV head), the first keys (the longest
+  // causal query range) first
+  const int kvh = blockIdx.x % hkv;
+  const long long k0 = (long long)(blockIdx.x / hkv) * BKV;
+  const long long b = blockIdx.z;
+  const long long kv_base = (b * hkv + kvh) * s;
+
+  for (int idx = tid; idx < BKV * CH; idx += C::THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = k0 + r < s;
+    const long long off = ok ? (kv_base + k0 + r) * D + c * 4 : 0;
+    cp_async16(smem_addr(ks + r * STR + c * 4), k + off, ok ? 16 : 0);
+    cp_async16(smem_addr(vs + r * STR + c * 4), v + off, ok ? 16 : 0);
+  }
+  // the queries that see a key of the block: causal q >= k0, a window
+  // q < k0 + BKV - 1 + window; none when every key is padding
+  long long q_begin = 0, q_end = k0 < s_valid ? s : 0;
+  if (causal) q_begin = k0 / BQ * BQ;
+  if (window > 0 && k0 + BKV - 1 + window < q_end)
+    q_end = k0 + BKV - 1 + window;
+  const int n_qt =
+      q_end > q_begin ? (int)((q_end - q_begin + BQ - 1) / BQ) : 0;
+  const int n_it = n_qt * group;   // (q-head of the group, query tile)
+
+  auto load_q = [&](int it, int stage) {
+    const long long h = (long long)kvh * group + it / n_qt;
+    const long long q0 = q_begin + (long long)(it % n_qt) * BQ;
+    const long long row0 = (b * hq + h) * s;
+    float* qd = qs + stage * BQ * STR;
+    float* gd = gs + stage * BQ * STR;
+    for (int idx = tid; idx < BQ * CH; idx += C::THREADS) {
+      const int r = idx / CH, c = idx % CH;
+      const bool ok = q0 + r < s;
+      const long long off = ok ? (row0 + q0 + r) * D + c * 4 : 0;
+      cp_async16(smem_addr(qd + r * STR + c * 4), q + off, ok ? 16 : 0);
+      cp_async16(smem_addr(gd + r * STR + c * 4), dout + off, ok ? 16 : 0);
+    }
+    for (int r = tid; r < BQ; r += C::THREADS) {
+      const bool ok = q0 + r < s;
+      const long long off = ok ? row0 + q0 + r : 0;
+      cp_async4(smem_addr(ls + stage * BQ + r), lse + off, ok ? 4 : 0);
+      cp_async4(smem_addr(es + stage * BQ + r), delta + off, ok ? 4 : 0);
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // this thread's keys g and g + 8 of the warp's 16
+  const long long kw = k0 + warp * 16;
+  const long long kpos[2] = {kw + g, kw + g + 8};
+  // ldmatrix addresses: the warp's k and v rows as A fragments; q and
+  // dout rows as the B fragments of two n-tiles
+  const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+                    (lane >> 4) * 4;
+  const uint32_t ka = smem_addr(ks + a_off), va = smem_addr(vs + a_off);
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * STR +
+                    ((lane >> 3) & 1) * 4;
+
+  float dka[C::ND][4], dva[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    if (it > 0) {
+      cp_async_wait_all();   // tile it has landed (this thread's copies)
+      __syncthreads();       // ... everyone's; tile it - 1 is consumed
+    }
+    if (it + 1 < n_it) {
+      load_q(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const long long q0 = q_begin + (long long)(it % n_qt) * BQ;
+    // a tile that masks every key of this warp is a no-op: dropped
+    if (kw >= s_valid || (causal && kw > q0 + BQ - 1) ||
+        (window > 0 && kw + 15 <= q0 - window))
+      continue;
+    const bool edge = kw + 15 >= s_valid || q0 + BQ > s ||
+                      (causal && kw + 15 > q0) ||
+                      (window > 0 && kw <= q0 + BQ - 1 - window);
+    const float* qt = qs + (it & 1) * BQ * STR;
+    const float* gt = gs + (it & 1) * BQ * STR;
+    const float* lt = ls + (it & 1) * BQ;
+    const float* et = es + (it & 1) * BQ;
+
+    // S^T = k . (q * scale)^T; sc[j] holds queries 8j + 2t, +1 of keys
+    // g, g + 8; then P^T = exp(S^T - lse) where attended
+    float sc[C::NQ][4];
+    scores<D, C::NQ>(sc, ka, 1.f, smem_addr(qt + b_off), scale);
+#pragma unroll
+    for (int j = 0; j < C::NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const bool on = !edge || (q0 + qc < s &&
+                                  attends(kpos[e >> 1], q0 + qc, s_valid,
+                                          causal, window));
+        sc[j][e] = on ? expf(sc[j][e] - lt[qc]) : 0.f;
+      }
+    // dV += P^T . dout
+    acc_xy<D, C::NQ>(dva, sc, gt, 1.f, g, t);
+    // dP^T = v . dout^T; dS^T = P^T * (dP^T - delta)
+    float dp[C::NQ][4];
+    scores<D, C::NQ>(dp, va, 1.f, smem_addr(gt + b_off), 1.f);
+#pragma unroll
+    for (int j = 0; j < C::NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] *= dp[j][e] - et[8 * j + 2 * t + (e & 1)];
+    // dK += dS^T . (q * scale)
+    acc_xy<D, C::NQ>(dka, sc, qt, scale, g, t);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= s) continue;
+    float* dkr = dk + (kv_base + kpos[i]) * D + 2 * t;
+    float* dvr = dv + (kv_base + kpos[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C::ND; ++n) {
+      store2(dkr + 8 * n, dka[n][2 * i], dka[n][2 * i + 1]);
+      store2(dvr + 8 * n, dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS, 1)
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dq, int hq, int hkv, long long s,
+             long long s_valid, int causal, int window, float scale, int gh,
+             int bq, int n_chunks) {
+  using C = BwdCfg<D>;
+  constexpr int STR = C::STR, CH = C::CH, BK = C::BK, ROWS = C::ROWS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // ROWS x STR
+  float* gs = qs + ROWS * STR;                      // dout, ROWS x STR
+  float* ks = gs + ROWS * STR;                      // 2 stages of BK x STR
+  float* vs = ks + 2 * BK * STR;                    // 2 stages of BK x STR
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = hq / hkv;
+  // K6's blocks: x enumerates (q-tile, KV head, head chunk), the longest
+  // causal range first
+  const int ny = hkv * n_chunks;
+  const long long qt = (long long)(gridDim.x / ny) - 1 - blockIdx.x / ny;
+  const int y = blockIdx.x % ny;
+  const int kvh = y / n_chunks;
+  const int g0 = (y % n_chunks) * gh;
+  const long long b = blockIdx.z;
+  const long long q0 = qt * bq;
+  const int rows = gh * bq;
+  const long long kv_base = (b * hkv + kvh) * s;
+
+  // row r: q-head kvh * group + g0 + r / bq, query q0 + r % bq
+  for (int idx = tid; idx < ROWS * CH; idx += C::THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const int gi = g0 + r / bq;
+    const long long qp = q0 + r % bq;
+    const bool ok = r < rows && gi < group && qp < s;
+    const long long off =
+        ok ? ((b * hq + (long long)kvh * group + gi) * s + qp) * D + c * 4
+           : 0;
+    cp_async16(smem_addr(qs + r * STR + c * 4), q + off, ok ? 16 : 0);
+    cp_async16(smem_addr(gs + r * STR + c * 4), dout + off, ok ? 16 : 0);
+  }
+  auto load_kv = [&](long long k0, int stage) {
+    float* kd = ks + stage * BK * STR;
+    float* vd = vs + stage * BK * STR;
+    for (int idx = tid; idx < BK * CH; idx += C::THREADS) {
+      const int r = idx / CH, c = idx % CH;
+      const bool ok = k0 + r < s;
+      const long long off = ok ? (kv_base + k0 + r) * D + c * 4 : 0;
+      cp_async16(smem_addr(kd + r * STR + c * 4), k + off, ok ? 16 : 0);
+      cp_async16(smem_addr(vd + r * STR + c * 4), v + off, ok ? 16 : 0);
+    }
+  };
+
+  // K6's k range (skip on)
+  const long long q_last = (q0 + bq < s ? q0 + bq : s) - 1;
+  long long k_begin = 0, k_end = s_valid;
+  if (causal && q_last + 1 < k_end) k_end = q_last + 1;
+  if (window > 0 && q0 - window + 1 > 0)
+    k_begin = (q0 - window + 1) / BK * BK;
+  const int n_tiles =
+      k_end > k_begin ? (int)((k_end - k_begin + BK - 1) / BK) : 0;
+  if (n_tiles > 0) load_kv(k_begin, 0);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: their queries, lse
+  // and delta (0 on a row past the block's, whose q and dout are 0)
+  const int wr = warp * 16;
+  long long qpos[2];
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
+    const int gi = g0 + r / bq;
+    qpos[i] = q0 + r % bq;
+    const bool ok = r < rows && gi < group && qpos[i] < s;
+    const long long at = (b * hq + (long long)kvh * group + gi) * s + qpos[i];
+    lrow[i] = ok ? lse[at] : 0.f;
+    drow[i] = ok ? delta[at] : 0.f;
+  }
+  long long lo = qpos[0] < qpos[1] ? qpos[0] : qpos[1];
+  long long hi = qpos[0] < qpos[1] ? qpos[1] : qpos[0];
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    const long long l2 = __shfl_xor_sync(0xffffffffu, lo, off);
+    const long long h2 = __shfl_xor_sync(0xffffffffu, hi, off);
+    lo = l2 < lo ? l2 : lo;
+    hi = h2 > hi ? h2 : hi;
+  }
+  const int a_off = (wr + (lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+                    (lane >> 4) * 4;
+  const uint32_t qa = smem_addr(qs + a_off), ga = smem_addr(gs + a_off);
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * STR +
+                    ((lane >> 3) & 1) * 4;
+
+  float dqa[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (it + 1 < n_tiles) {
+      load_kv(k_begin + (long long)(it + 1) * BK, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const long long k0 = k_begin + (long long)it * BK;
+    if ((causal && k0 > hi) || (window > 0 && k0 + BK - 1 <= lo - window))
+      continue;
+    const bool edge = k0 + BK > s_valid || (causal && k0 + BK - 1 > lo) ||
+                      (window > 0 && k0 <= hi - window);
+    const float* kt = ks + (it & 1) * BK * STR;
+    const float* vt = vs + (it & 1) * BK * STR;
+
+    // S = (q * scale) . k^T; P = exp(S - lse) where attended
+    float sc[C::NK][4];
+    scores<D, C::NK>(sc, qa, scale, smem_addr(kt + b_off), 1.f);
+#pragma unroll
+    for (int j = 0; j < C::NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool on =
+            !edge || attends(k0 + 8 * j + 2 * t + (e & 1), qpos[e >> 1],
+                             s_valid, causal, window);
+        sc[j][e] = on ? expf(sc[j][e] - lrow[e >> 1]) : 0.f;
+      }
+    // dP = dout . v^T; dS = P * (dP - delta)
+    float dp[C::NK][4];
+    scores<D, C::NK>(dp, ga, 1.f, smem_addr(vt + b_off), 1.f);
+#pragma unroll
+    for (int j = 0; j < C::NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= dp[j][e] - drow[e >> 1];
+    // dQ += dS . k (scaled once at the end)
+    acc_xy<D, C::NK>(dqa, sc, kt, 1.f, g, t);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
+    const int gi = g0 + r / bq;
+    if (r >= rows || gi >= group || qpos[i] >= s) continue;
+    float* row = dq + ((b * hq + (long long)kvh * group + gi) * s +
+                       qpos[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C::ND; ++n)
+      store2(row + 8 * n, dqa[n][0 + 2 * i] * scale,
+             dqa[n][1 + 2 * i] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v,
+                       const float* out, const float* dout, const float* lse,
+                       float* dq, float* dk, float* dv, float* delta,
+                       long long b, int hq, int hkv, long long s,
+                       long long s_valid, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  using C = BwdCfg<D>;
+  if (b > 65535) return cudaErrorInvalidValue;
+  const long long rows = b * hq * s;
+  const long long n_delta = (rows + 7) / 8;
+  const long long n_kv = (s + C::BKV - 1) / C::BKV * hkv;
+  const int group = hq / hkv;
+  const int gh = group > C::ROWS ? C::ROWS : group;
+  const int bq = C::ROWS / gh;
+  const int n_chunks = (group + gh - 1) / gh;
+  const long long n_q = (s + bq - 1) / bq * hkv * n_chunks;
+  if (n_delta > 0x7fffffffLL || n_kv > 0x7fffffffLL || n_q > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  flash_bwd_delta<<<(unsigned)n_delta, 256, 0, stream>>>(out, dout, delta,
+                                                         rows, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM_KV);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv<D><<<dim3((unsigned)n_kv, 1u, (unsigned)b), C::THREADS,
+                      C::SMEM_KV, stream>>>(q, k, v, dout, lse, delta, dk,
+                                            dv, hq, hkv, s, s_valid, causal,
+                                            window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM_Q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq<D><<<dim3((unsigned)n_q, 1u, (unsigned)b), C::THREADS,
+                    C::SMEM_Q, stream>>>(q, k, v, dout, lse, delta, dq, hq,
+                                         hkv, s, s_valid, causal, window,
+                                         scale, gh, bq, n_chunks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Returns the launch's cudaError_t.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* out, int dtype, long long b, int hq,
+                              void* out, void* lse, int dtype, long long b,
+                              int hq,
                               int hkv, long long s, int d, long long s_valid,
                               int causal, int window, float scale, float cap,
                               float inv_cap, int skip, void* stream) {
@@ -633,13 +1181,55 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch<float>(d, q, k, v, out, b, hq, hkv, s, s_valid,
+    return (int)dispatch<float>(d, q, k, v, out, ls, b, hq, hkv, s, s_valid,
                                 causal, window, scale, cap, inv_cap, skip,
                                 st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, q, k, v, out, b, hq, hkv, s,
+    return (int)dispatch<__nv_bfloat16>(d, q, k, v, out, ls, b, hq, hkv, s,
                                         s_valid, causal, window, scale, cap,
                                         inv_cap, skip, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K6b, fp32 only: dq, dk, dv of flash_attn_fwd's function (no softcap)
+// from q, k, v, out, dout and lse; delta is (B, Hq, S) fp32 scratch.
+// Three launches on the stream. Returns the first cudaError_t.
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
+                              const void* out, const void* dout,
+                              const void* lse, void* dq, void* dk, void* dv,
+                              void* delta, long long b, int hq, int hkv,
+                              long long s, int d, long long s_valid,
+                              int causal, int window, float scale,
+                              void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || s <= 0 || b <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+       (uintptr_t)dout | (uintptr_t)lse | (uintptr_t)dq | (uintptr_t)dk |
+       (uintptr_t)dv | (uintptr_t)delta) & 15u)
+    return (int)cudaErrorMisalignedAddress;
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fo = static_cast<const float*>(out);
+  const float* fg = static_cast<const float*>(dout);
+  const float* fl = static_cast<const float*>(lse);
+  float* gq = static_cast<float*>(dq);
+  float* gk = static_cast<float*>(dk);
+  float* gv = static_cast<float*>(dv);
+  float* de = static_cast<float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return (int)launch_bwd<64>(fq, fk, fv, fo, fg, fl, gq, gk, gv, de, b,
+                                 hq, hkv, s, s_valid, causal, window, scale,
+                                 st);
+    case 128:
+      return (int)launch_bwd<128>(fq, fk, fv, fo, fg, fl, gq, gk, gv, de, b,
+                                  hq, hkv, s, s_valid, causal, window, scale,
+                                  st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

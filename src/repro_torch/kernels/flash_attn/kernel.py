@@ -1,8 +1,11 @@
-"""Forward GQA flash attention: the host ``skip_grid`` table, the plain
-PyTorch version, and the ctypes wrapper of the hand-written CUDA kernel
-K6 (``repro_torch/csrc/flash_attn.cu``), which replaces the JAX
-package's Pallas ``flash_attention_bhsd``
-(``repro/kernels/flash_attn/kernel.py:143``).
+"""GQA flash attention: the host ``skip_grid`` table, the plain PyTorch
+versions, and the ctypes wrappers of the hand-written CUDA kernels in
+``repro_torch/csrc/flash_attn.cu``: the forward K6, which replaces the
+JAX package's Pallas ``flash_attention_bhsd``
+(``repro/kernels/flash_attn/kernel.py:143``), and the backward K6b,
+which replaces nothing (the Pallas kernel has no gradient; the port
+computes the gradient of the same function, which the JAX package gets
+by differentiating its plain attention).
 
 Layout (B, H, S, D), head-major, as the Pallas kernel takes it: q
 (B, Hq, S, D), k and v (B, Hkv, S, D), fp32 or bf16; fp32 math
@@ -15,8 +18,20 @@ are never attended); optional tanh softcap.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version; a
 CUDA tensor launches K6 on PyTorch's current stream or raises — there
-is no fallback. ``flash_attention_bhsd.launches`` counts K6's launches
-(``reset_launches`` zeroes it).
+is no fallback. ``flash_attention_bhsd.launches`` counts K6's launches,
+``flash_attention_bwd_bhsd.launches`` K6b's calls (three launches
+each: the row sums, the dK/dV pass, the dQ pass; ``reset_launches``
+zeroes both).
+
+``with_lse=True`` also returns the row log-sum-exp ``lse = m + log(l)``
+(B, Hq, S) in fp32, on the logits as scaled, capped and masked (-inf on
+a row that attends nothing); on the card only where K6b covers the
+backward (fp32, D in {64, 128}). The backward recomputes the probabilities
+from it, ``P = exp(logits - lse)``, and takes q, k, v, out, dout and
+lse to dq, dk, dv (fp32, D in {64, 128} on the card, no softcap):
+``delta = rowsum(dout * out)``, ``dP = dout . v``, ``dS = P * (dP -
+delta)``, ``dv = P^T . dout``, ``dk = dS^T . (q * scale)``, ``dq =
+scale * dS . k``, the GQA group summed into dk and dv.
 
 ``block_q`` / ``block_k`` keep the JAX package's meaning for the plain
 version and for ``skip_grid``: the plain version walks the same
@@ -49,6 +64,7 @@ from repro_torch.kernels import nvcc
 
 NEG_INF = -2.0**30
 HEAD_DIMS = (32, 64, 128, 256)
+BACKWARD_HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = nvcc.CSRC / "flash_attn.cu"
 LIBRARY = nvcc.BUILD_DIR / "libflash_attn.so"
@@ -70,9 +86,13 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_float)
-            lib.flash_attn_fwd.argtypes = [vp, vp, vp, vp, i, ll, i, i, ll,
-                                           i, ll, i, i, f, f, f, i, vp]
+            lib.flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i,
+                                           ll, i, ll, i, i, f, f, f, i, vp]
             lib.flash_attn_fwd.restype = ctypes.c_int
+            lib.flash_attn_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                           vp, vp, ll, i, i, ll, i, ll, i,
+                                           i, f, vp]
+            lib.flash_attn_bwd.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -133,12 +153,13 @@ def _q_block_runs(maps: np.ndarray, n_k: int) -> list:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: int, softcap: float,
                           block_q: int, block_k: int, s_valid: int,
-                          skip: bool = True) -> torch.Tensor:
+                          skip: bool = True, with_lse: bool = False):
     """The Pallas kernel's arithmetic in PyTorch, in its order: q scaled
     before the dot, softcap as ``cap * tanh(logits * (1/cap))``, masked
     logits set to NEG_INF and their probabilities zeroed after the exp,
     fp32 running max, ``alpha`` rescale and denominator, output
-    ``acc / max(l, 1e-30)`` in q's dtype. Batched over q-blocks and
+    ``acc / max(l, 1e-30)`` in q's dtype (and ``with_lse``: the row
+    log-sum-exp ``m + log(l)``, (B, Hq, S) fp32). Batched over q-blocks and
     heads (heads folded per KV head, as the TPU tile folds them), with a
     loop over the k-blocks: each k-block updates the run of q-blocks
     whose pair the skip table keeps (``skip=False``: every q-block,
@@ -195,8 +216,60 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p, vf[:, None, :, ki])
         m[:, qa:qb] = m_new
     out = acc / torch.clamp_min(l_, 1e-30)
-    return out.view(b, n_q, hkv, group, block_q, d).permute(
+    out = out.view(b, n_q, hkv, group, block_q, d).permute(
         0, 2, 3, 1, 4, 5).reshape(b, hq, s, d).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = (m + torch.log(l_)).view(b, n_q, hkv, group, block_q).permute(
+        0, 2, 3, 1, 4).reshape(b, hq, s)
+    return out, lse
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, lse, *, causal: bool,
+                                   window: int, s_valid: int,
+                                   q_chunk: int = 256) -> tuple:
+    """K6b's arithmetic in PyTorch: the probabilities recomputed from
+    the forward's row log-sum-exp, ``P = exp((q * scale) . k - lse)``
+    where attended (0 elsewhere), ``delta = rowsum(dout * out)``, ``dS =
+    P * (dout . v - delta)``; ``dv = P^T . dout`` and ``dk = dS^T . (q *
+    scale)`` summed over the GQA group, ``dq = scale * dS . k``. fp32
+    math, results in the inputs' dtypes. A loop over ``q_chunk`` query
+    rows bounds the (chunk x S) logits; every query row, padded or not,
+    is a row of the output and gets its gradient."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qs = (q.float() * scale).view(b, hkv, group, s, d)
+    kf = k.float()[:, :, None]                        # (B, Hkv, 1, S, D)
+    vf = v.float()[:, :, None]
+    do = dout.float().view(b, hkv, group, s, d)
+    delta = (do * out.float().view(b, hkv, group, s, d)).sum(
+        -1, keepdim=True)
+    lse = lse.float().view(b, hkv, group, s, 1)
+    dq = torch.empty((b, hkv, group, s, d), device=dev)
+    dk = torch.zeros((b, hkv, s, d), device=dev)
+    dv = torch.zeros((b, hkv, s, d), device=dev)
+    k_pos = torch.arange(s, device=dev)
+    for c0 in range(0, s, q_chunk):
+        c1 = min(s, c0 + q_chunk)
+        q_pos = torch.arange(c0, c1, device=dev)[:, None]
+        mask = k_pos < s_valid
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window > 0:
+            mask = mask & (k_pos > q_pos - window)
+        logits = torch.matmul(qs[..., c0:c1, :], kf.transpose(-1, -2))
+        p = torch.where(mask, torch.exp(logits - lse[..., c0:c1, :]), 0.0)
+        dov = do[..., c0:c1, :]
+        dv += torch.matmul(p.transpose(-1, -2), dov).sum(2)
+        ds = p * (torch.matmul(dov, vf.transpose(-1, -2))
+                  - delta[..., c0:c1, :])
+        dq[..., c0:c1, :] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(-1, -2), qs[..., c0:c1, :]).sum(2)
+    return (dq.view(b, hq, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check_inputs(q, k, v) -> None:
@@ -221,16 +294,17 @@ def _check_inputs(q, k, v) -> None:
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, softcap: float,
                          block_q: int, block_k: int, s_valid: int,
-                         skip: bool = True) -> torch.Tensor:
+                         skip: bool = True, with_lse: bool = False):
     """K6: q (B, Hq, S, D), k, v (B, Hkv, S, D) -> (B, Hq, S, D) in q's
-    dtype. ``s_valid``: the real (unpadded) length; keys beyond it are
+    dtype, and with ``with_lse`` the row log-sum-exp (B, Hq, S) fp32.
+    ``s_valid``: the real (unpadded) length; keys beyond it are
     masked. ``skip=False`` runs every k-tile (masks still applied)."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, block_q=block_q,
                                      block_k=block_k, s_valid=s_valid,
-                                     skip=skip)
+                                     skip=skip, with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, hq, s, d = q.shape
@@ -248,22 +322,82 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 < s_valid <= s:
         raise ValueError(f"flash_attention: s_valid {s_valid} outside "
                          f"(0, {s}]")
+    if with_lse and (q.dtype != torch.float32
+                     or d not in BACKWARD_HEAD_DIMS):
+        raise ValueError("flash_attention: with_lse on the card needs "
+                         f"float32 and head_dim in {BACKWARD_HEAD_DIMS}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     cap = float(softcap) if softcap > 0 else 0.0
     err = _load().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, hq, k.shape[1], s, d, s_valid, int(causal),
-        int(window), 1.0 / math.sqrt(d), cap, 1.0 / cap if cap else 0.0,
-        int(skip), torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr() if with_lse else None, DTYPES[q.dtype], b, hq,
+        k.shape[1], s, d, s_valid, int(causal), int(window),
+        1.0 / math.sqrt(d), cap, 1.0 / cap if cap else 0.0, int(skip),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with "
                            f"error {err}")
     flash_attention_bhsd.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_bhsd(q, k, v, out, dout, lse, *, causal: bool,
+                             window: int, s_valid: int) -> tuple:
+    """K6b: the gradient of ``flash_attention_bhsd`` (no softcap) from
+    its inputs, its output, the output's gradient ``dout`` and the row
+    log-sum-exp -> (dq, dk, dv), shaped as q, k, v. On the card: fp32,
+    D in ``BACKWARD_HEAD_DIMS``, every tensor contiguous and 16-byte
+    aligned; the same inputs give the same bits on every call (no
+    atomics)."""
+    _check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, out, dout, lse, causal=causal, window=window,
+            s_valid=s_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, hq, s, d = q.shape
+    if d not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head_dim {d} not in "
+                         f"{BACKWARD_HEAD_DIMS}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention backward: dtype {q.dtype}, need "
+                        "float32")
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(
+            q.shape) or tuple(lse.shape) != (b, hq, s):
+        raise ValueError("flash_attention backward: out, dout or lse do "
+                         "not match q")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout), ("lse", lse)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"flash_attention backward: {name} must be "
+                            "float32 on q's device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             "contiguous and 16-byte aligned")
+    if not 0 < s_valid <= s:
+        raise ValueError(f"flash_attention: s_valid {s_valid} outside "
+                         f"(0, {s}]")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    err = _load().flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, hq, k.shape[1], s, d, s_valid,
+        int(causal), int(window), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward: CUDA launch failed "
+                           f"with error {err}")
+    flash_attention_bwd_bhsd.launches += 1
+    return dq, dk, dv
 
 
 def reset_launches() -> None:
     flash_attention_bhsd.launches = 0
+    flash_attention_bwd_bhsd.launches = 0
 
 
 reset_launches()

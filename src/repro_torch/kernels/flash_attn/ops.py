@@ -7,12 +7,17 @@ S to a block multiple as the JAX wrapper does, and calls
 ``kernel.flash_attention_bhsd`` (K6 for CUDA tensors, the plain version
 for CPU ones).
 
-The kernel is forward-only, like the Pallas kernel it replaces: the
-call sits in a ``torch.autograd.Function`` whose backward raises
-``NotImplementedError``, on both devices. Without it a K6 launch would
-return a tensor with no ``grad_fn`` (gradients upstream of it silently
-missing), and the CPU plain version would give gradients the JAX
-package refuses to give.
+The call is a ``torch.autograd.Function`` with a backward pass, which
+the JAX package's Pallas kernel lacks (its training differentiates the
+plain attention instead): when autograd records the call, the forward
+also keeps the row log-sum-exp and saves q, k, v, out and it, and the
+backward runs ``kernel.flash_attention_bwd_bhsd`` (K6b on the card,
+its plain version on the CPU) inside a ``flash_attn.backward`` span.
+A call that autograd does not record (no grad mode, or no input that
+requires grad) saves nothing and launches K6 as a prefill does. The
+backward covers no logit softcap, and on the card only fp32 at head dim
+64 or 128 (``covers_backward``): a gradient through any other call
+raises ``NotImplementedError``, which saves nothing either.
 """
 from __future__ import annotations
 
@@ -26,19 +31,41 @@ DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 128
 
 
-class _Forward(torch.autograd.Function):
-    """The kernel call on (B, H, S, D) tensors; no backward pass."""
+def covers_backward(q: torch.Tensor, softcap: float) -> bool:
+    """Whether the backward covers a call on q: no logit softcap, and on
+    the card fp32 at a head dim in ``kernel.BACKWARD_HEAD_DIMS``."""
+    return not softcap > 0 and (
+        not q.is_cuda or (q.dtype == torch.float32
+                          and q.shape[-1] in kernel.BACKWARD_HEAD_DIMS))
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel call on (B, H, S, D) tensors, and its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kw):
-        return kernel.flash_attention_bhsd(q, k, v, **kw)
+    def forward(ctx, q, k, v, kw, record):
+        ctx.covered = record and covers_backward(q, kw["softcap"])
+        if not ctx.covered:
+            return kernel.flash_attention_bhsd(q, k, v, **kw)
+        out, lse = kernel.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash attention is forward-only (the JAX package's Pallas "
-            "kernel has no backward pass either); train with "
-            "use_flash=False")
+    def backward(ctx, dout):
+        if not ctx.covered:
+            raise NotImplementedError(
+                "flash attention's backward covers no logit softcap, and "
+                "on the card only float32 at head_dim in "
+                f"{kernel.BACKWARD_HEAD_DIMS}; train with use_flash=False")
+        kw = ctx.kw
+        q, k, v, out, lse = ctx.saved_tensors
+        with obs_flight.kernel_scope("flash_attn.backward"):
+            dq, dk, dv = kernel.flash_attention_bwd_bhsd(
+                q, k, v, out, dout.contiguous(), lse, causal=kw["causal"],
+                window=kw["window"], s_valid=kw["s_valid"])
+        return dq, dk, dv, None, None
 
 
 @obs_flight.kernel_annotation("flash_attn.forward")
@@ -59,7 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qt, kt, vt = (F.pad(t, (0, 0, 0, pad)) for t in (qt, kt, vt))
     kw = dict(causal=causal, window=window, softcap=softcap,
               block_q=block_q, block_k=block_k, s_valid=s, skip=skip)
-    out = _Forward.apply(qt.contiguous(), kt.contiguous(), vt.contiguous(),
-                         kw)
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    out = _Attention.apply(qt.contiguous(), kt.contiguous(),
+                           vt.contiguous(), kw, record)
     out = out.transpose(1, 2)
     return out[:, :s] if pad else out

@@ -8,11 +8,14 @@ training, ``cross_attention`` over the encoder memory's K/V
 (``memory_kv``, no RoPE; plain products, never the flash kernel, as in
 JAX), and the KV cache (full, or a ring buffer of ``window`` slots), in
 fp32 or bf16, or int8 with a per-(slot, head) fp32 scale
-(``quantize=True``). All of
-it is plain torch, safe under autograd. ``use_flash=True`` routes
-prefill through the flash-attention kernel (``kernels.flash_attn``: K6
-on the card, its plain version on the CPU), which is forward-only: a
-backward through it raises, as the JAX package's has no gradient.
+(``quantize=True``). ``use_flash=True`` routes the full-sequence path
+through flash attention (``kernels.flash_attn``: K6 on the card, its
+plain version on the CPU), whose gradient is the hand-written backward
+(K6b on the card) that the JAX package's Pallas kernel lacks. Without
+``use_flash`` the full-sequence path takes flash attention on its own
+where autograd records a call on the card that K6b covers (fp32, head
+dim 64 or 128, no softcap): training there runs no S^2 products. The
+rest is plain torch, safe under autograd.
 
 The JAX cache has a SCALAR cursor and the serve engine makes it per-slot
 with ``jax.vmap``. Here the slot axis is a batch dimension written out:
@@ -124,6 +127,15 @@ def chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
+def flash_trains(cfg: ModelConfig, q, k, v) -> bool:
+    """Whether a full-sequence call takes flash attention unasked: q on
+    the card, autograd recording the call, and K6b covering it (fp32,
+    head dim 64 or 128, no softcap)."""
+    return (q.is_cuda and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)
+            and flash_ops.covers_backward(q, cfg.logit_softcap))
+
+
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               window: int = 0, use_flash: bool = False) -> torch.Tensor:
@@ -131,7 +143,10 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     The JAX package's selection: the flash-attention kernel when
     ``use_flash``, else the q-chunked exact path for S >= 4096 (a
-    multiple of 1024), else the full-S^2 reference."""
+    multiple of 1024), else the full-S^2 reference; on the card, a call
+    that autograd records and K6b covers (``flash_trains``) takes flash
+    attention at any S. Under remat the checkpoint is non-reentrant, so
+    the forward and its recompute see the same grad mode and route."""
     s = x.shape[1]
     q = sharding.split_heads(layers.dense(p["q"], x),
                              cfg.n_heads, cfg.head_dim)
@@ -141,10 +156,10 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                              cfg.n_kv_heads, cfg.head_dim)
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
-    if use_flash:
-        out = flash_ops.flash_attention(q, k, v, causal=causal,
-                                        window=window,
-                                        softcap=cfg.logit_softcap)
+    if use_flash or flash_trains(cfg, q, k, v):
+        out = sharding.heads_local(flash_ops.flash_attention, q, k, v,
+                                   causal=causal, window=window,
+                                   softcap=cfg.logit_softcap)
     elif s >= CHUNKED_THRESHOLD and s % Q_CHUNK == 0:
         group = cfg.n_heads // cfg.n_kv_heads
         kf = k.repeat_interleave(group, dim=2)  # full q-head kv

@@ -12,7 +12,9 @@ default training tree, whose flat layout the trainer quantizes),
 entropy plus the MoE router's aux loss) and ``count_params``.
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``);
 ``use_flash=True`` runs every ``attn`` / ``local_attn`` block on the
-flash-attention kernel (forward only: the prefill). The mixers:
+flash-attention kernel (K6, and K6b for its gradient; a training call
+on the card that K6b covers takes them unasked: ``attention.flash_trains``).
+The mixers:
 
   attn        full-causal GQA          local_attn  sliding-window GQA
   mla         multi-head latent attention (``mla``)

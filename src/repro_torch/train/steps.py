@@ -29,7 +29,7 @@ The port of ``repro.train.steps``, on one card or one rank a card:
     the int8 KV cache.
   * ``make_prefill_step``: the full-sequence forward returning the
     last position's logits, on the flash-attention kernel when
-    ``use_flash`` (forward only).
+    ``use_flash``.
 
 The train state mirrors JAX's ``{"params", "opt", "step", "rng",
 "ec_err"?}``. ``step`` and ``rng`` are host tensors (0-d int32, and the

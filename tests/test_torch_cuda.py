@@ -554,11 +554,201 @@ def test_k6_refuses_bad_inputs_and_a_refused_launch_raises(card):
                for h in (1, 1, 1))
     with pytest.raises(RuntimeError, match="launch failed"):
         fk.flash_attention_bhsd(q, k, v, **dict(kw, s_valid=1))
-    # no backward on the card either
+    # the backward on the card: what K6b does not cover (D 32, bf16,
+    # softcap) raises one NotImplementedError; K6b checks its inputs
     q, k, v = (t.to(card).transpose(1, 2).requires_grad_(True)
                for t in _qkv(1, 16, 2, 2, 32, seed=2))
-    with pytest.raises(NotImplementedError, match="flash"):
+    with pytest.raises(NotImplementedError, match="head_dim"):
         fo.flash_attention(q, k, v).sum().backward()
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous() for t in (q, k, v))
+    with pytest.raises(ValueError, match="with_lse"):
+        fk.flash_attention_bhsd(qt, kt, vt, with_lse=True,
+                                **dict(kw, s_valid=16))
+    bw = dict(causal=True, window=0, s_valid=16)
+    lse = torch.zeros(qt.shape[:3], device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_bwd_bhsd(qt, kt, vt, qt, qt, lse, **bw)
+    q, k, v = (t.to(card).transpose(1, 2).requires_grad_(True)
+               for t in _qkv(1, 16, 2, 2, 64, seed=2))
+    with pytest.raises(NotImplementedError, match="softcap"):
+        fo.flash_attention(q, k, v, softcap=30.0).sum().backward()
+    with pytest.raises(NotImplementedError, match="float32"):
+        fo.flash_attention(*(t.detach().bfloat16().requires_grad_(True)
+                             for t in (q, k, v))).sum().backward()
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().bfloat16()
+                  for t in (q, k, v))
+    with pytest.raises(TypeError, match="dtype"):
+        fk.flash_attention_bwd_bhsd(qt, kt, vt, qt, qt, lse, **bw)
+    fk.reset_launches()
+    grads = torch.autograd.grad(fo.flash_attention(q, k, v).sum(), (q, k, v))
+    assert fk.flash_attention_bwd_bhsd.launches == 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fo.flash_attention(*cpu).sum(), cpu)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ K6b flash bwd ----
+
+def _masked_logits(q, k, *, causal, window, s_valid):
+    """(B, Hq, S, S) fp64 logits of q . k / sqrt(D), the heads of k
+    repeated to the group, masked to -inf."""
+    b, hq, s, d = q.shape
+    kr = k.repeat_interleave(hq // k.shape[1], dim=1)
+    logits = (q.double() @ kr.double().transpose(-1, -2)) / d ** 0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None]
+    mask = kp < s_valid
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    return logits.masked_fill(~mask, float("-inf"))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window,s,s_valid", [
+    (True, 0, 256, 256),        # causal
+    (True, 96, 320, 320),       # sliding window
+    (False, 0, 192, 182),       # non-causal, padded tail
+    (True, 0, 97, 97),          # a length off every tile
+])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (12, 4), (6, 1)])
+def test_k6b_matches_plain_and_k6_writes_the_lse(card, d, causal, window,
+                                                  s, s_valid, hq, hkv):
+    """K6's lse output against torch.logsumexp of the masked, scaled
+    logits (fp64; -inf on no row here); K6b against its plain version on
+    the card at rtol = atol = 1e-4 (the card's chip runs read ~1e-5 at
+    most: 3xTF32 products, other summation orders, P recomputed), and
+    two K6b calls bit for bit (no atomics)."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    q, k, v, dout = (t.to(card) for t in _qkv(2, s, hq, hkv, d, seed=d + s)
+                     + [_qkv(2, s, hq, hkv, d, seed=d + s + 1)[0]])
+    kw = dict(causal=causal, window=window, softcap=0.0, block_q=s,
+              block_k=s, s_valid=s_valid)
+    out, lse = fk.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    want_lse = torch.logsumexp(_masked_logits(q, k, causal=causal,
+                                              window=window,
+                                              s_valid=s_valid), -1)
+    torch.testing.assert_close(lse.double(), want_lse, rtol=1e-5,
+                               atol=1e-5)
+    bw = dict(causal=causal, window=window, s_valid=s_valid)
+    fk.reset_launches()
+    got = fk.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, **bw)
+    again = fk.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, **bw)
+    assert fk.flash_attention_bwd_bhsd.launches == 2
+    want = fk.flash_attention_backward_plain(q, k, v, out, dout, lse, **bw)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(8, 16, 16, 2048, 64),
+                                          (1, 32, 8, 2048, 128)],
+                         ids=["train", "gqa-d128"])
+def test_k6b_at_full_geometry_matches_plain_and_autograd(card, b, hq, hkv,
+                                                         s, d):
+    """The train cell's attention (8 x 16/16 x 2,048 x 64, causal) and
+    GQA 32/8 at D 128: the entry point's gradient (K6 with lse, then
+    K6b) against the plain backward on the card and against autograd
+    through ``sdpa_reference`` (fp32, TF32 off), at rtol = atol = 1e-4;
+    a second backward gives the same bits."""
+    from repro_torch.kernels.flash_attn import kernel as fk, ops as fo
+    from repro_torch.models import attention as tattn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(b + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=card)
+               .requires_grad_(True) for h in (hq, hkv, hkv))
+    dout = torch.randn((b, s, hq, d), generator=g, device=card)
+    fk.reset_launches()
+    out = fo.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), dout)
+    assert fk.flash_attention_bhsd.launches == 1
+    assert fk.flash_attention_bwd_bhsd.launches == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous() for t in (q, k, v))
+    o, lse = fk.flash_attention_bhsd(qt, kt, vt, causal=True, window=0,
+                                     softcap=0.0, block_q=256, block_k=128,
+                                     s_valid=s, with_lse=True)
+    plain = fk.flash_attention_backward_plain(
+        qt, kt, vt, o, dout.transpose(1, 2).contiguous(), lse, causal=True,
+        window=0, s_valid=s)
+    for a, w in zip(got, plain):
+        torch.testing.assert_close(a, w.transpose(1, 2), rtol=1e-4,
+                                   atol=1e-4)
+    del plain, o, lse
+    mask = tattn.make_mask(s, s, causal=True, device=card)[None]
+    ref = torch.autograd.grad(tattn.sdpa_reference(q, k, v, mask),
+                              (q, k, v), dout)
+    for a, w in zip(got, ref):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_reduced_train_step_takes_k6_and_k6b_once_a_layer_and_pass(card,
+                                                                   remat):
+    """A reduced repro-100m train step on the card (fp32, D 64: the
+    route) launches K6 once a layer in the forward (and once more in
+    remat's recompute) and K6b once a layer, with ``use_flash`` unset;
+    its loss and gradients equal the CPU's (plain attention, no
+    launch) within 1e-5."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.train import steps
+    mc = configs.get_config("repro-100m").reduced()
+    params = tts.init(mc, tts.generator(3))
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, mc.vocab, size=(2, 65)).astype(np.int32))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True,
+                                                        remat=remat))
+    fk.reset_launches()
+    want_l, want_g = steps.value_and_grad(loss, params, batch)
+    assert fk.flash_attention_bhsd.launches == 0
+    got_l, got_g = steps.value_and_grad(
+        loss, gparams, {k: t.to(card) for k, t in batch.items()})
+    assert fk.flash_attention_bhsd.launches == mc.n_layers * (1 + remat)
+    assert fk.flash_attention_bwd_bhsd.launches == mc.n_layers
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
+    for g, w in zip(pytree.tree_leaves(got_g), pytree.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+def test_no_grad_prefill_launches_no_k6b_and_writes_no_lse(card,
+                                                           monkeypatch):
+    """The prefill (no grad) launches K6 once a layer with a null lse
+    pointer and no K6b, as before the backward existed; a forward with
+    grad on the same parameters asks K6 for the lse."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.train import steps
+    asked = []
+    real = fk.flash_attention_bhsd
+
+    def spy(*a, **kw):
+        asked.append(kw.get("with_lse", False))
+        return real(*a, **kw)
+    monkeypatch.setattr(fk, "flash_attention_bhsd", spy)
+    mc = configs.get_config("repro-100m").reduced()
+    params = pytree.tree_map(lambda t: t.to(card),
+                             tts.init(mc, tts.generator(5)))
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mc.vocab, size=(2, 300)).astype(np.int32)).to(card)
+    step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    fk.reset_launches()        # the kernel counts on the spy's name now
+    step(params, {"tokens": tok})
+    assert asked == [False] * mc.n_layers
+    assert spy.launches == mc.n_layers
+    assert fk.flash_attention_bwd_bhsd.launches == 0
+    asked.clear()
+    loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
+    steps.value_and_grad(loss, params, {"tokens": tok[:, :64],
+                                        "labels": tok[:, 1:65]})
+    assert asked == [True] * mc.n_layers
+    assert fk.flash_attention_bwd_bhsd.launches == mc.n_layers
 
 
 # ------------------------------------------------------------- K7 wkv6 ----

@@ -1,12 +1,16 @@
 """repro_torch's flash-attention module against repro's: the skip-grid
 table, the plain version (the path of CPU tensors) against the Pallas
-kernel in interpret mode and both oracles, and the forward-only
-contract. Inputs are made with numpy from a seed and fed to both.
+kernel in interpret mode and both oracles, and the backward the port
+adds (the Pallas kernel has none): its plain version against autograd
+through the reference attention, and K6b's 3xTF32 arithmetic emulated.
+Inputs are made with numpy from a seed and fed to both.
 
 Tolerances: rtol = atol = 2e-5 in fp32 (the JAX package's own kernel
 test: the tile's matmuls and sums run in another order than XLA's),
 0.05 in bf16 (its bf16 test). ``skip=True`` against ``skip=False`` is
-exact: a fully masked tile adds nothing.
+exact: a fully masked tile adds nothing. Gradients of unit-normal
+inputs reach ~6, so the backward is held at rtol = atol = 2e-5 too
+(recomputed probabilities and other summation orders: ~1e-6 apart).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -191,14 +195,153 @@ def test_3xtf32_products_keep_fp32_parity_and_one_tf32_pass_does_not(
 
 
 def test_backward_raises_like_jax():
-    """The kernel is forward-only: jax.grad raises, and so does a
-    backward through the port's call (no silent gradient)."""
+    """The port's backward stops where it does not reach: a gradient
+    through a softcapped call raises NotImplementedError naming flash
+    attention, as a gradient through the Pallas kernel fails for every
+    call; without softcap the port's call has a gradient (no silent
+    missing one: every input gets it)."""
     _, (tq, tk, tv) = _both(_qkv(1, 64, 2, 1, 32, seed=1))
     tq.requires_grad_(True)
-    out = fo.flash_attention(tq, tk, tv)
+    out = fo.flash_attention(tq, tk, tv, softcap=30.0)
     assert out.grad_fn is not None
     with pytest.raises(NotImplementedError, match="flash attention"):
         out.sum().backward()
+    tk.requires_grad_(True)
+    tv.requires_grad_(True)
+    dq, dk, dv = torch.autograd.grad(fo.flash_attention(tq, tk, tv).sum(),
+                                     (tq, tk, tv))
+    for g, t in ((dq, tq), (dk, tk), (dv, tv)):
+        assert g.shape == t.shape and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0
+
+
+def _grads(fn, q, k, v, dout):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)],
+                         ids=["group1", "group2", "group4"])
+@pytest.mark.parametrize("causal,window,s", [(True, 0, 64),
+                                             (False, 0, 64),
+                                             (True, 24, 96),
+                                             (True, 0, 100),
+                                             (False, 16, 75)],
+                         ids=["causal", "full", "window", "causal-pad",
+                              "window-pad"])
+def test_plain_backward_matches_autograd_through_the_reference(
+        d, hq, hkv, causal, window, s):
+    """The gradient of ``ops.flash_attention`` on the CPU (the plain
+    backward, recomputing P from the forward's lse) against autograd
+    through ``sdpa_reference``: GQA groups 1, 2 and 4, head dims 32, 64
+    and 128, causal, non-causal and windowed, and lengths the wrapper
+    pads to its block (keys past ``s_valid`` masked, padded rows
+    dropped)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, s, hq, hkv, d,
+                                                  seed=d + s + hq + hkv))
+    dout = torch.from_numpy(np.random.default_rng(s).normal(
+        size=q.shape).astype(np.float32))
+    kw = dict(causal=causal, window=window)
+    fk.reset_launches()
+    got = _grads(lambda a, b, c: fo.flash_attention(a, b, c, **kw),
+                 q, k, v, dout)
+    assert fk.flash_attention_bwd_bhsd.launches == 0  # CPU: plain version
+    want = _grads(lambda a, b, c: fr.attention(a, b, c, **kw), q, k, v,
+                  dout)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+def test_lse_is_the_logsumexp_of_the_masked_scaled_logits():
+    """``with_lse``: the row log-sum-exp of the plain forward, on the
+    logits as scaled and masked (a window past the padded tail leaves
+    rows that attend nothing: -inf there), against torch.logsumexp; the
+    output is the same with or without it."""
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(a.transpose(
+        0, 2, 1, 3))) for a in _qkv(2, 128, 4, 2, 64, seed=5))
+    kw = dict(causal=True, window=8, softcap=0.0, block_q=64, block_k=64,
+              s_valid=100)
+    out, lse = fk.flash_attention_bhsd(tq, tk, tv, with_lse=True, **kw)
+    assert lse.shape == (2, 4, 128) and lse.dtype == torch.float32
+    assert torch.equal(out, fk.flash_attention_bhsd(tq, tk, tv, **kw))
+    mask = fr.make_mask(128, 128, causal=True, window=8) & (
+        torch.arange(128) < 100)[None]
+    logits = torch.matmul(tq.double(), tk.double().repeat_interleave(
+        2, dim=1).transpose(-1, -2)) / 8.0
+    want = torch.logsumexp(logits.masked_fill(~mask, -np.inf), -1).float()
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool(torch.isinf(want[..., 107:]).all())
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], **TOL)
+
+
+def test_a_call_autograd_does_not_record_saves_nothing():
+    """No grad mode, or no input that requires grad: the output has no
+    gradient function and nothing is kept for a backward (the
+    prefill's call); a recorded call has one, with the same output."""
+    _, (tq, tk, tv) = _both(_qkv(1, 64, 2, 1, 64, seed=2))
+    assert fo.flash_attention(tq, tk, tv).grad_fn is None
+    tq.requires_grad_(True)
+    with torch.no_grad():
+        plain = fo.flash_attention(tq, tk, tv)
+    assert plain.grad_fn is None
+    out = fo.flash_attention(tq, tk, tv)
+    assert out.grad_fn is not None
+    node = out.grad_fn.next_functions[0][0]          # under the transpose
+    assert len(node.saved_tensors) == 5              # q, k, v, out, lse
+    assert torch.equal(out.detach(), plain)
+
+
+def _k6b_emulated(q, k, v, out, dout, lse, *, mode):
+    """K6b's fp32 arithmetic, causal, every product computed in
+    ``mode``: P = exp((q * scale) . k - lse) where attended, dV = P^T .
+    dout, dP = dout . v^T, dS = P * (dP - rowsum(dout * out)), dK = dS^T
+    . (q * scale), dQ = scale * dS . k; the group summed into dk, dv."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    scale = 1.0 / np.sqrt(d)
+    qs = q * scale
+    mask = torch.arange(s)[None] <= torch.arange(s)[:, None]
+    p = torch.where(mask, torch.exp(_product(qs, k.transpose(-1, -2), mode)
+                                    - lse[..., None]), 0.0)
+    dv = _product(p.transpose(-1, -2), dout, mode)
+    ds = p * (_product(dout, v.transpose(-1, -2), mode)
+              - (dout * out).sum(-1, keepdim=True))
+    dk = _product(ds.transpose(-1, -2), qs, mode)
+    dq = _product(ds, k, mode) * scale
+    return (dq, dk.view(b, -1, g, s, d).sum(2),
+            dv.view(b, -1, g, s, d).sum(2))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_backward_keeps_fp32_parity_and_one_tf32_pass_does_not(d):
+    """The tolerance argument for K6b, emulated on the CPU: 3xTF32 in
+    all five products stays within 2e-5 of the plain backward (itself
+    held to autograd above); a single TF32 pass misses by ~2e-3, which
+    is why every operand is split. S = 128, causal, two q-heads on one
+    KV head, unit normals."""
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(a.transpose(
+        0, 2, 1, 3))) for a in _qkv(1, 128, 2, 1, d, seed=d + 1))
+    dout = torch.from_numpy(np.random.default_rng(d).normal(
+        size=tq.shape).astype(np.float32))
+    out, lse = fk.flash_attention_plain(tq, tk, tv, causal=True, window=0,
+                                        softcap=0.0, block_q=64,
+                                        block_k=64, s_valid=128,
+                                        with_lse=True)
+    want = fk.flash_attention_backward_plain(tq, tk, tv, out, dout, lse,
+                                             causal=True, window=0,
+                                             s_valid=128)
+    for mode in ("fp32", "3xtf32"):
+        for a, w in zip(_k6b_emulated(tq, tk, tv, out, dout, lse,
+                                      mode=mode), want):
+            torch.testing.assert_close(a, w, **TOL)
+    one = _k6b_emulated(tq, tk, tv, out, dout, lse, mode="tf32")
+    for a, w in zip(one, want):
+        assert not torch.allclose(a, w, **TOL)
+        assert float((a - w).abs().max()) > 5e-4
 
 
 def test_plain_rejects_unpadded_lengths_and_bad_heads():

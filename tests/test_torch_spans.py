@@ -333,5 +333,31 @@ def test_card_spans_read_stream_time_from_cuda_events():
     assert inner.count == 3 and 0 < inner.stream_s <= outer.stream_s
 
 
+@pytest.mark.cuda
+def test_a_card_train_step_records_flash_backward_under_the_backward():
+    """On the card the train step's attention takes flash attention
+    under autograd: a profiled reduced step (remat, scanned) records
+    ``flash_attn.forward`` twice a layer (the forward's and remat's
+    recompute, the latter under ``train.backward``) and
+    ``flash_attn.backward`` once a layer, all of it under
+    ``train.backward``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    argv = [a for a in TRAIN_ARGV if a not in ("--device", "cpu")]
+    prog = launcher.setup(launcher.parse_args(argv + ["--device", "cuda"]))
+    tok = torch.randint(0, prog["cfg"].vocab, (2, 33),
+                        generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": tok[:, :-1].cuda(), "labels": tok[:, 1:].cuda()}
+    _profiled(lambda: prog["train_step"](prog["state"], batch))
+    tr = trace.tracer()
+    layers = prog["cfg"].n_layers
+    assert tr.span_stats("flash_attn.forward").count == 2 * layers
+    assert tr.span_stats("flash_attn.forward",
+                         under="train.backward").count == layers
+    assert tr.span_stats("flash_attn.backward").count == layers
+    assert tr.span_stats("flash_attn.backward",
+                         under="train.backward").count == layers
+
+
 if __name__ == "__main__":
     {"rank": _rank_main}[sys.argv[1]](*sys.argv[2:])
