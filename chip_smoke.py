@@ -79,7 +79,9 @@ Phases (any failure raises and the script exits non-zero):
      card at S = 8192 (rtol = atol = 2e-5; bf16 0.05) at the attention
      geometries of qwen1.5-0.5b, granite-8b, grok-1 (softcap 30),
      recurrentgemma-9b's local attention (D = 256, window 2048), a
-     non-causal tail (S = 8191) and bf16, skip == full grid bit for bit;
+     non-causal tail (S = 8191) and bf16, and at deepseek-v2-lite's MLA
+     (16/16 heads, q.k at D 192, v and out at DV 128, S = 16384, YaRN's
+     softmax scale 0.114721), skip == full grid bit for bit;
      K6, plain and SDPA (memory-efficient kernel, a yardstick only)
      times and SDPA's error beside K6's, against the bound of K6's own
      arithmetic (3xTF32 or bf16 tensor-core products). Then
@@ -123,14 +125,15 @@ Phases (any failure raises and the script exits non-zero):
      non-flash prefill and, on 1 x 320, of the bulk prefill (the decode
      loop), the Engine serving 8 requests (prompt 32, generation
      8/16/32, 4 slots, greedy); deepseek-v2-lite-16b (15,647,895,040
-     parameters) prefill 1 x 4096 (one MoE group, capacity 480), peak
-     memory, layer 0's absorbed MLA decode over 64 tokens within 1e-3 of
-     its full-sequence form, 8 served requests through the latent
-     cache; qwen2.5-14b (fp32) and command-r-35b (bf16) flash prefills
-     of 1 x 8192 on K6 against their non-flash prefills (1e-3; bf16
-     0.05), K6 alone at each geometry; then the five configs reduced,
-     prefill and a train step's loss and gradients, card against CPU
-     within 1e-5;
+     parameters) prefill 1 x 4096 (one MoE group, capacity 480), K6 at
+     (192, 128) once per MLA layer, peak memory, layer 0's absorbed MLA
+     decode over 64 tokens within 1e-3 of its full-sequence form, 8
+     served requests through the latent cache; qwen2.5-14b (fp32) and
+     command-r-35b (bf16) flash prefills of 1 x 8192 on K6 against
+     their non-flash prefills (1e-3; bf16 0.05), K6 alone at each geometry; then the five configs reduced
+     (deepseek's MLA at the head dims K6 builds, so its prefill runs K6
+     at (192, 128)), prefill and a train step's loss and gradients, card
+     against CPU within 1e-5;
  11. leaf, the per-leaf codec tier: K4, K2 and K3 launched on leaf
      messages (JAX's per-leaf qdq, encode_packed and decode_packed; K4
      and K2 drawing each leaf's uniforms from its own key) against their
@@ -325,20 +328,31 @@ TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 # K6 computes an fp32 product as three TF32 products (3xTF32)
 FLASH_FP32_PRODUCTS = 3
+# deepseek-v2-lite's MLA softmax scale: (128 + 64)^-0.5 times YaRN's
+# mscale(40, 0.707)^2 (held to the configuration's in flash_geometries)
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
 # K6 against its plain version at full length (B = 1, unit normals):
-# (name, Hq, Hkv, D, S, causal, window, softcap, dtype, tolerance)
+# (name, Hq, Hkv, D, DV, S, causal, window, softcap, scale, dtype,
+# tolerance); DV is v's and the output's head dim, scale None 1/sqrt(D)
 FLASH_GEOMETRIES = (
-    ("qwen1.5-0.5b", 16, 16, 64, 8192, True, 0, 0.0, "float32", 2e-5),
-    ("granite-8b", 32, 8, 128, 8192, True, 0, 0.0, "float32", 2e-5),
-    ("grok-1 (softcap 30)", 48, 8, 128, 8192, True, 0, 30.0, "float32",
+    ("qwen1.5-0.5b", 16, 16, 64, 64, 8192, True, 0, 0.0, None, "float32",
      2e-5),
-    ("recurrentgemma-9b local (window 2048)", 16, 1, 256, 8192, True, 2048,
-     0.0, "float32", 2e-5),
-    ("tail S=8191, non-causal", 16, 16, 64, 8191, False, 0, 0.0,
+    ("granite-8b", 32, 8, 128, 128, 8192, True, 0, 0.0, None, "float32",
+     2e-5),
+    ("grok-1 (softcap 30)", 48, 8, 128, 128, 8192, True, 0, 30.0, None,
      "float32", 2e-5),
-    ("qwen1.5-0.5b bf16", 16, 16, 64, 8192, True, 0, 0.0, "bfloat16",
-     0.05),
+    ("recurrentgemma-9b local (window 2048)", 16, 1, 256, 256, 8192, True,
+     2048, 0.0, None, "float32", 2e-5),
+    ("tail S=8191, non-causal", 16, 16, 64, 64, 8191, False, 0, 0.0, None,
+     "float32", 2e-5),
+    ("qwen1.5-0.5b bf16", 16, 16, 64, 64, 8192, True, 0, 0.0, None,
+     "bfloat16", 0.05),
+    ("deepseek-v2-lite MLA (YaRN scale)", 16, 16, 192, 128, 16384, True, 0,
+     0.0, MLA_SCALE, "float32", 2e-5),
 )
+# the row of FLASH_GEOMETRIES the kernels line reports as K6 at MLA's
+# head dims (flash_fwd<float, 192, false, 128>)
+MLA_GEOMETRY = "deepseek-v2-lite MLA (YaRN scale)"
 # flash prefill logits against the same prefill without flash (the
 # chunked exact path at S >= 4096): both are fp32, but they sum the
 # attention in another order (online softmax over 64-key tiles against
@@ -1811,15 +1825,17 @@ def attended_pairs(s: int, causal: bool, window: int) -> int:
 
 
 def flash_bound(b: int, hq: int, hkv: int, d: int, s: int, causal: bool,
-                window: int, elt: int) -> dict:
+                window: int, elt: int, dv: int = None) -> dict:
     """The least time for K6's work in the arithmetic it uses: fp32 as
-    3xTF32, 3 x 4 * D flops per attended (q-head, query, key) triple at
-    the dense TF32 rate; bf16 4 * D flops at the bf16 rate; against q,
-    k, v read and out written once at the memory rate."""
-    per, rate = ((FLASH_FP32_PRODUCTS * 4 * d, TF32_FLOPS_PER_S)
-                 if elt == 4 else (4 * d, BF16_FLOPS_PER_S))
+    3xTF32, 3 x 2 * (D + DV) flops per attended (q-head, query, key)
+    triple at the dense TF32 rate; bf16 2 * (D + DV) flops at the bf16
+    rate; against q, k (head dim D), v (DV) read and out (DV) written
+    once at the memory rate. DV defaults to D."""
+    dv = d if dv is None else dv
+    per, rate = ((FLASH_FP32_PRODUCTS * 2 * (d + dv), TF32_FLOPS_PER_S)
+                 if elt == 4 else (2 * (d + dv), BF16_FLOPS_PER_S))
     flops = per * hq * b * attended_pairs(s, causal, window)
-    nbytes = (2 * hq + 2 * hkv) * b * s * d * elt
+    nbytes = (hq * d + hkv * d + hkv * dv + hq * dv) * b * s * elt
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
             "bound_by": ("operations" if flops / rate >=
@@ -1828,14 +1844,17 @@ def flash_bound(b: int, hq: int, hkv: int, d: int, s: int, causal: bool,
 
 def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
                 causal: bool, window: int, cap: float, dtype: str,
-                tol: float, *, seed: int) -> dict:
-    """K6 on unit-normal (B, H, S, D) card tensors (S padded to the
-    block as ops pads it) against its plain version on the same card
-    tensors, at ``tol``; skip == full grid bit for bit; CUDA-event times
-    of K6, the plain version and, for causal attention without window or
-    softcap, SDPA's memory-efficient kernel on the same inputs (K and V
-    repeated to the q heads beforehand) as the library yardstick, with
-    its max abs error against the plain version beside K6's."""
+                tol: float, *, seed: int, dv: int = None,
+                scale: float = None) -> dict:
+    """K6 on unit-normal (B, H, S, D) card tensors (v (B, Hkv, S, DV),
+    DV defaulting to D; S padded to the block as ops pads it) at softmax
+    scale ``scale`` (None: 1/sqrt(D)) against its plain version on the
+    same card tensors, at ``tol``; skip == full grid bit for bit;
+    CUDA-event times of K6, the plain version and, for causal attention
+    without window or softcap, SDPA's memory-efficient kernel on the
+    same inputs (K and V repeated to the q heads beforehand) as the
+    library yardstick, with its max abs error against the plain version
+    beside K6's."""
     import numpy as np
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -1847,28 +1866,32 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
     bk = min(fo.DEFAULT_BLOCK_K, bq)
     s_pad = -(-s // bq) * bq
 
-    def draw(h):
+    dv = d if dv is None else dv
+
+    def draw(h, width=d):
         x = torch.from_numpy(rng.standard_normal(
-            (b, h, s, d), dtype=np.float32)).to("cuda", dt)
+            (b, h, s, width), dtype=np.float32)).to("cuda", dt)
         return torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
 
-    q, k, v = draw(hq), draw(hkv), draw(hkv)
+    q, k, v = draw(hq), draw(hkv), draw(hkv, dv)
     kw = dict(causal=causal, window=window, softcap=cap, block_q=bq,
-              block_k=bk, s_valid=s)
+              block_k=bk, s_valid=s, scale=scale)
     out = fk.flash_attention_bhsd(q, k, v, **kw)
     full = fk.flash_attention_bhsd(q, k, v, skip=False, **kw)
     torch.cuda.synchronize()
     if not torch.equal(out, full):
-        raise AssertionError(f"K6 skip != full grid at {(b, hq, hkv, d, s)}")
+        raise AssertionError(f"K6 skip != full grid at "
+                             f"{(b, hq, hkv, d, dv, s)}")
     del full
     want = fk.flash_attention_plain(q, k, v, **kw)[:, :, :s].float()
     got = out[:, :, :s].float()
     err = max_abs(got, want)
     if not torch.allclose(got, want, rtol=tol, atol=tol):
-        raise AssertionError(f"K6 != plain at {(b, hq, hkv, d, s)}: max abs "
-                             f"err {err} (tolerance {tol})")
+        raise AssertionError(f"K6 != plain at {(b, hq, hkv, d, dv, s)}: "
+                             f"max abs err {err} (tolerance {tol})")
     del out, got
-    res = {"shape": [b, hq, hkv, s, d], "dtype": dtype, "causal": causal,
+    res = {"shape": [b, hq, hkv, s, d], "dv": dv, "scale": scale,
+           "dtype": dtype, "causal": causal,
            "window": window, "softcap": cap, "max_abs_err": err,
            "tolerance": tol, "library_max_abs_err": None,
            "ms": time_ms(lambda: fk.flash_attention_bhsd(q, k, v, **kw),
@@ -1876,19 +1899,19 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
            "plain_ms": time_ms(lambda: fk.flash_attention_plain(
                q, k, v, **kw), reps=3), "library_ms": None}
     res.update(flash_bound(b, hq, hkv, d, s, causal, window,
-                           q.element_size()))
+                           q.element_size(), dv))
     if causal and not window and not cap:
         g = hq // hkv
         qs = q[:, :, :s]
         ks, vs = (t[:, :, :s].repeat_interleave(g, dim=1) for t in (k, v))
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             lib = torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True)
+                qs, ks, vs, is_causal=True, scale=scale)
             res["library_max_abs_err"] = max_abs(lib.float(), want)
             del lib
             res["library_ms"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True), reps=5)
+                    qs, ks, vs, is_causal=True, scale=scale), reps=5)
     del want
     res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
     return res
@@ -1896,12 +1919,19 @@ def check_flash(torch, b: int, hq: int, hkv: int, d: int, s: int,
 
 def flash_geometries(torch) -> list:
     """K6 against its plain version at full length at the attention
-    geometries of the repo's models (FLASH_GEOMETRIES)."""
+    geometries of the repo's models (FLASH_GEOMETRIES), MLA's scale held
+    to deepseek-v2-lite's."""
+    from repro_torch import configs
+    from repro_torch.models import mla
+    want = mla._scale(configs.get_config("deepseek-v2-lite"))
+    if abs(MLA_SCALE - want) > 1e-12:
+        raise AssertionError(f"MLA_SCALE {MLA_SCALE} != the configuration's "
+                             f"{want}")
     out = []
-    for i, (name, hq, hkv, d, s, causal, window, cap, dtype, tol) in \
-            enumerate(FLASH_GEOMETRIES):
+    for i, (name, hq, hkv, d, dv, s, causal, window, cap, scale, dtype,
+            tol) in enumerate(FLASH_GEOMETRIES):
         res = check_flash(torch, 1, hq, hkv, d, s, causal, window, cap,
-                          dtype, tol, seed=100 + i)
+                          dtype, tol, seed=100 + i, dv=dv, scale=scale)
         res["name"] = name
         log(f"[prefill] K6 {name}: == plain within {tol} (max abs err "
             f"{res['max_abs_err']:.3g}), skip == full bit for bit; "
@@ -1909,6 +1939,22 @@ def flash_geometries(torch) -> list:
         out.append(res)
         torch.cuda.empty_cache()
     return out
+
+
+def mla_kernel_line(geometries: list, families: dict) -> dict:
+    """The kernels line's row of K6 at MLA's head dims
+    (flash_fwd<float, 192, false, 128>): its MLA_GEOMETRY times against
+    its bound, plain version and SDPA, and its launches in the families'
+    deepseek-v2-lite-16b prefills (once an MLA layer)."""
+    g = next(r for r in geometries if r["name"] == MLA_GEOMETRY)
+    return {"kernel": "flash_attention_bhsd (D 192, DV 128)",
+            "shape": g["shape"], "dv": g["dv"], "scale": g["scale"],
+            "max_abs_err": g["max_abs_err"], "kernel_ms": g["ms"],
+            "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "fraction_of_bound": g["fraction_of_bound"],
+            "launches": families["deepseek-v2-lite-16b"]["launches"],
+            "library_ms": g["library_ms"],
+            "library_max_abs_err": g["library_max_abs_err"]}
 
 
 def prefill_model(torch, arch: str, shape_name, b: int, s: int,
@@ -2839,8 +2885,8 @@ def deepseek_prefill(torch, params, cfg, seed: int) -> dict:
     """make_prefill_step(use_flash=True, scan_layers=True,
     logits_positions="last") on 1 x 4,096 tokens (one MoE group of
     MAX_GROUP, capacity 480): a warm-up and PREFILL_REPS timed
-    prefills, no K6 launch (MLA is not on flash, as in JAX), peak
-    memory."""
+    prefills, K6 once an MLA layer (at head dims 192 / 128, since
+    the MLA prefill takes flash attention on the card), peak memory."""
     from repro_torch.core import prng
     from repro_torch.data import pipeline
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -2872,8 +2918,9 @@ def deepseek_prefill(torch, params, cfg, seed: int) -> dict:
         times.append(start.elapsed_time(end))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    if fk.flash_attention_bhsd.launches:
-        raise AssertionError("the MLA prefill launched K6")
+    if fk.flash_attention_bhsd.launches != cfg.n_layers * (1 + PREFILL_REPS):
+        raise AssertionError("the MLA prefill did not launch K6 once a "
+                             "layer")
     if tuple(logits.shape) != (1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("deepseek prefill logits not finite or of "
@@ -2883,7 +2930,8 @@ def deepseek_prefill(torch, params, cfg, seed: int) -> dict:
             "median_ms": med, "tokens_per_s": s / (med / 1e3),
             "moe_group": moe.MAX_GROUP, "moe_capacity": DEEPSEEK_CAPACITY,
             "max_memory_allocated": peak,
-            "logits_abs_max": float(logits.abs().max())}
+            "logits_abs_max": float(logits.abs().max()),
+            "launches": fk.flash_attention_bhsd.launches}
 
 
 def mla_decode_check(torch, params, cfg, seed: int) -> dict:
@@ -2918,24 +2966,29 @@ def mla_decode_check(torch, params, cfg, seed: int) -> dict:
 def reduced_family(arch: str):
     """The reduced configuration of the CPU tests: recurrentgemma on
     (rglru, rglru, local_attn, rglru, rglru), deepseek on three layers
-    (the dense prefix and two scanned MoE layers)."""
+    (the dense prefix and two scanned MoE layers) with MLA at the head
+    dims K6 builds (q.k 128 + 64, v 128)."""
     import dataclasses
     from repro_torch import configs
+    from repro_torch.models.common import MLAConfig
 
     cfg = configs.get_config(arch)
     if arch == "recurrentgemma-9b":
         return dataclasses.replace(cfg.reduced(n_layers=5), block_pattern=(
             "rglru", "rglru", "local_attn", "rglru", "rglru"))
     if arch == "deepseek-v2-lite-16b":
-        return cfg.reduced(n_layers=3)
+        return dataclasses.replace(cfg.reduced(n_layers=3), mla=MLAConfig(
+            kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
     return cfg.reduced()
 
 
 def families_cross_device_check(torch) -> None:
     """The five configurations reduced, on the card against the CPU: the
-    flash prefill (K6 on the card, its plain version on the CPU, 2 x 300
-    tokens) and a train step's loss (cross entropy + MoE aux) and every
-    gradient (2 x 32 tokens), within REDUCED_TOL."""
+    flash prefill (K6 on the card once an attention or MLA layer, its
+    plain version on the CPU, 2 x 300 tokens) and a train step's loss
+    (cross entropy + MoE aux) and every gradient (2 x 32 tokens), within
+    REDUCED_TOL."""
     import numpy as np
     from repro_torch.core import pytree
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -2954,7 +3007,8 @@ def families_cross_device_check(torch) -> None:
         pairs = [("prefill", step(params, {"tokens": tok}))]
         before = fk.flash_attention_bhsd.launches
         got = step(gparams, {"tokens": tok.cuda()}).cpu()
-        attn = sum(k in ("attn", "local_attn") for k in mc.block_pattern)
+        attn = sum(k in ("attn", "local_attn", "mla")
+                   for k in mc.block_pattern)
         if fk.flash_attention_bhsd.launches - before != attn:
             raise AssertionError(f"reduced {arch} prefill: K6 launches")
         loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
@@ -3013,6 +3067,7 @@ def families_phase(torch) -> dict:
 
     cfg, params = family_params(torch, "deepseek-v2-lite-16b", seed=53)
     ds = deepseek_prefill(torch, params, cfg, seed=54)
+    k6 += ds["launches"]
     log(f"[families] deepseek-v2-lite-16b prefill 1 x {DEEPSEEK_SEQ}: "
         f"median {ds['median_ms']:.1f} ms, {ds['tokens_per_s']:.1f} "
         f"tokens/s, peak {ds['max_memory_allocated']} B; "
@@ -5164,6 +5219,7 @@ def main() -> int:
                     "launches": trained["flash_launches"][
                         "flash_attention_bwd_bhsd"],
                     "library_ms": k6b["library_ms"]}))
+    log(json.dumps(mla_kernel_line(prefilled["geometries"], families)))
     log(json.dumps({"kernels": rows}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The JAX package's ten assigned architectures (six families) and the
-training-example model, each config a copy of the JAX package's.
+training-example model, each config a copy of the JAX package's
+(``all_configs``, ``ASSIGNED``); and the port's own configurations,
+which ``get_config`` resolves too: ``deepseek-v2-lite``, the published
+DeepSeek-V2-Lite (dropless routing, YaRN), beside the JAX package's
+``deepseek-v2-lite-16b``.
 """
 from __future__ import annotations
 
@@ -25,11 +29,15 @@ _MODULES = {
 
 ASSIGNED = tuple(k for k in _MODULES if k != "repro-100m")
 
+# the port's own configurations: no JAX counterpart
+_PORT_ONLY = {"deepseek-v2-lite": "deepseek_v2_lite"}
+
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch '{arch_id}'; have {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    mods = {**_MODULES, **_PORT_ONLY}
+    if arch_id not in mods:
+        raise KeyError(f"unknown arch '{arch_id}'; have {sorted(mods)}")
+    mod = importlib.import_module(f"repro_torch.configs.{mods[arch_id]}")
     return mod.CONFIG
 
 

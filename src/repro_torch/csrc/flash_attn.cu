@@ -73,6 +73,14 @@
 // dynamic shared memory after
 // cudaFuncSetAttribute; a refused launch is returned by
 // cudaGetLastError() and raised by the wrapper.
+// flash_fwd<T, D, LSE, DV>: v and out may have their own head dim DV
+// (default D, so every square instantiation is the code it was; a v row
+// lands in its own padded stride VSTR). Built at (D 192, DV 128) in fp32
+// alone, for multi-head latent attention (DeepSeek-V2: q.k over 128
+// nope + 64 rope dims, p.v over 128): it replaces no TPU kernel (the
+// JAX package runs MLA as plain attention). 128 rows, 32-key tiles,
+// 184,320 bytes of shared memory; each warp splits its fragments as at
+// D = 128. Bound: 2 * (D + DV) flops a triple at 3xTF32's 165 TFLOP/s.
 // flash_fwd<T, D, true> also stores each row's log-sum-exp, m + log(l)
 // in fp32 (B, Hq, S), for the backward, after the key loop; it is built
 // for fp32 at D 64 and 128 alone (what K6b covers). A prefill passes no
@@ -123,7 +131,7 @@ namespace {
 
 constexpr float NEG_INF = -1073741824.0f;   // -2**30, as the TPU kernel
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int ROWS = D == 256 ? 64 : 128;   // folded rows
@@ -132,9 +140,10 @@ struct Cfg {
   static constexpr int MINB = D <= 64 ? 2 : 1;       // blocks per SM
   static constexpr int VEC = 16 / (int)sizeof(T);    // elements in 16 B
   static constexpr int STR = D + VEC;                // padded shared row
+  static constexpr int VSTR = DV + VEC;              // ... of a v row
   static constexpr int KSTEP = 2 * VEC;              // mma depth (32 B)
   static constexpr int NT = BK / 8;                  // score n-tiles
-  static constexpr int ND = D / 8;                   // output n-tiles
+  static constexpr int ND = DV / 8;                  // output n-tiles
   static constexpr int KQ = D / KSTEP;               // k-steps of q.k
   static constexpr int KP = BK / KSTEP;              // k-steps of p.v
   static constexpr bool QREG = !F32 && D <= 128;      // q in registers
@@ -144,13 +153,15 @@ struct Cfg {
   static constexpr bool PRESPLIT = F32 && D <= 64;
   static constexpr int Q_ELEMS = ROWS * STR;
   static constexpr int KV_ELEMS = BK * STR;
+  static constexpr int V_ELEMS = BK * VSTR;
   // fp32: the tile's split operands, k's small part (its big part
   // overwrites the landed tile) and v's big and small parts transposed
   static constexpr int VT_STR = BK + 4;
-  static constexpr int VT_ELEMS = D * VT_STR;
+  static constexpr int VT_ELEMS = DV * VT_STR;
   static constexpr int SPLIT_ELEMS = PRESPLIT ? KV_ELEMS + 2 * VT_ELEMS : 0;
   static constexpr size_t SMEM =
-      (size_t)(Q_ELEMS + 4 * KV_ELEMS + SPLIT_ELEMS) * sizeof(T);
+      (size_t)(Q_ELEMS + 2 * KV_ELEMS + 2 * V_ELEMS + SPLIT_ELEMS) *
+      sizeof(T);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -247,7 +258,7 @@ __device__ __forceinline__ bool attends(long long kp, long long qp,
          (window <= 0 || kp > qp - window);
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, int DV = D>
 __global__ void __launch_bounds__(Cfg<T, D>::THREADS, Cfg<T, D>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
@@ -255,16 +266,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long s, long long s_valid, int causal, int window,
           float scale, float cap, float inv_cap, int skip, int gh, int bq,
           int n_chunks) {
-  using C = Cfg<T, D>;
+  using C = Cfg<T, D, DV>;
   constexpr int BK = C::BK, STR = C::STR, VEC = C::VEC, KSTEP = C::KSTEP;
+  constexpr int VSTR = C::VSTR;
   constexpr int CH = D / VEC;                 // 16-byte chunks of a row
+  constexpr int VCH = DV / VEC;               // ... of a v row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);     // ROWS x STR
   T* ks = qs + C::Q_ELEMS;                    // 2 stages of BK x STR
-  T* vs = ks + 2 * C::KV_ELEMS;               // 2 stages of BK x STR
-  float* k_small = reinterpret_cast<float*>(vs + 2 * C::KV_ELEMS);
-  float* vt_big = k_small + C::KV_ELEMS;      // D x VT_STR
-  float* vt_small = vt_big + C::VT_ELEMS;     // D x VT_STR
+  T* vs = ks + 2 * C::KV_ELEMS;               // 2 stages of BK x VSTR
+  float* k_small = reinterpret_cast<float*>(vs + 2 * C::V_ELEMS);
+  float* vt_big = k_small + C::KV_ELEMS;      // DV x VT_STR
+  float* vt_small = vt_big + C::VT_ELEMS;     // DV x VT_STR
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -295,13 +308,29 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   auto load_kv = [&](long long k0, int stage) {
     T* kd = ks + stage * C::KV_ELEMS;
-    T* vd = vs + stage * C::KV_ELEMS;
-    for (int idx = tid; idx < BK * CH; idx += C::THREADS) {
-      const int r = idx / CH, c = idx % CH;
-      const bool ok = k0 + r < s;
-      const long long off = ok ? (kv_base + k0 + r) * D + c * VEC : 0;
-      cp_async16(smem_addr(kd + r * STR + c * VEC), k + off, ok ? 16 : 0);
-      cp_async16(smem_addr(vd + r * STR + c * VEC), v + off, ok ? 16 : 0);
+    T* vd = vs + stage * C::V_ELEMS;
+    if constexpr (DV == D) {
+      for (int idx = tid; idx < BK * CH; idx += C::THREADS) {
+        const int r = idx / CH, c = idx % CH;
+        const bool ok = k0 + r < s;
+        const long long off = ok ? (kv_base + k0 + r) * D + c * VEC : 0;
+        cp_async16(smem_addr(kd + r * STR + c * VEC), k + off, ok ? 16 : 0);
+        cp_async16(smem_addr(vd + r * STR + c * VEC), v + off, ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < BK * CH; idx += C::THREADS) {
+        const int r = idx / CH, c = idx % CH;
+        const bool ok = k0 + r < s;
+        const long long off = ok ? (kv_base + k0 + r) * D + c * VEC : 0;
+        cp_async16(smem_addr(kd + r * STR + c * VEC), k + off, ok ? 16 : 0);
+      }
+      for (int idx = tid; idx < BK * VCH; idx += C::THREADS) {
+        const int r = idx / VCH, c = idx % VCH;
+        const bool ok = k0 + r < s;
+        const long long off = ok ? (kv_base + k0 + r) * DV + c * VEC : 0;
+        cp_async16(smem_addr(vd + r * VSTR + c * VEC), v + off,
+                   ok ? 16 : 0);
+      }
     }
   };
 
@@ -390,7 +419,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
     const long long k0 = k_begin + (long long)it * BK;
     T* kt = ks + (it & 1) * C::KV_ELEMS;
-    const T* vt = vs + (it & 1) * C::KV_ELEMS;
+    const T* vt = vs + (it & 1) * C::V_ELEMS;
     if constexpr (C::PRESPLIT) {
       // split the tile once for all warps: k's big part in place, its
       // small part beside; v's parts transposed (row d), the keys of each
@@ -411,10 +440,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         *reinterpret_cast<uint4*>(k_small + r * STR + c) =
             make_uint4(sm[0], sm[1], sm[2], sm[3]);
       }
-      for (int idx = tid; idx < BK * D / 4; idx += C::THREADS) {
+      for (int idx = tid; idx < BK * DV / 4; idx += C::THREADS) {
         const int key = idx % BK, d = 4 * (idx / BK);
         const int pos = (key & ~7) | ((key & 1) << 2) | ((key & 7) >> 1);
-        const float4 x = *reinterpret_cast<const float4*>(vf + key * STR + d);
+        const float4 x =
+            *reinterpret_cast<const float4*>(vf + key * VSTR + d);
         const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -570,12 +600,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             }
           } else {
             const float* v0 = reinterpret_cast<const float*>(vt) +
-                              (8 * c + 2 * t) * STR + g + 8 * n0;
+                              (8 * c + 2 * t) * VSTR + g + 8 * n0;
 #pragma unroll
             for (int nn = 0; nn < NG; ++nn) {
               uint32_t bb0, bs0, bb1, bs1;
               split(v0[8 * nn], bb0, bs0);
-              split(v0[STR + 8 * nn], bb1, bs1);
+              split(v0[VSTR + 8 * nn], bb1, bs1);
               mma_3xtf32(acc[nn], pb[c], psm[c], bb0, bb1, bs0, bs1);
             }
           }
@@ -588,7 +618,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       }
     } else {
       const uint32_t v_addr = smem_addr(
-          vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR +
+          vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * VSTR +
           (lane >> 4) * 8);
 #pragma unroll
       for (int c = 0; c < C::KP; ++c) {
@@ -599,7 +629,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < C::ND; n += 2) {
           uint32_t vb[4];
-          ldsm4_t(vb, v_addr + (16 * c * STR + 8 * n) * (int)sizeof(T));
+          ldsm4_t(vb, v_addr + (16 * c * VSTR + 8 * n) * (int)sizeof(T));
           mma_bf16(o[n], a, vb[0], vb[1]);
           mma_bf16(o[n + 1], a, vb[2], vb[3]);
         }
@@ -613,7 +643,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int gi = g0 + r / bq;
     if (r >= rows || gi >= group || qpos[i] >= s) continue;
     const long long h = (long long)kvh * group + gi;
-    T* orow = out + ((b * hq + h) * s + qpos[i]) * D + 2 * t;
+    T* orow = out + ((b * hq + h) * s + qpos[i]) * DV + 2 * t;
     if constexpr (LSE) {
       if (t == 0) lse[(b * hq + h) * s + qpos[i]] = m[i] + logf(l[i]);
     }
@@ -624,12 +654,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, int DV = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, long long b, int hq, int hkv, long long s,
                    long long s_valid, int causal, int window, float scale,
                    float cap, float inv_cap, int skip, cudaStream_t stream) {
-  using C = Cfg<T, D>;
+  using C = Cfg<T, D, DV>;
   const int group = hq / hkv;
   const int gh = group > C::ROWS ? C::ROWS : group;
   const int bq = C::ROWS / gh;
@@ -637,11 +667,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long n_x = (s + bq - 1) / bq * hkv * n_chunks;
   if (n_x > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, D, LSE, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)n_x, 1u, (unsigned)b);
-  flash_fwd<T, D, LSE><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_fwd<T, D, LSE, DV><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, s,
       s_valid,
@@ -650,11 +680,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* out, float* lse, long long b, int hq, int hkv,
-                     long long s, long long s_valid, int causal, int window,
-                     float scale, float cap, float inv_cap, int skip,
-                     cudaStream_t stream) {
+cudaError_t dispatch(int d, int dv, const void* q, const void* k,
+                     const void* v, void* out, float* lse, long long b,
+                     int hq, int hkv, long long s, long long s_valid,
+                     int causal, int window, float scale, float cap,
+                     float inv_cap, int skip, cudaStream_t stream) {
+  if (dv != d) {  // multi-head latent attention: q.k at 192, p.v at 128
+    if constexpr (Cfg<T, 64>::F32) {
+      if (lse == nullptr && d == 192 && dv == 128)
+        return launch<T, 192, false, 128>(q, k, v, out, nullptr, b, hq, hkv,
+                                          s, s_valid, causal, window, scale,
+                                          cap, inv_cap, skip, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (lse != nullptr) {  // built where K6b covers the backward
     if constexpr (Cfg<T, 64>::F32) {
       if (d == 64)
@@ -1169,11 +1208,13 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 float32, 1 bfloat16; dv: v's and out's head dim (d, or 128
+// at d = 192 in fp32). Returns the launch's cudaError_t.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int dtype, long long b,
                               int hq,
-                              int hkv, long long s, int d, long long s_valid,
+                              int hkv, long long s, int d, int dv,
+                              long long s_valid,
                               int causal, int window, float scale, float cap,
                               float inv_cap, int skip, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || s <= 0 || b <= 0)
@@ -1183,13 +1224,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch<float>(d, q, k, v, out, ls, b, hq, hkv, s, s_valid,
-                                causal, window, scale, cap, inv_cap, skip,
-                                st);
+    return (int)dispatch<float>(d, dv, q, k, v, out, ls, b, hq, hkv, s,
+                                s_valid, causal, window, scale, cap, inv_cap,
+                                skip, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, q, k, v, out, ls, b, hq, hkv, s,
-                                        s_valid, causal, window, scale, cap,
-                                        inv_cap, skip, st);
+    return (int)dispatch<__nv_bfloat16>(d, dv, q, k, v, out, ls, b, hq, hkv,
+                                        s, s_valid, causal, window, scale,
+                                        cap, inv_cap, skip, st);
   return (int)cudaErrorInvalidValue;
 }
 

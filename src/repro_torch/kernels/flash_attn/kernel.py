@@ -47,6 +47,12 @@ in fp32), not bit for bit; ``skip=True`` and ``skip=False`` are
 bit-identical on each side, since a fully masked tile adds exactly
 nothing.
 
+v may have another head dim than q and k (``DV``): the output is then
+(B, Hq, S, DV). K6 builds that only for fp32 at the pairs
+``MLA_HEAD_DIMS`` (multi-head latent attention: q.k at 192 = 128 + 64,
+p.v at 128), forward only. ``scale`` replaces the softmax scale
+1/sqrt(D) (YaRN's MLA scale); the backward takes the default only.
+
 The library is built by ``kernels.nvcc`` at first use, never at import.
 """
 from __future__ import annotations
@@ -65,6 +71,7 @@ from repro_torch.kernels import nvcc
 NEG_INF = -2.0**30
 HEAD_DIMS = (32, 64, 128, 256)
 BACKWARD_HEAD_DIMS = (64, 128)
+MLA_HEAD_DIMS = ((192, 128),)        # (D of q and k, DV of v), fp32
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = nvcc.CSRC / "flash_attn.cu"
 LIBRARY = nvcc.BUILD_DIR / "libflash_attn.so"
@@ -87,7 +94,8 @@ def _load() -> ctypes.CDLL:
             vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_float)
             lib.flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i,
-                                           ll, i, ll, i, i, f, f, f, i, vp]
+                                           ll, i, i, ll, i, i, f, f, f, i,
+                                           vp]
             lib.flash_attn_fwd.restype = ctypes.c_int
             lib.flash_attn_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                            vp, vp, ll, i, i, ll, i, ll, i,
@@ -153,7 +161,8 @@ def _q_block_runs(maps: np.ndarray, n_k: int) -> list:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: int, softcap: float,
                           block_q: int, block_k: int, s_valid: int,
-                          skip: bool = True, with_lse: bool = False):
+                          skip: bool = True, with_lse: bool = False,
+                          scale: Optional[float] = None):
     """The Pallas kernel's arithmetic in PyTorch, in its order: q scaled
     before the dot, softcap as ``cap * tanh(logits * (1/cap))``, masked
     logits set to NEG_INF and their probabilities zeroed after the exp,
@@ -163,16 +172,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads (heads folded per KV head, as the TPU tile folds them), with a
     loop over the k-blocks: each k-block updates the run of q-blocks
     whose pair the skip table keeps (``skip=False``: every q-block,
-    masking inside the tile)."""
+    masking inside the tile). v's head dim may differ from q's (the
+    output takes v's); ``scale`` defaults to 1/sqrt(D)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
+    dv = v.shape[-1]
     group = hq // hkv
     if s % block_q or s % block_k:
         raise ValueError(f"flash plain: S={s} is not a multiple of the "
                          f"blocks ({block_q}, {block_k})")
     n_q, n_k = s // block_q, s // block_k
     gbq = group * block_q
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     maps = (skip_grid(s, block_q, block_k, causal=causal, window=window,
                       s_valid=s_valid) if skip else
             skip_grid(s, block_q, block_k, causal=False, window=0,
@@ -183,10 +194,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = (q.float() * scale).reshape(b, hkv, group, n_q, block_q, d) \
         .permute(0, 3, 1, 2, 4, 5).reshape(b, n_q, hkv, gbq, d)
     kf = k.float().reshape(b, hkv, n_k, block_k, d)
-    vf = v.float().reshape(b, hkv, n_k, block_k, d)
+    vf = v.float().reshape(b, hkv, n_k, block_k, dv)
     m = torch.full((b, n_q, hkv, gbq, 1), NEG_INF, device=dev)
     l_ = torch.zeros((b, n_q, hkv, gbq, 1), device=dev)
-    acc = torch.zeros((b, n_q, hkv, gbq, d), device=dev)
+    acc = torch.zeros((b, n_q, hkv, gbq, dv), device=dev)
     row = torch.arange(gbq, device=dev) % block_q
     q_pos = (torch.arange(n_q, device=dev)[:, None] * block_q
              + row[None])[:, None, :, None]               # (nQ, 1, gBQ, 1)
@@ -216,8 +227,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p, vf[:, None, :, ki])
         m[:, qa:qb] = m_new
     out = acc / torch.clamp_min(l_, 1e-30)
-    out = out.view(b, n_q, hkv, group, block_q, d).permute(
-        0, 2, 3, 1, 4, 5).reshape(b, hq, s, d).to(q.dtype)
+    out = out.view(b, n_q, hkv, group, block_q, dv).permute(
+        0, 2, 3, 1, 4, 5).reshape(b, hq, s, dv).to(q.dtype)
     if not with_lse:
         return out
     lse = (m + torch.log(l_)).view(b, n_q, hkv, group, block_q).permute(
@@ -273,10 +284,12 @@ def flash_attention_backward_plain(q, k, v, out, dout, lse, *, causal: bool,
 
 
 def _check_inputs(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
-        raise ValueError(f"flash_attention: need q (B, Hq, S, D) and k, v "
-                         f"(B, Hkv, S, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            tuple(k.shape[:3]) != tuple(v.shape[:3]):
+        raise ValueError(f"flash_attention: need q (B, Hq, S, D), k "
+                         f"(B, Hkv, S, D) and v (B, Hkv, S, DV), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, hq, s, d = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
@@ -294,22 +307,33 @@ def _check_inputs(q, k, v) -> None:
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, softcap: float,
                          block_q: int, block_k: int, s_valid: int,
-                         skip: bool = True, with_lse: bool = False):
-    """K6: q (B, Hq, S, D), k, v (B, Hkv, S, D) -> (B, Hq, S, D) in q's
-    dtype, and with ``with_lse`` the row log-sum-exp (B, Hq, S) fp32.
-    ``s_valid``: the real (unpadded) length; keys beyond it are
-    masked. ``skip=False`` runs every k-tile (masks still applied)."""
+                         skip: bool = True, with_lse: bool = False,
+                         scale: Optional[float] = None):
+    """K6: q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, DV) ->
+    (B, Hq, S, DV) in q's dtype, and with ``with_lse`` the row
+    log-sum-exp (B, Hq, S) fp32. ``s_valid``: the real (unpadded)
+    length; keys beyond it are masked. ``skip=False`` runs every k-tile
+    (masks still applied). ``scale``: the softmax scale, 1/sqrt(D) by
+    default. DV differs from D on the card only at ``MLA_HEAD_DIMS``,
+    in fp32, without the lse."""
     _check_inputs(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, block_q=block_q,
                                      block_k=block_k, s_valid=s_valid,
-                                     skip=skip, with_lse=with_lse)
+                                     skip=skip, with_lse=with_lse,
+                                     scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, hq, s, d = q.shape
-    if d not in HEAD_DIMS:
+    dv = v.shape[-1]
+    if dv == d and d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if dv != d and ((d, dv) not in MLA_HEAD_DIMS or q.dtype != torch.float32
+                    or with_lse):
+        raise ValueError(f"flash_attention: head dims ({d}, {dv}) need "
+                         f"float32, no lse, and a pair in {MLA_HEAD_DIMS}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, need float32 "
                         "or bfloat16")
@@ -326,15 +350,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      or d not in BACKWARD_HEAD_DIMS):
         raise ValueError("flash_attention: with_lse on the card needs "
                          f"float32 and head_dim in {BACKWARD_HEAD_DIMS}")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, hq, s, dv))
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     cap = float(softcap) if softcap > 0 else 0.0
     err = _load().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, DTYPES[q.dtype], b, hq,
-        k.shape[1], s, d, s_valid, int(causal), int(window),
-        1.0 / math.sqrt(d), cap, 1.0 / cap if cap else 0.0, int(skip),
+        k.shape[1], s, d, dv, s_valid, int(causal), int(window),
+        float(scale), cap, 1.0 / cap if cap else 0.0, int(skip),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with "

@@ -17,9 +17,13 @@ A call that autograd does not record (no grad mode, or no input that
 requires grad) saves nothing and launches K6 as a prefill does. The
 backward covers no logit softcap, and on the card only fp32 at head dim
 64 or 128 (``covers_backward``): a gradient through any other call
-raises ``NotImplementedError``, which saves nothing either.
+raises ``NotImplementedError``, which saves nothing either, as does a
+gradient through a call with its own ``scale`` or a v head dim other
+than q's (multi-head latent attention's K6 at (192, 128)).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +48,9 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kw, record):
-        ctx.covered = record and covers_backward(q, kw["softcap"])
+        ctx.covered = (record and covers_backward(q, kw["softcap"])
+                       and kw["scale"] is None
+                       and v.shape[-1] == q.shape[-1])
         if not ctx.covered:
             return kernel.flash_attention_bhsd(q, k, v, **kw)
         out, lse = kernel.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
@@ -58,7 +64,8 @@ class _Attention(torch.autograd.Function):
             raise NotImplementedError(
                 "flash attention's backward covers no logit softcap, and "
                 "on the card only float32 at head_dim in "
-                f"{kernel.BACKWARD_HEAD_DIMS}; train with use_flash=False")
+                f"{kernel.BACKWARD_HEAD_DIMS}, the default scale and v at "
+                "q's head dim; train with use_flash=False")
         kw = ctx.kw
         q, k, v, out, lse = ctx.saved_tensors
         with obs_flight.kernel_scope("flash_attn.backward"):
@@ -73,10 +80,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K,
-                    skip: bool = True) -> torch.Tensor:
-    """q (B, S, Hq, D); k, v (B, S, Hkv, D) -> (B, S, Hq, D).
-    ``skip=False`` runs every (q-block, k-block) tile, masking inside
-    it — the non-skipping baseline, bit-identical to ``skip=True``."""
+                    skip: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, S, Hq, D); k (B, S, Hkv, D), v (B, S, Hkv, DV) ->
+    (B, S, Hq, DV). ``skip=False`` runs every (q-block, k-block) tile,
+    masking inside it — the non-skipping baseline, bit-identical to
+    ``skip=True``. ``scale``: the softmax scale (1/sqrt(D) when None)."""
     b, s, hq, d = q.shape
     block_q = min(block_q, max(8, 1 << (s - 1).bit_length()))
     block_k = min(block_k, block_q)
@@ -85,7 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         qt, kt, vt = (F.pad(t, (0, 0, 0, pad)) for t in (qt, kt, vt))
     kw = dict(causal=causal, window=window, softcap=softcap,
-              block_q=block_q, block_k=block_k, s_valid=s, skip=skip)
+              block_q=block_q, block_k=block_k, s_valid=s, skip=skip,
+              scale=scale)
     record = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     out = _Attention.apply(qt.contiguous(), kt.contiguous(),

@@ -19,6 +19,11 @@ class MoEConfig:
     n_shared: int = 0            # always-on shared experts (DeepSeek-V2)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01   # load-balance loss weight
+    # port only (JAX's MoEConfig has none): every (token, choice) goes to
+    # its expert, no capacity, no groups, the top-k gates the router's
+    # probabilities (DeepSeek-V2's ``norm_topk_prob`` false; the module
+    # docstring of ``moe``)
+    dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +34,20 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rope scaling (arXiv:2309.00071) as DeepSeek-V2's
+    ``rope_scaling`` states it (``type: yarn``); see ``layers.yarn_freqs``
+    and ``layers.yarn_mscale``. Port only: JAX's ModelConfig has none."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +66,7 @@ class ModelConfig:
     out_bias: bool = False
     rope_theta: float = 10_000.0
     rope_variant: str = "rope"   # rope | mrope | none
+    rope_scaling: Optional[YaRNConfig] = None   # port only: YaRN
     mrope_sections: Sequence[int] = (16, 24, 24)
     logit_softcap: float = 0.0
     local_window: int = 0        # window for 'local_attn' blocks

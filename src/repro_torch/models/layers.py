@@ -114,14 +114,63 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                         device=device), exps)
 
 
+def yarn_mscale(scale: float, m: float) -> float:
+    """YaRN's attention temperature ``0.1 m ln(scale) + 1`` (1 for a
+    scale of at most 1), as DeepSeek-V2's ``yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def yarn_range(head_dim: int, theta: float, scaling) -> tuple:
+    """(low, high): the frequency slots where YaRN's ramp starts and
+    ends, ``floor(c(beta_fast))`` and ``ceil(c(beta_slow))`` with
+    ``c(r) = D ln(L / (2 pi r)) / (2 ln theta)``, L the original
+    context, clamped to [0, D - 1]."""
+    def c(rot):
+        return (head_dim * math.log(scaling.original_max_position_embeddings
+                                    / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(c(scaling.beta_fast)), 0),
+            min(math.ceil(c(scaling.beta_slow)), head_dim - 1))
+
+
+@functools.lru_cache(maxsize=16)
+def yarn_freqs(head_dim: int, theta: float, scaling, device=None
+               ) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``), cached per arguments: the
+    extrapolated ``theta^(-2i/D)`` below ``low``, the interpolated
+    ``1 / (factor theta^(2i/D))`` above ``high``, a linear ramp between."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    base = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=device), exps)
+    extra = 1.0 / base
+    inter = 1.0 / (scaling.factor * base)
+    low, high = yarn_range(head_dim, theta, scaling)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
-               theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+               theta: float, scaling=None) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+    ``scaling``: a ``YaRNConfig``, whose frequencies replace the plain
+    ones and whose ``yarn_mscale(factor, mscale) / yarn_mscale(factor,
+    mscale_all_dim)`` multiplies cos and sin."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    freqs = (rope_freqs(d, theta, x.device) if scaling is None
+             else yarn_freqs(d, theta, scaling, x.device))   # (D/2,)
     ang = positions[..., None].float() * freqs              # (..., S, D/2)
     ang = ang[..., None, :]                                 # (..., S, 1, D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        mscale = (yarn_mscale(scaling.factor, scaling.mscale)
+                  / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -4,7 +4,11 @@ The port of ``repro.models.mla``. K/V are compressed to a shared latent
 c_kv of rank ``kv_lora_rank``; queries split into a no-RoPE part
 (against up-projected keys) and a RoPE part (against one shared rotary
 key). ``mla_attention`` is the full-sequence form with the (S, S)
-logits, as JAX's (which does not route MLA to flash attention). The
+logits, as JAX's (which does not route MLA to flash attention); with
+``use_flash`` on the card it runs on K6 instead, at the MLA head dims
+``kernel.MLA_HEAD_DIMS`` (q.k over [nope, rope], p.v over v_head_dim).
+YaRN (``cfg.rope_scaling``) scales the rope frequencies and the softmax
+(``_scale``). The
 decode cache stores only (c_kv, k_rope) and decodes through the
 "absorbed" matmuls (attention in the latent space), so a step costs
 O(rank) per cached token instead of O(heads * head_dim).
@@ -21,6 +25,7 @@ import math
 import torch
 
 from repro_torch.dist import sharding
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
 
@@ -56,7 +61,8 @@ def _queries(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q = layers.dense(p["q_proj"], x).view(
         b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    return q_nope, layers.apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    return q_nope, layers.apply_rope(q_rope, positions, theta=cfg.rope_theta,
+                                     scaling=cfg.rope_scaling)
 
 
 def _latent(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -68,19 +74,33 @@ def _latent(p: dict, cfg: ModelConfig, x: torch.Tensor,
     c_kv = layers.apply_norm(p["kv_norm"], kvd[..., :m.kv_lora_rank],
                              kind="rmsnorm", eps=cfg.norm_eps)
     k_rope = layers.apply_rope(kvd[..., m.kv_lora_rank:][:, :, None],
-                               positions, theta=cfg.rope_theta)
+                               positions, theta=cfg.rope_theta,
+                               scaling=cfg.rope_scaling)
     return c_kv, k_rope
 
 
 def _scale(cfg: ModelConfig) -> float:
-    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim
-                           + cfg.mla.qk_rope_head_dim)
+    """The softmax scale: 1/sqrt(qk head dim), times YaRN's
+    ``yarn_mscale(factor, mscale_all_dim)`` squared under YaRN (as
+    DeepSeek-V2's attention sets ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim
+                            + cfg.mla.qk_rope_head_dim)
+    ys = cfg.rope_scaling
+    if ys is not None and ys.mscale_all_dim:
+        scale *= layers.yarn_mscale(ys.factor, ys.mscale_all_dim) ** 2
+    return scale
 
 
 def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *, causal: bool = True
-                  ) -> torch.Tensor:
-    """Train/prefill path. x: (B, S, d); positions (B, S)."""
+                  positions: torch.Tensor, *, causal: bool = True,
+                  use_flash: bool = False) -> torch.Tensor:
+    """Train/prefill path. x: (B, S, d); positions (B, S). ``use_flash``
+    on the card: K6 over q = [q_nope, q_rope] and k = [k_nope, k_rope
+    broadcast over the heads], v at v_head_dim. K6 builds the (qk, v)
+    head dims ``kernel.MLA_HEAD_DIMS`` and raises at any other; the CPU
+    keeps the plain path; a call that autograd records raises in its
+    backward, which no kernel covers at these dims
+    (``flash_ops.covers_backward``)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -88,6 +108,13 @@ def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     c_kv, k_rope = _latent(p, cfg, x, positions)
     k_nope = layers.dense(p["k_up"], c_kv).view(b, s, h, m.qk_nope_head_dim)
     v = layers.dense(p["v_up"], c_kv).view(b, s, h, m.v_head_dim)
+    if use_flash and x.is_cuda:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)],
+                      dim=-1)
+        out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        scale=_scale(cfg))
+        return layers.dense(p["o"], out.reshape(b, s, h * m.v_head_dim))
 
     # (B, H, Sq, D) @ (B, H, D, Sk); the rotary key is shared by the heads
     logits = (torch.matmul(q_nope.float().transpose(1, 2),

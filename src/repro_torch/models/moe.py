@@ -28,6 +28,23 @@ its own (the ranks' mean aux loss is the mean over all groups); where a
 group spans ranks, every rank gathers the global batch's tokens
 (``sharding.gather_rows``), runs all its groups and keeps its own rows,
 so the dispatch, capacity, drops and aux loss are the one device's.
+
+``MoEConfig.dropless`` (the published DeepSeek-V2-Lite, not a JAX
+routing) takes ``_dropless`` instead: no groups, no capacity, every
+(token, choice) to its expert. The router's fp32 softmax, a greedy
+top-k, the gates the probabilities themselves (not renormalised over
+the k, as the capacity path's are); the choices sorted by expert
+(stable, so in token order within an expert), each expert's SwiGLU over
+exactly its own rows, the rows put back in (token, choice) order and
+summed with their gates, in fp32, then the shared experts. Every token
+routes alone, so a rank of a data-parallel step routes its own rows and
+gathers nothing. Its spans ``moe.route``, ``moe.experts``, ``moe.combine`` and
+``moe.shared`` nest under the block's ``block.ffn``. While spans record,
+both paths count a layer call's routing in ``obs.metrics``' registry
+(``_count``): the busiest expert's choices over the mean, a sample of
+the histogram ``moe.expert_load``, and the choices dropped (every
+(token, choice) less those computed), added to the counter
+``moe.dropped_choices``.
 """
 from __future__ import annotations
 
@@ -37,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.dist import sharding
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, MoEConfig
+from repro_torch.obs import metrics, trace
 
 MAX_GROUP = 4096
 
@@ -131,6 +149,8 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     hold whole groups of the global batch, each device dispatches its own
     tokens (``sharding.batch_local``); a rank of a data-parallel step
     groups as the global batch does (the module's docstring)."""
+    if cfg.moe.dropless:
+        return _dropless(p, cfg, x, act)
     b, s, _ = x.shape
     t = b * s
     if rows:
@@ -192,4 +212,71 @@ def _grouped(p: dict, cfg: ModelConfig, x: torch.Tensor, n_groups: int,
     frac_tokens = kept / max(1.0, float(g))
     aux = mcfg.router_aux_weight * e * (frac_tokens * probs.mean(1)
                                         ).sum(-1).mean()
+    if trace.tracer().recording():
+        _count(kept.sum(0).tolist(), ids.numel())
     return out.to(x.dtype), aux
+
+
+def _count(rows: list, choices: int) -> None:
+    """A layer call's routing into the metrics registry (the module's
+    docstring): ``rows`` the choices each expert computed, ``choices``
+    every (token, choice). The registry's own switch is left aside: the
+    count records while spans do."""
+    reg = metrics.registry()
+    total = sum(rows)
+    if total:
+        reg.histogram("moe.expert_load").observe(
+            max(rows) * len(rows) / total)
+    reg.counter("moe.dropped_choices").inc(choices - total)
+
+
+def _dropless(p: dict, cfg: ModelConfig, x: torch.Tensor, act: str
+              ) -> tuple:
+    """(out, aux) of x (B, S, d) with every choice kept (the module's
+    docstring). One host sync a call: the experts' row counts, which
+    slice the sorted rows. aux is the capacity path's formula over the
+    batch as one group, with nothing dropped."""
+    mcfg = cfg.moe
+    b, s, d = x.shape
+    t, k, e = b * s, mcfg.top_k, mcfg.n_experts
+    xt = x.reshape(t, d)
+    with trace.span("moe.route"):
+        probs = torch.softmax(layers.dense(p["router"], xt.float()), dim=-1)
+        gates, ids = torch.topk(probs, k, dim=-1)
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=e)
+        rows = counts.tolist()
+        xs = xt.index_select(0, order // k)
+    with trace.span("moe.experts"):
+        a = layers.ACTS[act]
+        # each expert writes its rows in place, unless autograd records
+        # the call (an ``out=`` product has no gradient): then one cat
+        record = torch.is_grad_enabled() and any(
+            w.requires_grad for w in (xs, p["w_gate"], p["w_up"],
+                                      p["w_down"]))
+        ys = [] if record else torch.empty_like(xs)
+        start = 0
+        for i, n in enumerate(rows):
+            if n:
+                xi = xs[start:start + n]
+                h = a(xi @ p["w_gate"][i]) * (xi @ p["w_up"][i])
+                if record:
+                    ys.append(h @ p["w_down"][i])
+                else:
+                    torch.matmul(h, p["w_down"][i], out=ys[start:start + n])
+            start += n
+        if record:
+            ys = torch.cat(ys)
+    with trace.span("moe.combine"):
+        back = torch.empty_like(ys).index_copy_(0, order, ys)
+        out = (back.view(t, k, d).float() * gates[..., None]).sum(1)
+    with trace.span("moe.shared"):
+        for i in range(mcfg.n_shared):
+            out = out + layers.mlp(p[f"shared_{i}"], xt, act=act,
+                                   glu=True).float()
+    if trace.tracer().recording():
+        _count(rows, t * k)
+    aux = mcfg.router_aux_weight * e * (counts.float() / t
+                                        * probs.mean(0)).sum()
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -13,7 +13,8 @@ entropy plus the MoE router's aux loss) and ``count_params``.
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``);
 ``use_flash=True`` runs every ``attn`` / ``local_attn`` block on the
 flash-attention kernel (K6, and K6b for its gradient; a training call
-on the card that K6b covers takes them unasked: ``attention.flash_trains``).
+on the card that K6b covers takes them unasked: ``attention.flash_trains``),
+and an ``mla`` block on the card on K6 at its head dims (``mla._flash``).
 The mixers:
 
   attn        full-causal GQA          local_attn  sliding-window GQA
@@ -197,7 +198,8 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, layer_idx: int,
     with obs.span("block.mixer", args={"layer": layer_idx}):
         h = _norm(cfg, p["ln1"], x)
         if kind == "mla":
-            mixer_out = mla.mla_attention(p["mixer"], cfg, h, positions)
+            mixer_out = mla.mla_attention(p["mixer"], cfg, h, positions,
+                                          use_flash=use_flash)
         elif kind == "rglru":
             mixer_out, _ = rglru.rglru_block(p["mixer"], cfg, h)
         else:

@@ -166,12 +166,16 @@ class Tracer:
         self._append({"name": name, "ph": "C", "ts": t * 1e6,
                       "pid": _pid(worker), "args": dict(values)})
 
+    def recording(self) -> bool:
+        """Whether spans record: tracing on or a profiler running."""
+        return state.enabled("trace") or _profiling()
+
     def span(self, name: str, *, cat: str = "host",
              args: Optional[dict] = None):
         """A span of the program (see the module's docstring): records
         while tracing is on or a profiler runs, else a shared
         ``nullcontext``."""
-        if not (state.enabled("trace") or _profiling()):
+        if not self.recording():
             return _NULL
         return _Span(self, name, cat, args)
 

@@ -588,6 +588,72 @@ def test_k6_refuses_bad_inputs_and_a_refused_launch_raises(card):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("causal,s", [(True, 256), (False, 192),
+                                      (True, 320)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (6, 2)])
+def test_k6_at_mla_head_dims_matches_plain(card, causal, s, hq, hkv):
+    """K6 at (D 192, DV 128), multi-head latent attention's q.k and p.v
+    widths, with a softmax scale of its own (YaRN's), against its plain
+    version at rtol = atol = 2e-5 (fp32 sums in another order); skip ==
+    full grid bit for bit; a (D, DV) pair K6 does not build raises."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    rng = np.random.default_rng(s + hq)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, h, s, d)).astype(
+        np.float32)) for h, d in ((hq, 192), (hkv, 192), (hkv, 128)))
+    kw = dict(causal=causal, window=0, softcap=0.0, block_q=64, block_k=64,
+              s_valid=s if causal else s - 10, scale=0.114721)
+    fk.reset_launches()
+    got = fk.flash_attention_bhsd(q.to(card), k.to(card), v.to(card), **kw)
+    full = fk.flash_attention_bhsd(q.to(card), k.to(card), v.to(card),
+                                   skip=False, **kw)
+    assert fk.flash_attention_bhsd.launches == 2
+    assert got.shape == (2, hq, s, 128)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, full)
+    with pytest.raises(ValueError, match="head dims"):
+        fk.flash_attention_bhsd(q.to(card)[..., :128].contiguous(),
+                                k.to(card)[..., :128].contiguous(),
+                                v.to(card)[..., :64].contiguous(), **kw)
+    with pytest.raises(ValueError, match="head dims"):
+        fk.flash_attention_bhsd(q.to(card).bfloat16(), k.to(card).bfloat16(),
+                                v.to(card).bfloat16(), **kw)
+
+
+def test_mla_prefill_on_the_card_runs_k6_and_matches_the_cpu(card):
+    """A small DeepSeek-V2-Lite (3 layers, the published MLA head dims:
+    q.k 128 + 64, v 128; YaRN; dropless MoE) prefills on the card with
+    K6 once an MLA layer and equals the CPU's plain MLA path within
+    2e-5 of the logits' scale; a gradient through K6 at these dims
+    raises (no backward kernel covers them)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models.common import MLAConfig
+    from repro_torch.train import steps
+    base = configs.get_config("deepseek-v2-lite")
+    mc = dataclasses.replace(
+        base.reduced(n_layers=3), mla=MLAConfig(
+            kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    params = tts.init(mc, tts.generator(5))
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mc.vocab, size=(1, 300)).astype(np.int32))
+    step = steps.make_prefill_step(mc, use_flash=True, scan_layers=True,
+                                   logits_positions="last")
+    want = step(params, {"tokens": tok})
+    gparams = pytree.tree_map(lambda t: t.to(card), params)
+    fk.reset_launches()
+    got = step(gparams, {"tokens": tok.to(card)})
+    assert fk.flash_attention_bhsd.launches == mc.n_layers
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-5 * scale)
+    gp = pytree.tree_map(lambda t: t.requires_grad_(True), gparams)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tts.apply(gp, mc, {"tokens": tok[:, :64].to(card)},
+                  use_flash=True).sum().backward()
+
+
 # ------------------------------------------------------ K6b flash bwd ----
 
 def _masked_logits(q, k, *, causal, window, s_valid):
@@ -969,12 +1035,15 @@ FAMILY_ARCHS = ("recurrentgemma-9b", "deepseek-v2-lite-16b", "qwen2.5-14b",
 def _reduced_family(arch):
     import dataclasses
     from repro_torch import configs
+    from repro_torch.models.common import MLAConfig
     cfg = configs.get_config(arch)
     if arch == "recurrentgemma-9b":
         return dataclasses.replace(cfg.reduced(n_layers=5), block_pattern=(
             "rglru", "rglru", "local_attn", "rglru", "rglru"))
-    if arch == "deepseek-v2-lite-16b":
-        return cfg.reduced(n_layers=3)
+    if arch == "deepseek-v2-lite-16b":      # MLA at head dims K6 builds
+        return dataclasses.replace(cfg.reduced(n_layers=3), mla=MLAConfig(
+            kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
     return cfg.reduced()
 
 
@@ -982,7 +1051,7 @@ def _reduced_family(arch):
 def test_family_prefill_and_train_step_on_the_card_match_the_cpu(card,
                                                                  arch):
     """The hybrid and MoE families reduced: the flash prefill launches
-    K6 once per attention layer (none for MLA or RG-LRU) and equals the
+    K6 once per attention or MLA layer (none for RG-LRU) and equals the
     CPU's plain version within 1e-5; a train step's loss (with the MoE
     aux) and gradients equal the CPU's within 1e-5."""
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -998,7 +1067,7 @@ def test_family_prefill_and_train_step_on_the_card_match_the_cpu(card,
     fk.reset_launches()
     got = step(gparams, {"tokens": tok.to(card)})
     assert fk.flash_attention_bhsd.launches == sum(
-        k in ("attn", "local_attn") for k in mc.block_pattern)
+        k in ("attn", "local_attn", "mla") for k in mc.block_pattern)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     loss = steps.make_loss_fn(mc, steps.TrainStepConfig(scan_layers=True))
     batch = {"tokens": tok[:, :32], "labels": tok[:, 1:33]}

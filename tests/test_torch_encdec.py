@@ -41,6 +41,8 @@ from repro_torch.models import transformer as tt
 from repro_torch.models import transformer_scan as tts
 from repro_torch.train import steps
 
+from _config_parity import assert_same_config
+
 ARCH = "seamless-m4t-large-v2"
 FULL_PARAMS = 1_632_550_912
 PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -89,7 +91,7 @@ def model():
 def test_config_copy_matches_jax():
     j, t = jconfigs.get_config(ARCH), configs.get_config(ARCH)
     for a, b in ((j, t), (j.reduced(), t.reduced())):
-        assert dataclasses.asdict(b) == dataclasses.asdict(a)
+        assert_same_config(b, a)
     assert t.reduced().n_encoder_layers == 2 and t.is_encdec
 
 

@@ -41,6 +41,8 @@ from repro_torch.models import transformer as tt
 from repro_torch.models import transformer_scan as tts
 from repro_torch.train import steps
 
+from _config_parity import assert_same_config
+
 ARCHS = ("recurrentgemma-9b", "deepseek-v2-lite-16b", "qwen2.5-14b",
          "command-r-35b", "grok-1-314b")
 # jax.eval_shape(transformer.init) at full width
@@ -86,7 +88,7 @@ def test_config_copy_matches_jax(arch):
     j, t = jconfigs.get_config(arch), configs.get_config(arch)
     for a, b in ((j, t), (j.reduced(), t.reduced()), (_reduced(j),
                                                        _reduced(t))):
-        assert dataclasses.asdict(b) == dataclasses.asdict(a)
+        assert_same_config(b, a)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -22,6 +22,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer_scan as tts
 from repro_torch.train import steps
 
+from _config_parity import assert_same_config
+
 ARCH = "qwen1.5-0.5b"
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -55,12 +57,11 @@ def test_other_architectures_are_not_ported_yet():
     """Every architecture of the JAX package is ported now: all 11 of its
     arch ids resolve to the port's copy of the config, and an unknown id
     still raises a KeyError that lists them."""
-    import dataclasses
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
     for arch in jconfigs._MODULES:
-        assert dataclasses.asdict(configs.get_config(arch)) == \
-            dataclasses.asdict(jconfigs.get_config(arch)), arch
+        assert_same_config(configs.get_config(arch),
+                           jconfigs.get_config(arch), arch)
     assert len(jconfigs._MODULES) == 11
     assert not hasattr(configs, "NOT_PORTED")
 

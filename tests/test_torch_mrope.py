@@ -18,7 +18,6 @@ logits' scale (a K/V value at a rounding half lands one bf16 ulp or one
 int8 step apart where the float32 sums differ by an ulp, as in
 tests/test_torch_decode.py).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +39,8 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tt
 from repro_torch.models import transformer_scan as tts
 from repro_torch.train import steps
+
+from _config_parity import assert_same_config
 
 ARCH = "qwen2-vl-72b"
 FULL_PARAMS = 72_706_203_648
@@ -107,7 +108,7 @@ def model():
 def test_config_copy_matches_jax():
     j, t = jconfigs.get_config(ARCH), configs.get_config(ARCH)
     for a, b in ((j, t), (j.reduced(), t.reduced())):
-        assert dataclasses.asdict(b) == dataclasses.asdict(a)
+        assert_same_config(b, a)
     assert t.reduced().mrope_sections == (16, 8, 8)
 
 
